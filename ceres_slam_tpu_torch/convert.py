@@ -1,9 +1,10 @@
 """Carry problems over from the JAX package: numpy in, torch out.
 
-The JAX package's ``StereoBAProblem``, ``BAState`` and ``WindowLayout``
-are NamedTuples; given with numpy leaves (``jax.tree.map(np.asarray, x)``)
-these functions build the port's containers on ``device``, so that a test
-can hand both packages the same problem. Nothing here imports JAX.
+The JAX package's ``StereoBAProblem``, ``BAState``, ``WindowLayout``,
+``ObsTables``, ``ObsBlocks`` and ``TrackInfo`` are NamedTuples; given with
+numpy leaves (``jax.tree.map(np.asarray, x)``) these functions build the
+port's containers on ``device``, so that a test can hand both packages the
+same inputs. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import numpy as np
 import torch
 
 from ceres_slam_tpu_torch.models.stereo_camera import StereoCamera
-from ceres_slam_tpu_torch.solver import dense, window
+from ceres_slam_tpu_torch.solver import banded, dense, pcg, window
 
 
 def _t(x, device, dtype=None) -> torch.Tensor:
@@ -42,6 +43,35 @@ def problem_from_numpy(problem, device="cpu") -> dense.StereoBAProblem:
 
 def state_from_numpy(state, device="cpu") -> dense.BAState:
     return dense.BAState(poses=_t(state.poses, device), points=_t(state.points, device))
+
+
+def obs_tables_from_numpy(tables, pose_idx, point_idx, device="cpu") -> pcg.ObsTables:
+    """The JAX gather tables, with the slot pose / landmark tables that the
+    port's ``ObsTables`` adds, derived from the observation indices."""
+    bp, bk = np.asarray(tables.by_point), np.asarray(tables.by_pose)
+    pose_idx, point_idx = np.asarray(pose_idx), np.asarray(point_idx)
+    return pcg.ObsTables(
+        by_point=_t(bp, device, torch.int32), by_point_w=_t(tables.by_point_w, device, torch.float32),
+        by_pose=_t(bk, device, torch.int32), by_pose_w=_t(tables.by_pose_w, device, torch.float32),
+        by_point_pose=_t(pose_idx[bp], device, torch.int32),
+        by_pose_point=_t(point_idx[bk], device, torch.int32))
+
+
+def obs_blocks_from_numpy(b, device="cpu") -> pcg.ObsBlocks:
+    """A JAX ``pcg.ObsBlocks`` (its ``U`` field, a reshape of ``U18``, dropped)."""
+    return pcg.ObsBlocks(**{f: _t(getattr(b, f), device) for f in pcg.ObsBlocks._fields
+                            if f not in ("pose_idx", "point_idx")},
+                         pose_idx=_t(b.pose_idx, device, torch.int64),
+                         point_idx=_t(b.point_idx, device, torch.int64))
+
+
+def track_info_from_numpy(t, device="cpu") -> banded.TrackInfo:
+    """A JAX ``banded.TrackInfo``; index tables become int64."""
+    arrays = {f: _t(getattr(t, f), device, torch.int64)
+              for f in ("slots", "start", "by_bin", "start_bins")}
+    arrays.update({f: _t(getattr(t, f), device) for f in ("slot_w", "by_bin_w", "start_bins_w")})
+    return banded.TrackInfo(L=int(t.L), n_super=int(t.n_super), eligible_frac=float(t.eligible_frac),
+                            **arrays)
 
 
 def layout_from_numpy(layout, device="cpu") -> window.WindowLayout:

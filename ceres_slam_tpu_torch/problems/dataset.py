@@ -1,9 +1,13 @@
-"""Dataset problem layer: CSV input, VO initial guess, sliding-window passes.
+"""Dataset problem layer: CSV input, VO initial guess, BA passes.
 
-Port of ``ceres_slam_tpu/problems/dataset.py`` (the parts the flagship
-sun-aided sliding-window VO runs). Index bookkeeping (reciprocal matching,
-window slot remapping, padding, pose compounding) is host numpy; the
-batched RANSAC and the window solves run on ``device``.
+Port of ``ceres_slam_tpu/problems/dataset.py``: the flagship sun-aided
+sliding-window VO (``DatasetProblemSun``) and the plain stereo VO /
+full-batch BA pipeline (``DatasetProblem.solve_full``). Index bookkeeping
+(reciprocal matching, window slot remapping, padding, pose compounding) is
+host numpy; the batched RANSAC and the solves run on ``device``. Both
+pipelines draw the JAX package's RANSAC hypotheses (pair k under seed
+``rng_seed + k``), so the full-batch initial guess equals the JAX per-pair
+path's.
 
 The pass is the host per-window loop of the JAX package
 (``DatasetProblemSun.solve_sliding_window(scan=False)``), which the JAX
@@ -44,8 +48,9 @@ def _round_up(n: int, m: int = 64) -> int:
 
 @dataclasses.dataclass
 class DatasetProblem:
-    """Stereo VO state, observations and the VO initial guess shared by the
-    dataset kinds (only the sun-aided one, ``DatasetProblemSun``, is ported)."""
+    """Plain stereo VO / BA dataset: state, observations, the VO initial
+    guess and the ``dataset_vo`` pipeline; ``DatasetProblemSun`` adds the
+    sun-aided sliding window."""
 
     camera: StereoCamera = None
     num_states: int = 0
@@ -71,19 +76,39 @@ class DatasetProblem:
     def _dt(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
-    def _parse_track(self, rows):
-        """Track CSV with per-observation covariances: header ``K,J``;
-        intrinsics ``fu,fv,cu,cv,b``; the first pose as a row-major 4x4;
-        then rows ``k, j, u, v, d, cov(3x3 row-major)``."""
+    def _parse_track(self, rows, with_covar: bool):
+        """Track CSV: header ``K,J``; intrinsics ``fu,fv,cu,cv,b``; without
+        per-observation covariances a line of the three shared observation
+        variances; the first pose as a row-major 4x4; then rows
+        ``k, j, u, v, d`` (and ``cov(3x3 row-major)`` with them)."""
         self.num_states, self.num_points = int(rows[0][0]), int(rows[0][1])
         self.camera = StereoCamera.create(*rows[1][:5])
-        T_0_g = np.asarray(rows[2][:16]).reshape(4, 4)
+        i = 2 if with_covar else 3
+        T_0_g = np.asarray(rows[i][:16]).reshape(4, 4)
         self._T0 = np.concatenate([T_0_g[:3, 3], T_0_g[:3, :3].reshape(9)])
-        arr = np.asarray(rows[3:])
+        arr = np.asarray(rows[i + 1:])
         self.state_ids = arr[:, 0].astype(np.int64)
         self.point_ids = arr[:, 1].astype(np.int64)
         self.obs_list = arr[:, 2:5].copy()
-        self.obs_covars = arr[:, 5:14].reshape(-1, 3, 3).copy()
+        if with_covar:
+            self.obs_covars = arr[:, 5:14].reshape(-1, 3, 3).copy()
+        else:
+            var = np.diag(np.asarray(rows[2][:3]))
+            self.obs_covars = np.broadcast_to(var, (arr.shape[0], 3, 3)).copy()
+
+    @classmethod
+    def read_csv(cls, filename: str) -> "DatasetProblem":
+        """Plain stereo track CSV (shared observation variances)."""
+        self = cls()
+        self._parse_track(csvio.read_numeric_csv(filename), with_covar=False)
+        self._init_state()
+        return self
+
+    def write_csv(self, filename: str):
+        """``<base>_poses.csv`` and ``<base>_map.csv``."""
+        base = filename.rsplit(".", 1)[0]
+        csvio.write_poses_csv(base + "_poses.csv", self.poses)
+        csvio.write_map_csv(base + "_map.csv", self.map_points, self.initialized_point)
 
     def _init_state(self):
         K, J = self.num_states, self.num_points
@@ -251,6 +276,55 @@ class DatasetProblem:
         upd = self.initialized_point[slots]
         self.map_points[slots[upd]] = pts[upd]
 
+    # -- the dataset_vo pipeline ----------------------------------------------
+
+    @staticmethod
+    def auto_linear_solver(Kw: int, n_pts: int) -> str:
+        """Size-based solver choice: dense Cholesky at window scale, the
+        explicit-Schur window solver for medium batches (its reduced S is
+        6K x 6K dense, and K1 takes at most 128 poses), matrix-free
+        Schur-PCG beyond."""
+        if 6 * Kw + 3 * n_pts <= 1536:
+            return "dense"
+        return "window" if Kw <= window_mod.window_kernel.MAX_POSES else "pcg"
+
+    def solve_full(self, window: int = 0, config: lm.SolveConfig | None = None,
+                   linear_solver: str = "auto"):
+        """The ``dataset_vo`` pipeline: per window, the VO initial guess, BA
+        of the window with its first pose held constant, and
+        ``reset_points``; ``window=0`` is one full-batch solve.
+        ``linear_solver``: ``auto`` | ``dense`` | ``window`` | ``pcg``.
+        Returns the per-window ``SolveSummary`` list."""
+        from ceres_slam_tpu_torch.solver import pcg
+
+        config = config or lm.SolveConfig(max_iters=100)
+        K = self.num_states
+        window = window or K
+        n_obs_pad, n_pts_pad, _ = self._window_budget(window)
+        solver = linear_solver
+        if solver == "auto":
+            solver = self.auto_linear_solver(window, n_pts_pad)
+        if solver not in ("dense", "window", "pcg"):
+            raise ValueError(f"unknown linear solver: {linear_solver!r}")
+        summaries = []
+        for k1 in range(0, K - window + 1):
+            k2 = min(k1 + window, K)
+            self.compute_initial_guess(k1, k2)
+            problem, state, slots = self.build_window_problem(k1, k2, n_obs_pad, n_pts_pad,
+                                                              gauge_fix_first=True)
+            if solver == "window":
+                layout = window_mod.build_window_layout(problem, k2 - k1, n_pts_pad,
+                                                        device=self.device)
+                sol, summary, _ = window_mod._run_loop(layout, state, config, "lm")
+            else:
+                problem = dense.to_device(problem, self.device)
+                solve = pcg.solve_ba_pcg if solver == "pcg" else dense.solve_ba
+                sol, summary = solve(problem, state, config)
+            self.absorb_window_solution(k1, k2, sol, slots)
+            summaries.append(summary)
+            self.reset_points()
+        return summaries
+
 
 @dataclasses.dataclass
 class DatasetProblemSun(DatasetProblem):
@@ -267,7 +341,7 @@ class DatasetProblemSun(DatasetProblem):
     @classmethod
     def read_csv(cls, track_file: str, ref_sun_file: str, obs_sun_file: str) -> "DatasetProblemSun":
         self = cls()
-        self._parse_track(csvio.read_numeric_csv(track_file))
+        self._parse_track(csvio.read_numeric_csv(track_file), with_covar=True)
         self._init_state()
         K = self.num_states
         self.pose_covars = np.zeros((K, 6, 6))

@@ -211,8 +211,7 @@ def _equilibrated_cho(S: torch.Tensor):
     A failed factorization gives NaN (as ``jax.scipy`` does), which the
     loops treat as a rejected step — and no host synchronization."""
     s = torch.rsqrt(torch.clamp(torch.diagonal(S), min=1e-30))
-    L, info = torch.linalg.cholesky_ex(S * (s[:, None] * s[None, :]))
-    L = torch.where(info == 0, L, torch.full_like(L, math.nan))
+    L = lm._cholesky_or_nan(S * (s[:, None] * s[None, :]))
 
     def solve(b):
         sc = s[:, None] if b.ndim == 2 else s

@@ -54,3 +54,12 @@ def read_poses_csv(path: str) -> np.ndarray:
             M = np.asarray([float(t) for t in line.split(",")]).reshape(4, 4)
             out.append(np.concatenate([M[:3, 3], M[:3, :3].reshape(9)]))
     return np.stack(out)
+
+
+def write_map_csv(path: str, points: np.ndarray, initialized: np.ndarray):
+    """``_map.csv``: ``point_id, x, y, z`` for initialized points."""
+    with open(path, "w") as f:
+        f.write("point_id, x, y, z\n")
+        for j in range(points.shape[0]):
+            if initialized[j]:
+                f.write(f"{j}," + ",".join(repr(float(x)) for x in points[j]) + "\n")
