@@ -1,7 +1,8 @@
 """Carry problems over from the JAX package: numpy in, torch out.
 
 The JAX package's ``StereoBAProblem``, ``BAState``, ``WindowLayout``,
-``ObsTables``, ``ObsBlocks`` and ``TrackInfo`` are NamedTuples; given with
+``ObsTables``, ``ObsBlocks``, ``TrackInfo``, ``PhotometricProblem`` and
+``PhotometricState`` are NamedTuples; given with
 numpy leaves (``jax.tree.map(np.asarray, x)``) these functions build the
 port's containers on ``device``, so that a test can hand both packages the
 same inputs. Nothing here imports JAX.
@@ -13,17 +14,21 @@ import numpy as np
 import torch
 
 from ceres_slam_tpu_torch.models.stereo_camera import StereoCamera
-from ceres_slam_tpu_torch.solver import banded, dense, pcg, window
+from ceres_slam_tpu_torch.solver import banded, dense, pcg, photometric, window
 
 
 def _t(x, device, dtype=None) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), dtype=dtype).to(device)
 
 
+def _camera(camera) -> StereoCamera:
+    return StereoCamera.create(*(np.asarray(v) for v in camera))
+
+
 def problem_from_numpy(problem, device="cpu") -> dense.StereoBAProblem:
     st, sun, pr = problem.stereo, problem.sun, problem.prior
     return dense.StereoBAProblem(
-        camera=StereoCamera.create(*(np.asarray(v) for v in problem.camera)),
+        camera=_camera(problem.camera),
         stereo=dense.StereoObs(
             uvd=_t(st.uvd, device), stiffness=_t(st.stiffness, device),
             pose_idx=_t(st.pose_idx, device, torch.int64),
@@ -96,3 +101,19 @@ def layout_from_numpy(layout, device="cpu") -> window.WindowLayout:
         weight=_t(np.asarray(layout.weightT)[0, :M].copy(), device),
         pose_free=_t(np.asarray(layout.pose_freeT)[0, :M].copy(), device),
     )
+
+
+def photometric_problem_from_numpy(problem, device="cpu") -> photometric.PhotometricProblem:
+    """A JAX ``photometric.PhotometricProblem``; the disparity stiffness
+    becomes a Python float."""
+    arrays = {f: _t(getattr(problem, f), device)
+              for f in photometric.PhotometricProblem._fields
+              if f not in ("camera", "disp_stiffness")}
+    return photometric.PhotometricProblem(camera=_camera(problem.camera),
+                                          disp_stiffness=float(np.asarray(problem.disp_stiffness)),
+                                          **arrays)
+
+
+def photometric_state_from_numpy(state, device="cpu") -> photometric.PhotometricState:
+    return photometric.PhotometricState(T=_t(state.T, device),
+                                        disparities=_t(state.disparities, device))

@@ -8,8 +8,8 @@ in float64 on a few scalars read from the device: one read per iteration,
 plus one for the initial cost. The window solver's block-carrying loops
 (``solver/window.py``, ``solver/dogleg.py``) follow the same rules.
 
-Not ported yet: ``dogleg_solve`` and the ``record_history`` /
-``run_full_budget`` fields (no path of the port sets them).
+Not ported yet: ``dogleg_solve`` and the ``record_history`` field (no
+path of the port sets it).
 """
 
 from __future__ import annotations
@@ -33,6 +33,10 @@ class SolveConfig(NamedTuple):
     # relative to the worst of the last `nonmonotonic_window` accepted costs
     nonmonotonic: bool = False
     nonmonotonic_window: int = 5
+    # benchmarking only: ignore every convergence test and run exactly
+    # max_iters iterations, accepted or not, so a measured rate is a pure
+    # per-iteration rate
+    run_full_budget: bool = False
 
 
 class SolveSummary(NamedTuple):
@@ -79,8 +83,9 @@ def lm_solve(state0, config: SolveConfig, cost_fn: Callable, step_fn: Callable,
         accept_ref = max(cost_buf) if config.nonmonotonic else cost
         accept = math.isfinite(new_cost) and new_cost < accept_ref
         small = accept and actual >= 0.0 and actual <= config.ftol * max(cost, 1e-30)
-        done = (small or grad_norm <= config.gtol or (dx_ok and dx_max <= config.xtol)
-                or lam >= config.max_lambda)
+        done = not config.run_full_budget and (
+            small or grad_norm <= config.gtol or (dx_ok and dx_max <= config.xtol)
+            or lam >= config.max_lambda)
         if accept:
             lam = max(lam * max(1.0 / 3.0, 1.0 - (2.0 * rho - 1.0) ** 3), config.min_lambda)
             state, cost = new_state, new_cost

@@ -1,4 +1,4 @@
-"""The CUDA kernels (K1, K2, K3) against their plain PyTorch versions, on the card.
+"""The CUDA kernels (K1-K4) against their plain PyTorch versions, on the card.
 
 Needs an NVIDIA GPU with nvcc; skips elsewhere. This file imports no JAX,
 so it also runs where JAX is absent; there the repository's conftest (which
@@ -9,13 +9,14 @@ imports JAX) must be skipped:
 K1's tolerances, relative to the largest reference entry: float64 1e-12
 (rounding only); float32 1e-5 for the Gram blocks and 5e-3 for the
 gradients (accumulation order; the gradients cancel), rtol 1e-4 for the
-cost. K2's and K3's are stated above their tests.
+cost. K2's, K3's and K4's are stated above their tests.
 """
 
 import pytest
 import torch
 
-from ceres_slam_tpu_torch.ops import schur_kernel, stereo_factor_kernel, window_kernel
+from ceres_slam_tpu_torch.ops import (bilinear_kernel, schur_kernel, stereo_factor_kernel,
+                                      window_kernel)
 
 torch.set_num_threads(1)
 
@@ -99,3 +100,32 @@ def test_k3_matches_plain(shape, dtype):
         assert err <= 1e-12 * ref.abs().max()
     else:
         assert err <= 2e-5 * (ref.abs().max() + 1.0)
+
+
+# K4 against its plain version at the photometric path's 240x320 (N 68,096
+# aligned pixels), at KITTI's full resolution (N 440,134) and at a ragged
+# shape, with points outside the image and non-finite coordinates. The
+# kernel rounds as the plain version does (no FMA contraction): float64
+# 1e-12, float32 2e-6 absolute on O(1) images, at every point with finite
+# coordinates (a non-finite one gives a value the caller masks).
+K4_SHAPES = {"240x320": (3, 240, 320, 68096), "375x1242": (3, 375, 1242, 440134),
+             "ragged": (3, 37, 53, 1001)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("shape", list(K4_SHAPES))
+def test_k4_matches_plain(shape, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    imgs, u, v = bilinear_kernel.random_inputs(*K4_SHAPES[shape], dtype, "cuda", seed=14)
+    before = bilinear_kernel.bilinear_sample_imgs.launches
+    got = bilinear_kernel.bilinear_sample_imgs(imgs, u, v)
+    torch.cuda.synchronize()
+    assert bilinear_kernel.bilinear_sample_imgs.launches == before + 1
+    ref = bilinear_kernel.bilinear_sample_imgs_plain(imgs, u, v)
+    fin = u.isfinite() & v.isfinite()
+    assert (~fin).sum() >= 3
+    g, r = got[:, fin].double(), ref[:, fin].double()
+    assert torch.isfinite(g).all()
+    assert (g - r).abs().max() <= (1e-12 if dtype == torch.float64 else 2e-6)
