@@ -7,6 +7,8 @@ import sys
 
 import torch
 
+from ceres_slam_tpu_torch.utils import device
+
 
 def base_parser(desc: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=desc)
@@ -22,13 +24,13 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
 
 
 def resolve_device(name: str) -> torch.device:
-    """The requested device; ``cuda`` without a card raises instead of
+    """The requested device; ``cuda`` without a card exits instead of
     falling back to the CPU."""
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    try:
+        return device.resolve(name)
+    except RuntimeError:
         raise SystemExit(f"--device {name}: no CUDA device is available "
-                         "(pass --device cpu to run on the CPU)")
-    return dev
+                         "(pass --device cpu to run on the CPU)") from None
 
 
 def solver_tolerance(dtype: str, num_windows: int) -> float:

@@ -17,6 +17,8 @@ matcher and starts from the rendered disparities plus noise.
 
 The random draws are numpy's (``default_rng(seed)``), in the JAX app's
 order, so both packages see the same noise. ``main`` returns a stats dict.
+The functions run on ``device="cuda"`` unless told otherwise, and raise
+without a card (``device="cpu"`` runs them on the CPU).
 """
 
 from __future__ import annotations
@@ -27,8 +29,10 @@ import time
 import numpy as np
 import torch
 
+from ceres_slam_tpu_torch.utils.device import resolve
 
-def make_scene(H=120, W=160, seed=0, dtype=torch.float64, stereo=False, device="cpu"):
+
+def make_scene(H=120, W=160, seed=0, dtype=torch.float64, stereo=False, device="cuda"):
     """Render a textured slanted plane from two camera poses:
     ``(cam, img_ref, img_trk, gu, gv, disp_ref, T_true)``, plus the frame-0
     RIGHT image with ``stereo=True``. ``seed`` is unused (the scene is
@@ -36,6 +40,7 @@ def make_scene(H=120, W=160, seed=0, dtype=torch.float64, stereo=False, device="
     from ceres_slam_tpu_torch.models.stereo_camera import StereoCamera
     from ceres_slam_tpu_torch.ops import lie, photometric
 
+    device = resolve(device)
     cam = StereoCamera.create(150.0, 150.0, W / 2.0, H / 2.0, 0.5)
     # plane in the ref camera frame: z = z0 + ax x + ay y
     z0, ax, ay = 6.0, 0.15, -0.1
@@ -137,7 +142,7 @@ def align_pair(cam, img_ref, img_trk, disp_meas, disp_valid, T_init=None, disp_s
 
 
 def synthetic_problem(H=120, W=160, seed=0, pose_noise=0.02, disp_noise=0.3, border=8,
-                      dtype=torch.float64, device="cpu"):
+                      dtype=torch.float64, device="cuda"):
     """The ``--gt-disparity`` problem: every pixel inside the border, the
     rendered disparities plus N(0, ``disp_noise``) noise as measurements and
     start, the true pose retracted by N(0, ``pose_noise``) noise. Returns
@@ -145,6 +150,7 @@ def synthetic_problem(H=120, W=160, seed=0, pose_noise=0.02, disp_noise=0.3, bor
     from ceres_slam_tpu_torch.ops import lie
     from ceres_slam_tpu_torch.solver import photometric as ph
 
+    device = resolve(device)
     rng = np.random.default_rng(seed)
     cam, img_ref, img_trk, gu, gv, disp_ref, T_true = make_scene(H, W, seed, dtype=dtype,
                                                                   device=device)
@@ -169,7 +175,7 @@ def _pose_error(T, T_true) -> float:
 
 
 def run(H=120, W=160, seed=0, pose_noise=0.02, disp_noise=0.3, border=8, verbose=True,
-        frontend=False, max_disp=48, block=5, max_iters=40, device="cpu"):
+        frontend=False, max_disp=48, block=5, max_iters=40, device="cuda"):
     """Synthetic-scene run in float64. ``frontend=True`` runs the FULL
     chain: rendered stereo pair -> semi-global matching (float32) -> Sobel
     gradients -> alignment; otherwise the rendered disparities plus noise
@@ -180,6 +186,7 @@ def run(H=120, W=160, seed=0, pose_noise=0.02, disp_noise=0.3, border=8, verbose
     from ceres_slam_tpu_torch.solver import lm
     from ceres_slam_tpu_torch.solver import photometric as ph
 
+    device = resolve(device)
     t0 = time.perf_counter()
     stats = {"matcher_s": 0.0}
     if frontend:
@@ -222,7 +229,7 @@ def run(H=120, W=160, seed=0, pose_noise=0.02, disp_noise=0.3, border=8, verbose
 
 
 def run_images(left0_path, right0_path, left1_path, cam_params, pyrdown=2, max_disp=64,
-               block=5, border=8, max_iters=40, verbose=True, device="cpu"):
+               block=5, border=8, max_iters=40, verbose=True, device="cuda"):
     """The reference program's flow on image files: load grayscale, pyrDown
     ``pyrdown`` times (the reference does 2), match frame-0 disparity,
     align frame 1 photometrically from the identity. Returns ``(state,
@@ -230,6 +237,7 @@ def run_images(left0_path, right0_path, left1_path, cam_params, pyrdown=2, max_d
     from ceres_slam_tpu_torch.frontend import dense_stereo as front
     from ceres_slam_tpu_torch.models.stereo_camera import StereoCamera
 
+    device = resolve(device)
     t0 = time.perf_counter()
     left0, right0, left1 = (front.load_gray(p).to(device)
                             for p in (left0_path, right0_path, left1_path))

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ceres_slam_tpu_torch.models.stereo_camera import StereoCamera
+from ceres_slam_tpu_torch.ops import window_kernel
 from ceres_slam_tpu_torch.solver import banded, dense, pcg, photometric, window
 
 
@@ -82,7 +83,7 @@ def track_info_from_numpy(t, device="cpu") -> banded.TrackInfo:
 def layout_from_numpy(layout, device="cpu") -> window.WindowLayout:
     """The JAX layout's ``[M, K]`` pose one-hot becomes the slot pose index
     (``-1`` for padding slots); its lane-major kernel inputs, padded to a
-    512-slot tile there, are cut back to ``M``."""
+    512-slot tile there, are cut back to ``M`` and packed into K1's plan."""
     problem = problem_from_numpy(layout.problem, device)
     onehot = np.asarray(layout.onehot)
     M, K = onehot.shape
@@ -93,13 +94,12 @@ def layout_from_numpy(layout, device="cpu") -> window.WindowLayout:
     return window.WindowLayout(
         problem=problem,
         O=M // J,
-        pose_idx=_t(pose_idx, device, torch.int32),
         slot_pose=_t(slot_pose, device, torch.int64),
         w_idx=_t(slot_pose * J + np.repeat(np.arange(J), M // J), device, torch.int64),
-        uvdT=_t(np.ascontiguousarray(np.asarray(layout.uvdT)[:, :M]), device),
-        stiffT=_t(np.ascontiguousarray(np.asarray(layout.stiffT)[:, :M]), device),
-        weight=_t(np.asarray(layout.weightT)[0, :M].copy(), device),
-        pose_free=_t(np.asarray(layout.pose_freeT)[0, :M].copy(), device),
+        plan=window_kernel.make_plan(
+            problem.camera, K, J, pose_idx, np.asarray(layout.uvdT)[:, :M].T,
+            np.asarray(layout.stiffT)[:, :M].T, np.asarray(layout.weightT)[0, :M],
+            np.asarray(layout.pose_freeT)[0, :M], problem.stereo.uvd.dtype, device),
     )
 
 

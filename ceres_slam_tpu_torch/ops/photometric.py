@@ -14,8 +14,11 @@ that project out of bounds contribute zero residual and zero Jacobian.
 
 Bilinear sampling of the track image and its two gradients goes through
 K4 (``ops/bilinear_kernel.py``): its CUDA kernel for CUDA tensors, its
-plain version for CPU tensors. The JAX ``sampler`` argument (gather,
-Pallas or Pallas-interpret) is gone: the tensors' device decides.
+plain version for CPU tensors. The three images are packed for K4 once
+(``pack_track``; a solve packs them once and passes them in) and sampled
+at the projections' columns as they are, with no copy. The JAX
+``sampler`` argument (gather, Pallas or Pallas-interpret) is gone: the
+tensors' device decides.
 Nearest-neighbour sampling (``interp="nn"``) is a plain gather on both
 devices, as in the JAX package.
 
@@ -62,18 +65,22 @@ def _bilinear_in_bounds(u: torch.Tensor, v: torch.Tensor, h: int, w: int) -> tor
 def _sample_bilinear(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
     """Bilinear sampling of one ``[H, W]`` image, with its validity mask."""
     h, w = img.shape
-    vals = bilinear_kernel.bilinear_sample_imgs(img[None].contiguous(), u.contiguous(),
-                                                v.contiguous())[0]
+    vals = bilinear_kernel.bilinear_sample_imgs(img[None], u, v)[0]
     inb = _bilinear_in_bounds(u, v, h, w)
     return torch.where(inb, vals, 0.0), inb
 
 
-def _sample3(track_img, grad_u, grad_v, u, v):
+def pack_track(track_img: torch.Tensor, grad_u: torch.Tensor,
+               grad_v: torch.Tensor) -> bilinear_kernel.PackedImages:
+    """The track image and its two gradients packed for K4, once per solve."""
+    return bilinear_kernel.pack_imgs(torch.stack([track_img, grad_u, grad_v]))
+
+
+def _sample3(packed: bilinear_kernel.PackedImages, u, v):
     """``(I, gu, gv, in_bounds)`` at shared coordinates: one K4 call on the
-    ``[3, H, W]`` stack."""
-    h, w = track_img.shape
-    imgs = torch.stack([track_img, grad_u, grad_v])
-    vals = bilinear_kernel.bilinear_sample_imgs(imgs, u.contiguous(), v.contiguous())
+    packed stack."""
+    h, w, _ = packed.texels.shape
+    vals = bilinear_kernel.bilinear_sample_packed(packed, u, v)
     inb = _bilinear_in_bounds(u, v, h, w)
     vals = torch.where(inb, vals, 0.0)
     return vals[0], vals[1], vals[2], inb
@@ -90,6 +97,7 @@ def photometric_residual(
     grad_v: torch.Tensor,  # [H, W]
     valid: torch.Tensor,  # [N] bool input validity (e.g. disparity known)
     interp: str = "bilinear",  # "bilinear" (default) or "nn" (reference parity)
+    packed: bilinear_kernel.PackedImages | None = None,  # pack_track(...), packed here if None
 ):
     """Batched residual and analytic Jacobians for all pixels.
 
@@ -104,7 +112,9 @@ def photometric_residual(
     u, v = proj[:, 0], proj[:, 1]
 
     if interp == "bilinear":
-        I_trk, gu, gv, inb = _sample3(track_img, grad_u, grad_v, u, v)
+        if packed is None:
+            packed = pack_track(track_img, grad_u, grad_v)
+        I_trk, gu, gv, inb = _sample3(packed, u, v)
     elif interp == "nn":
         I_trk, inb = _sample_nn(track_img, u, v)
         gu, _ = _sample_nn(grad_u, u, v)

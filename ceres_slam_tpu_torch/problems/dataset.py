@@ -27,6 +27,7 @@ from ceres_slam_tpu_torch.models.stereo_camera import StereoCamera
 from ceres_slam_tpu_torch.solver import dense, lm
 from ceres_slam_tpu_torch.solver import window as window_mod
 from ceres_slam_tpu_torch.utils import csvio, se3np
+from ceres_slam_tpu_torch.utils import device as device_mod
 
 
 def run_batched_ransac(camera, pts0, pts1, valid, hyp_idx, ransac_thresh: float, device):
@@ -68,13 +69,18 @@ class DatasetProblem:
     # solver dtype: float64 (exact) or float32 (the factor pass in float;
     # the Schur reduce, Cholesky and covariance stay float64)
     dtype: str = "float64"
-    device: str = "cpu"
+    # where RANSAC and the solves run: "cuda" (raises without a card) or "cpu"
+    device: str = "cuda"
 
     _covar_floor: float = 1e-12
 
     @property
     def _dt(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    @property
+    def _device(self) -> torch.device:
+        return device_mod.resolve(self.device)
 
     def _parse_track(self, rows, with_covar: bool):
         """Track CSV: header ``K,J``; intrinsics ``fu,fv,cu,cv,b``; without
@@ -160,7 +166,7 @@ class DatasetProblem:
         """``[K, H, 3]`` hypothesis indices on ``device``: drawn from
         ``generator`` if given, else the JAX package's draw (pair k under
         seed ``rng_seed + k``), which reproduces the JAX trajectories."""
-        valid = torch.as_tensor(valid).to(self.device)
+        valid = torch.as_tensor(valid).to(self._device)
         if generator is not None:
             return alignment.draw_hypotheses(valid, self.ransac_iters, generator)
         seeds = self.rng_seed + torch.arange(self.num_states)
@@ -177,7 +183,7 @@ class DatasetProblem:
         if hyp_idx is None:
             hyp_idx = self.draw_hypotheses(valid)
         self._pair_T, self._pair_inliers, self._pair_num_inliers = run_batched_ransac(
-            self.camera, pts0, pts1, valid, hyp_idx, self.ransac_thresh, self.device)
+            self.camera, pts0, pts1, valid, hyp_idx, self.ransac_thresh, self._device)
 
     def compute_initial_guess(self, k1: int = 0, k2: int = 0) -> bool:
         """Chain the cached pair alignments over ``[k1, k2)``, initializing
@@ -265,8 +271,8 @@ class DatasetProblem:
         )
         pts = np.zeros((n_pts_pad, 3))
         pts[:n_pts] = self.map_points[slots]
-        state = dense.BAState(poses=t(self.poses[k1:k2], dtype=dt).to(self.device),
-                              points=t(pts, dtype=dt).to(self.device))
+        state = dense.BAState(poses=t(self.poses[k1:k2], dtype=dt).to(self._device),
+                              points=t(pts, dtype=dt).to(self._device))
         return problem, state, slots
 
     def absorb_window_solution(self, k1, k2, state: dense.BAState, slots: np.ndarray):
@@ -314,10 +320,10 @@ class DatasetProblem:
                                                               gauge_fix_first=True)
             if solver == "window":
                 layout = window_mod.build_window_layout(problem, k2 - k1, n_pts_pad,
-                                                        device=self.device)
+                                                        device=self._device)
                 sol, summary, _ = window_mod._run_loop(layout, state, config, "lm")
             else:
-                problem = dense.to_device(problem, self.device)
+                problem = dense.to_device(problem, self._device)
                 solve = pcg.solve_ba_pcg if solver == "pcg" else dense.solve_ba
                 sol, summary = solve(problem, state, config)
             self.absorb_window_solution(k1, k2, sol, slots)

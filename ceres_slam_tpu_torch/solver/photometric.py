@@ -9,9 +9,10 @@ The Hessian is an arrowhead: one 6x6 pose block, a scalar diagonal for the
 disparities and one 6-vector coupling per pixel. The disparities are
 eliminated in closed form (a scalar Schur complement), so each LM
 iteration costs one 6x6 Cholesky. The products over the N pixels are plain
-matrix products. On CUDA every iteration samples the track image and its
-gradients twice through K4: once for the step, once for the candidate's
-cost.
+matrix products. ``solve_photometric`` packs the track image and its
+gradients for K4 once (``ops/photometric.pack_track``); on CUDA every
+iteration samples them twice through K4: once for the step, once for the
+candidate's cost.
 
 The JAX package's ``resolve_sampler`` (a backend test choosing the Pallas
 kernel on a TPU) and its x64 flag flip around that kernel are TPU matters
@@ -48,23 +49,26 @@ class PhotometricState(NamedTuple):
     disparities: torch.Tensor  # [N]
 
 
-def _residual(problem: PhotometricProblem, state: PhotometricState):
+def _residual(problem: PhotometricProblem, state: PhotometricState, packed):
     return photometric.photometric_residual(
         problem.camera, state.T, state.disparities, problem.ref_uv, problem.ref_intensity,
-        problem.track_img, problem.grad_u, problem.grad_v, problem.valid)
+        problem.track_img, problem.grad_u, problem.grad_v, problem.valid, packed=packed)
 
 
-def photometric_cost(problem: PhotometricProblem, state: PhotometricState) -> torch.Tensor:
-    r = _residual(problem, state)[0]
+def photometric_cost(problem: PhotometricProblem, state: PhotometricState,
+                     packed=None) -> torch.Tensor:
+    """The cost; ``packed`` is the problem's ``pack_track`` (packed here if None)."""
+    r = _residual(problem, state, packed)[0]
     r_d = torch.where(problem.valid,
                       problem.disp_stiffness * (state.disparities - problem.disp_meas), 0.0)
     return 0.5 * (torch.sum(r * r) + torch.sum(r_d * r_d))
 
 
-def _step(problem: PhotometricProblem, state: PhotometricState, lam):
+def _step(problem: PhotometricProblem, state: PhotometricState, lam, packed=None):
     """The damped arrowhead step ``(dx, grad_norm, pred)``, ``dx`` the pose
-    step (6) then the disparity steps (N)."""
-    r, J_pose, J_disp, _ = _residual(problem, state)
+    step (6) then the disparity steps (N); ``packed`` as in
+    ``photometric_cost``."""
+    r, J_pose, J_disp, _ = _residual(problem, state, packed)
     Hpp = J_pose.T @ J_pose
     c = J_disp * J_disp  # [N]
     w = J_pose * J_disp[:, None]  # [N, 6]
@@ -108,5 +112,6 @@ def _retract(state: PhotometricState, dx: torch.Tensor) -> PhotometricState:
 def solve_photometric(problem: PhotometricProblem, state0: PhotometricState,
                       config: lm.SolveConfig = lm.SolveConfig(max_iters=30)):
     """LM over the pose and the disparities; returns ``(state, SolveSummary)``."""
-    return lm.lm_solve(state0, config, lambda s: photometric_cost(problem, s),
-                       lambda s, lam: _step(problem, s, lam), _retract)
+    packed = photometric.pack_track(problem.track_img, problem.grad_u, problem.grad_v)
+    return lm.lm_solve(state0, config, lambda s: photometric_cost(problem, s, packed),
+                       lambda s, lam: _step(problem, s, lam, packed), _retract)

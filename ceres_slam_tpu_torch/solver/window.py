@@ -40,25 +40,24 @@ class WindowLayout(NamedTuple):
     """Landmark-grouped observation layout of one window problem.
 
     ``problem`` carries the stereo observations reordered into ``M = J*O``
-    slots (padding slots: valid False, pose 0). The ``[rows, M]`` fields
-    are the K1 kernel's static inputs."""
+    slots (padding slots: valid False, pose 0). ``plan`` holds the K1
+    kernel's inputs fixed over the window (slot poses, per-slot records
+    with weight = valid & point_valid and pose_free = ~fixed_pose[pose],
+    the slots sorted by pose), checked once."""
 
     problem: dense.StereoBAProblem
     O: int
-    pose_idx: torch.Tensor  # [M] int32, -1 for padding slots (kernel input)
     slot_pose: torch.Tensor  # [M] int64, K for padding slots (index_add target)
     w_idx: torch.Tensor  # [M] int64: slot_pose * J + landmark (W scatter)
-    uvdT: torch.Tensor  # [3, M]
-    stiffT: torch.Tensor  # [9, M]
-    weight: torch.Tensor  # [M] valid & point_valid
-    pose_free: torch.Tensor  # [M] ~fixed_pose[pose]
+    plan: window_kernel.WindowPlan
 
 
 def build_window_layout(problem: dense.StereoBAProblem, K: int, J: int,
                         O_pad: int | None = None, device=None) -> WindowLayout:
     """Reorder the valid stereo observations landmark-grouped and pad to
-    ``[J, O]`` (``O_pad`` fixes O to a budget). Host-side numpy; the layout
-    is placed on ``device`` (default: the problem's)."""
+    ``[J, O]`` (``O_pad`` fixes O to a budget), and build K1's plan.
+    Host-side numpy; the layout is placed on ``device`` (default: the
+    problem's)."""
     st = problem.stereo
     device = device if device is not None else st.uvd.device
     pose_idx = st.pose_idx.cpu().numpy()
@@ -102,13 +101,11 @@ def build_window_layout(problem: dense.StereoBAProblem, K: int, J: int,
     return WindowLayout(
         problem=dense.to_device(problem._replace(stereo=stereo), device),
         O=O,
-        pose_idx=put(np.where(wf, pose_idx[flat], -1), torch.int32),
         slot_pose=put(slot_pose, torch.int64),
         w_idx=put(slot_pose * J + slot_landmark, torch.int64),
-        uvdT=uvd.T.contiguous().to(device),
-        stiffT=stiff.reshape(M, 9).T.contiguous().to(device),
-        weight=put(v & point_valid[slot_landmark], dtype),
-        pose_free=put(~fixed_pose[p_idx], dtype),
+        plan=window_kernel.make_plan(
+            problem.camera, K, J, np.where(wf, pose_idx[flat], -1), uvd, stiff,
+            v & point_valid[slot_landmark], ~fixed_pose[p_idx], dtype, device),
     )
 
 
@@ -125,19 +122,18 @@ class Blocks(NamedTuple):
 
 
 def factor_blocks(layout: WindowLayout, state: dense.BAState) -> Blocks:
-    """One K1 factor pass -> reduced block system + stereo cost."""
+    """One K1 factor pass -> reduced block system + stereo cost, all views
+    of the kernel's outputs (nothing is launched after it)."""
     K, J, O = state.poses.shape[0], state.points.shape[0], layout.O
-    hll, u, gl, hppgp = window_kernel.window_factor_blocks(
-        layout.problem.camera, state.poses, state.points, layout.pose_idx, layout.uvdT,
-        layout.stiffT, layout.weight, layout.pose_free,
-    )
+    hll, u, gl, hppgp, cost = window_kernel.window_factor_blocks(
+        layout.plan, state.poses, state.points)
     return Blocks(
-        Hpp=hppgp[:36].T.reshape(K, 6, 6),
-        Hll=hll.reshape(9, J, O).sum(-1).T.reshape(J, 3, 3),
-        U_jo=u.T.reshape(J, O, 18),
-        gp=hppgp[36:42].T,
-        gl=gl.reshape(3, J, O).sum(-1).T,
-        stereo_cost=hppgp[42].sum(),
+        Hpp=hppgp.narrow(1, 0, 36).view(K, 6, 6),
+        Hll=hll.view(J, 3, 3),
+        U_jo=u.view(J, O, 18),
+        gp=hppgp.narrow(1, 36, 6),
+        gl=gl,
+        stereo_cost=cost,
     )
 
 

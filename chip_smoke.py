@@ -14,12 +14,15 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            float64 and float32, with median times per call (CUDA events
            around the wrapper, host included): K1 at the flagship window
            shape (K=2, J=192, O=2) and the S scale (K=64, J=2048, 16,384
-           slots); K2 and K3 at the full-batch shapes of triangle200 (N
-           12,992, J 448, K 200) and kitti1100 (N 124,480, J 16,640, K
-           1,100); K4 at the photometric shape (3x240x320, N 68,096) and at
-           KITTI's full resolution (3x375x1242, N 440,134), beside one
+           slots), called twice for equal bits; K2 and K3 at the full-batch
+           shapes of triangle200 (N 12,992, J 448, K 200) and kitti1100 (N
+           124,480, J 16,640, K 1,100); K4 at the photometric shape
+           (3x240x320, N 68,096) and at KITTI's full resolution (3x375x1242,
+           N 440,134), equal to its plain versions bit for bit, its packing
+           (once per solve) timed apart, beside one
            torch.nn.functional.grid_sample call (its yardstick, which the
-           port never calls)
+           port never calls); and the host cost of the two ways to read
+           PyTorch's current stream
   slice    generates triangle200 and kitti1100 with the port's make_sim and
            runs both CLIs on CUDA: the flagship sliding window (dataset_vo_sun,
            triangle200 float64 and float32, kitti1100 float64; K1 launch
@@ -42,9 +45,13 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            --gt-disparity run (pose equal to the CUDA run's to 1e-8)
   profile  torch.profiler, last, so that no profiler session precedes a
            timed run: the device time per call of every kernel checked in
-           the kernels phase (and of grid_sample), and a trace of one
+           the kernels phase (and of grid_sample) with the share of its
+           bound, failing unless K1 runs one device kernel per call; K4's
+           device time on the path's own coordinates (the 240x320
+           problem's projections, float64 and float32); and a trace of one
            photometric rate solve (device busy share, launches per LM
-           iteration, K4's device time on the path's own coordinates)
+           iteration). It runs whenever the kernels phase runs with no
+           main-path phase (slice, dense) after it.
 
 Any failure exits non-zero before the result line. The last line of
 standard output is ``{"ok": true, "device": {...}}``; before it come the
@@ -99,7 +106,8 @@ FULL_ATE_ATOL = {"triangle200": 0.00005, "kitti1100": 0.03 * 35.2755}
 # Pallas kernel (x max(1, max|ref|)); K3 2e-5 x (max|ref| + 1), as
 # tests/test_pallas.py holds the Pallas matvec.
 TOL64 = 1e-12
-TOL32 = {"hll": 1e-5, "u": 1e-5, "gl": 5e-3, "hpp": 1e-5, "gp": 5e-3}
+TOL32 = {"hll": 1e-5, "u": 1e-5, "gl": 5e-3, "hpp": 1e-5, "gp": 5e-3, "pcost": 1e-4,
+         "cost": 1e-4}
 COST_RTOL32 = 1e-4
 K2_TOL32 = {"r": 1e-4, "hpp": 1e-4, "hll": 1e-4, "u": 1e-4, "gp": 5e-3, "gl": 5e-3}
 K3_TOL32 = 2e-5
@@ -107,14 +115,13 @@ FULL_SHAPES = {"triangle200": (12992, 448, 200), "kitti1100": (124480, 16640, 11
 
 # K4 shapes (C, H, W, N): the photometric path's 240x320 with its 68,096
 # aligned pixels, and KITTI's full resolution with 440,134 points. The
-# kernel rounds as its plain version does (no FMA contraction), so float64
-# is held to 1e-12 and float32 to 2e-6 absolute on O(1) images, at every
-# point with finite coordinates. grid_sample (border padding, corners
+# kernel rounds as its plain versions do (no FMA contraction), so it must
+# equal them bit for bit, in both dtypes, at every point (NaN where they
+# are NaN). grid_sample (border padding, corners
 # aligned) computes the same function on the in-bounds points, through a
 # coordinate normalization that rounds at ~W x eps: 1e-9 (f64) and 1e-4
 # (f32) absolute.
 K4_SHAPES = {"240x320": (3, 240, 320, 68096), "375x1242": (3, 375, 1242, 440134)}
-K4_TOL = {"f64": 1e-12, "f32": 2e-6}
 K4_LIB_TOL = {"f64": 1e-9, "f32": 1e-4}
 
 # bounds: HBM bytes/s and peak operations/s outside the tensor cores (H100
@@ -181,24 +188,47 @@ def phase_build(kernels):
                 log(f"[build]   {ln.strip()}")
 
 
+def _medians_ms(torch, fns, reps=50):
+    """Median time per call of each function, CUDA events around the call
+    (host included), the functions taken in turns so that they share the
+    host's and the card's state (pair only calls of like cost: a heavy one
+    leaves the host's caches cold for the next)."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(reps):
+        for fn, t in zip(fns, times):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            t.append(start.elapsed_time(end))
+    return [statistics.median(t) for t in times]
+
+
 def _median_ms(torch, fn, reps=50):
+    return _medians_ms(torch, [fn], reps)[0]
+
+
+def _host_us(torch, fn, n=1000):
+    """Host time per call of back-to-back calls (the enqueue rate; a kernel
+    slower than its host path sets it instead)."""
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    t0 = time.perf_counter()
+    for _ in range(n):
         fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
 
 
 def _device_ms(torch, fn, reps=20):
-    """Mean device time per call: the CUDA kernels' durations in a
-    torch.profiler trace of ``reps`` calls (no host time in it)."""
+    """Mean device time per call and device kernels per call: the CUDA
+    events of a torch.profiler trace of ``reps`` calls (no host time in it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -208,24 +238,29 @@ def _device_ms(torch, fn, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.events() if e.device_type == DeviceType.CUDA)
-    return us / reps / 1e3
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return sum(e.device_time_total for e in events) / reps / 1e3, len(events) / reps
 
 
 def _split(out):
-    hll, u, gl, hppgp = out
-    return {"hll": hll, "u": u, "gl": gl, "hpp": hppgp[:36], "gp": hppgp[36:42],
-            "cost": hppgp[42]}
+    hll, u, gl, hppgp, cost = out
+    return {"hll": hll, "u": u, "gl": gl, "hpp": hppgp[:, :36], "gp": hppgp[:, 36:42],
+            "pcost": hppgp[:, 42], "cost": cost}
 
 
 def _kernel_k1(torch, window_kernel, results, jobs):
+    from ceres_slam_tpu_torch.solver import dense, window
+
     for shape, (K, J, O) in (("flagship", (2, 192, 2)), ("S", (64, 2048, 8))):
         for dtype in (torch.float64, torch.float32):
-            args = window_kernel.random_inputs(K, J, O, dtype, "cuda", seed=7)
+            plan, poses, points = args = window_kernel.random_inputs(K, J, O, dtype, "cuda", seed=7)
             out = window_kernel.window_factor_blocks(*args)
+            again = window_kernel.window_factor_blocks(*args)
             kern = _split(out)
             plain = _split(window_kernel.window_factor_blocks_plain(*args))
             torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(out, again)):
+                fail(f"K1 {shape} {dtype}: two calls on the same inputs differ")
             worst, errs = 0.0, {}
             for name, ref in plain.items():
                 ref64, got64 = ref.double(), kern[name].double()
@@ -235,24 +270,30 @@ def _kernel_k1(torch, window_kernel, results, jobs):
                 scale = ref64.abs().max().item()
                 errs[name] = err
                 worst = max(worst, err)
-                if name == "cost" and dtype == torch.float32:
-                    ok = abs(got64.sum().item() - ref64.sum().item()) <= COST_RTOL32 * abs(ref64.sum().item())
-                else:
-                    tol = TOL64 if dtype == torch.float64 else TOL32[name]
-                    ok = err <= tol * scale
-                if not ok:
+                tol = TOL64 if dtype == torch.float64 else TOL32[name]
+                if not err <= tol * scale:
                     fail(f"K1 {shape} {dtype}: {name} max|err| {err:.3e} vs max|ref| {scale:.3e}")
-            ms = _median_ms(torch, lambda: window_kernel.window_factor_blocks(*args))
+            layout = window.WindowLayout(problem=None, O=O, slot_pose=None, w_idx=None, plan=plan)
+            state = dense.BAState(poses=poses, points=points)
+            ms, blocks_ms = _medians_ms(torch, [lambda: window_kernel.window_factor_blocks(*args),
+                                                lambda: window.factor_blocks(layout, state)])
             plain_ms = _median_ms(torch, lambda: window_kernel.window_factor_blocks_plain(*args))
+            host_us = _host_us(torch, lambda: window_kernel.window_factor_blocks(*args))
             tag = "f64" if dtype == torch.float64 else "f32"
+            # the function's own bytes: the 14 used values of each obs record,
+            # the slot poses and pose order, the state and the outputs
+            inputs = (poses, points, plan.pose_idx, plan.obs[:, :14], plan.pose_order,
+                      plan.pose_start)
             results[("K1", shape, tag)] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-                                           **_bound(args, out, OPS_PER_ROW["K1"] * J * O, tag),
+                                           **_bound(inputs, out, OPS_PER_ROW["K1"] * J * O, tag),
                                            "library_ms": None}
-            jobs.append((f"K1 {shape} {tag}", lambda a=args: window_kernel.window_factor_blocks(*a)))
-            log(f"[kernels] K1 {shape} K={K} J={J} O={O} M={J * O} {tag}: kernel {ms * 1e3:.1f} us, "
-                f"plain {plain_ms * 1e3:.1f} us, {_bound_str(results[('K1', shape, tag)])}, "
-                f"max|err| {worst:.3e} "
-                + " ".join(f"{k}={v:.1e}" for k, v in errs.items()))
+            jobs.append((f"K1 {shape} {tag}", lambda a=args: window_kernel.window_factor_blocks(*a),
+                         results[("K1", shape, tag)]))
+            log(f"[kernels] K1 {shape} K={K} J={J} O={O} M={J * O} {tag}: kernel {ms * 1e3:.1f} us "
+                f"(host {host_us:.1f} us per call back to back; factor_blocks "
+                f"{blocks_ms * 1e3:.1f} us), plain {plain_ms * 1e3:.1f} us, "
+                f"{_bound_str(results[('K1', shape, tag)])}, two calls bit-equal, max|err| "
+                f"{worst:.3e} " + " ".join(f"{k}={v:.1e}" for k, v in errs.items()))
 
 
 def _compare(tag, names, got, ref, tol):
@@ -289,7 +330,8 @@ def _kernel_full_batch(torch, kernels, results, jobs):
             results[("K2", shape, tag)] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
                                            **_bound(args, out, OPS_PER_ROW["K2"] * N, tag),
                                            "library_ms": None}
-            jobs.append((f"K2 {shape} {tag}", lambda a=args: k2.stereo_factor_blocks(*a)))
+            jobs.append((f"K2 {shape} {tag}", lambda a=args: k2.stereo_factor_blocks(*a),
+                         results[("K2", shape, tag)]))
             log(f"[kernels] K2 {shape} N={N} {tag}: kernel {ms * 1e3:.1f} us, plain "
                 f"{plain_ms * 1e3:.1f} us, {_bound_str(results[('K2', shape, tag)])}, "
                 f"max|err| {worst:.3e} "
@@ -307,7 +349,8 @@ def _kernel_full_batch(torch, kernels, results, jobs):
                                            **_bound(args, out, OPS_PER_ROW["K3"] * N, tag),
                                            "library_ms": None}
             t = args[3]
-            jobs.append((f"K3 {shape} {tag}", lambda a=args: k3.schur_uy(*a)))
+            jobs.append((f"K3 {shape} {tag}", lambda a=args: k3.schur_uy(*a),
+                         results[("K3", shape, tag)]))
             log(f"[kernels] K3 {shape} N={N} J={J} K={K} O_l={t.by_point.shape[1]} "
                 f"O_p={t.by_pose.shape[1]} {tag}: kernel {ms * 1e3:.1f} us, plain "
                 f"{plain_ms * 1e3:.1f} us, {_bound_str(results[('K3', shape, tag)])}, "
@@ -343,15 +386,20 @@ def _kernel_k4(torch, k4, results, jobs):
         for dtype in (torch.float64, torch.float32):
             tag = "f64" if dtype == torch.float64 else "f32"
             imgs, u, v = k4.random_inputs(C, H, W, N, dtype, "cuda", seed=7)
-            got = k4.bilinear_sample_imgs(imgs, u, v)
-            ref = k4.bilinear_sample_imgs_plain(imgs, u, v)
+            packed = k4.pack_imgs(imgs)
+            got = k4.bilinear_sample_packed(packed, u, v)
+            pairs = ((got, k4.bilinear_sample_packed_plain(packed, u, v)),
+                     (k4.bilinear_sample_imgs(imgs, u, v), k4.bilinear_sample_imgs_plain(imgs, u, v)))
             torch.cuda.synchronize()
             fin = u.isfinite() & v.isfinite()
             if not got[:, fin].isfinite().all():
                 fail(f"K4 {shape} {tag}: non-finite samples at finite coordinates")
-            err = (got[:, fin].double() - ref[:, fin].double()).abs().max().item()
-            if err > K4_TOL[tag]:
-                fail(f"K4 {shape} {tag}: max|kernel - plain| {err:.3e}")
+            for g, r in pairs:
+                same = (g == r) | (g.isnan() & r.isnan())
+                if not same.all():
+                    err = (g[:, fin].double() - r[:, fin].double()).abs().max().item()
+                    fail(f"K4 {shape} {tag}: {int((~same).sum())} samples differ from the plain "
+                         f"version, max|err| {err:.3e} at finite coordinates")
             # the library yardstick on the same inputs (grid prepared outside the timing)
             grid = torch.stack([2.0 * u / (W - 1) - 1.0, 2.0 * v / (H - 1) - 1.0], dim=-1)
             grid = grid.reshape(1, 1, N, 2).contiguous()
@@ -360,29 +408,63 @@ def _kernel_k4(torch, k4, results, jobs):
                 return F.grid_sample(imgs[None], grid, mode="bilinear", padding_mode="border",
                                      align_corners=True)
 
+            err = (got[:, fin].double() - pairs[0][1][:, fin].double()).abs().max().item()
+            ref = pairs[1][1]
             inb = fin & (u >= 0) & (u <= W - 1) & (v >= 0) & (v <= H - 1)
             lib_err = (library()[0, :, 0][:, inb].double() - ref[:, inb].double()).abs().max().item()
             if lib_err > K4_LIB_TOL[tag]:
                 fail(f"K4 {shape} {tag}: grid_sample disagrees with the plain version by {lib_err:.3e}")
-            ms = _median_ms(torch, lambda: k4.bilinear_sample_imgs(imgs, u, v))
-            plain_ms = _median_ms(torch, lambda: k4.bilinear_sample_imgs_plain(imgs, u, v))
-            library_ms = _median_ms(torch, library)
+            ms, library_ms = _medians_ms(torch, [lambda: k4.bilinear_sample_packed(packed, u, v),
+                                                 library])
+            plain_ms = _median_ms(torch, lambda: k4.bilinear_sample_packed_plain(packed, u, v))
+            pack_ms = _median_ms(torch, lambda: k4.pack_imgs(imgs))
+            host_us = _host_us(torch, lambda: k4.bilinear_sample_packed(packed, u, v))
+            library_host_us = _host_us(torch, library)
             ops = N * (K4_OPS[0] + K4_OPS[1] * C)
+            # the bound counts the unpadded [C, H, W] stack: the function's own bytes
             results[("K4", shape, tag)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                            **_bound((imgs, u, v), got, ops, tag),
                                            "library_ms": library_ms}
-            jobs.append((f"K4 {shape} {tag}", lambda a=(imgs, u, v): k4.bilinear_sample_imgs(*a)))
-            jobs.append((f"K4 {shape} {tag} grid_sample", library))
-            log(f"[kernels] K4 {shape} C={C} N={N} {tag}: kernel {ms * 1e3:.1f} us, plain "
-                f"{plain_ms * 1e3:.1f} us, grid_sample {library_ms * 1e3:.1f} us, "
-                f"{_bound_str(results[('K4', shape, tag)])}, max|err| {err:.3e} "
-                f"(grid_sample {lib_err:.1e}, {int(inb.sum())} in-bounds points)")
+            jobs.append((f"K4 {shape} {tag}",
+                         lambda a=(packed, u, v): k4.bilinear_sample_packed(*a),
+                         results[("K4", shape, tag)]))
+            jobs.append((f"K4 {shape} {tag} grid_sample", library, results[("K4", shape, tag)]))
+            jobs.append((f"K4 {shape} {tag} pack_imgs", lambda i=imgs: k4.pack_imgs(i), None))
+            log(f"[kernels] K4 {shape} C={C} N={N} {tag}: kernel {ms * 1e3:.1f} us (host "
+                f"{host_us:.1f} us per call back to back), plain {plain_ms * 1e3:.1f} us, grid_sample "
+                f"{library_ms * 1e3:.1f} us (host {library_host_us:.1f} us), "
+                f"{_bound_str(results[('K4', shape, tag)])}; pack_imgs (once per solve) "
+                f"{pack_ms * 1e3:.1f} us; equal to both plain versions bit for bit "
+                f"(grid_sample {lib_err:.1e} off on {int(inb.sum())} in-bounds points)")
+
+
+def _stream_lookup(torch, cuda_build):
+    """Host cost of reading PyTorch's current stream: the raw handle (what
+    the thin launch path reads) against the public Stream object."""
+    idx = torch.cuda.current_device()
+    dev = torch.device("cuda", idx)
+    n = 20000
+    times = {}
+    for name, fn in (("raw", lambda: cuda_build.current_stream(idx)),
+                     ("public", lambda: torch.cuda.current_stream(dev).cuda_stream)):
+        if fn() != torch.cuda.current_stream(dev).cuda_stream:
+            fail(f"stream lookup {name} disagrees with torch.cuda.current_stream")
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times[name] = (time.perf_counter() - t0) / n * 1e6
+    log(f"[kernels] current stream lookup, host us per call: "
+        f"torch._C._cuda_getCurrentRawStream {times['raw']:.3f}, "
+        f"torch.cuda.current_stream(device).cuda_stream {times['public']:.3f}")
 
 
 def phase_kernels(torch, kernels):
     """Each kernel against its plain version; returns the results and the
     calls whose device time the profile phase measures."""
+    from ceres_slam_tpu_torch.ops import cuda_build
+
     results, jobs = {}, []
+    _stream_lookup(torch, cuda_build)
     _kernel_k1(torch, kernels["K1"], results, jobs)
     _kernel_full_batch(torch, kernels, results, jobs)
     _kernel_k4(torch, kernels["K4"], results, jobs)
@@ -391,12 +473,31 @@ def phase_kernels(torch, kernels):
 
 def phase_profile(torch, jobs, dense: bool):
     """torch.profiler measurements, run last so that no profiler session
-    precedes the timed main-path runs: each kernel call's device time, and
-    a trace of one photometric solve."""
-    for label, fn in jobs:
-        log(f"[profile] {label}: {_device_ms(torch, fn) * 1e3:.2f} us of device time per call")
+    precedes the timed main-path runs: each kernel call's device time and
+    kernels per call (K1 must run one), K4 on the path's own coordinates,
+    and a trace of one photometric solve."""
+    for label, fn, row in jobs:
+        ms, kernels = _device_ms(torch, fn)
+        share = f", {100 * row['bound_ms'] / ms:.1f}% of its bound" if row else ""
+        log(f"[profile] {label}: {ms * 1e3:.2f} us of device time per call, {kernels:g} device "
+            f"kernels per call{share}")
+        if label.startswith("K1") and kernels != 1:
+            fail(f"{label}: {kernels:g} device kernels per call, not one")
+    from ceres_slam_tpu_torch.apps import dense_stereo
+    from ceres_slam_tpu_torch.ops import bilinear_kernel, lie
+    from ceres_slam_tpu_torch.ops import photometric as ops_ph
+
+    for dtype in (torch.float64, torch.float32):
+        problem, state0, _ = dense_stereo.synthetic_problem(240, 320, dtype=dtype, device="cuda")
+        packed = ops_ph.pack_track(problem.track_img, problem.grad_u, problem.grad_v)
+        cam = problem.camera
+        obs = torch.cat([problem.ref_uv, state0.disparities[:, None]], dim=-1)
+        proj = cam.project(lie.se3_transform_point(state0.T, cam.triangulate(obs)))
+        ms, _ = _device_ms(torch, lambda: bilinear_kernel.bilinear_sample_packed(
+            packed, proj[:, 0], proj[:, 1]))
+        log(f"[profile] K4 on the path's coordinates (240x320 --gt-disparity start, N "
+            f"{proj.shape[0]}, {dtype}): {ms * 1e3:.2f} us of device time per call")
     if dense:
-        from ceres_slam_tpu_torch.apps import dense_stereo
         from ceres_slam_tpu_torch.solver import photometric
         from ceres_slam_tpu_torch.solver.lm import SolveConfig
 
@@ -637,7 +738,7 @@ def _profile_solve(torch, solve):
     by_name = {}
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
-    k4 = [e.device_time_total for e in events if "bilinear_kernel" in e.name]
+    k4 = [e.device_time_total for e in events if "bilinear_packed_kernel" in e.name]
     log(f"[profile] one 20-iteration photometric solve (float32, 240x320): wall {wall_us / 1e3:.2f} ms (profiled), "
         f"device busy {busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.2f}%), {len(events)} "
         f"device events ({len(events) / 20:.1f} per LM iteration); K4 {len(k4)} calls, "
@@ -653,7 +754,7 @@ def phase_dense(kernels, data):
 
     from ceres_slam_tpu_torch.apps import dense_stereo
 
-    k4 = kernels["K4"].bilinear_sample_imgs
+    k4 = kernels["K4"].bilinear_sample_packed
     total = 0
     gt = _run_dense("--gt-disparity", DENSE_ARGS + ["--gt-disparity"], "cuda", k4)
     total += gt["launches"]
@@ -681,14 +782,15 @@ def phase_dense(kernels, data):
             and abs(chain["pose_err1"] - ref["err1"]) <= 0.25 * ref["err1"]):
         fail("the full-chain run is outside the JAX figures' bounds")
 
-    _, img_ref, img_trk, _, _, _, _, img_right = dense_stereo.make_scene(240, 320, stereo=True)
+    _, img_ref, img_trk, _, _, _, _, img_right = dense_stereo.make_scene(240, 320, stereo=True,
+                                                                         device="cuda")
     paths = [os.path.join(data, f"{name}.npy") for name in ("left0", "right0", "left1")]
     for path, img in zip(paths, (img_ref, img_right, img_trk)):
-        np.save(path, img.numpy())
+        np.save(path, img.cpu().numpy())
     images = _run_dense("--images", ["--images", *paths, "--pyrdown", "1", "--max-disp", "32", "--camera",
                          "150", "150", "160", "120", "0.5"], "cuda", k4)
     total += images["launches"]
-    total += _photometric_rate(kernels["K4"].bilinear_sample_imgs)
+    total += _photometric_rate(kernels["K4"].bilinear_sample_packed)
     return total, gt["T"]
 
 
@@ -697,7 +799,7 @@ def phase_cpu(kernels, data, window_poses, full_poses, dense_pose):
 
     if dense_pose is not None:
         stats = _run_dense("--gt-disparity", DENSE_ARGS + ["--gt-disparity"], "cpu",
-                           kernels["K4"].bilinear_sample_imgs)
+                           kernels["K4"].bilinear_sample_packed)
         d = float(np.max(np.abs(np.asarray(stats["T"]) - np.asarray(dense_pose))))
         log(f"[cpu] dense --gt-disparity: max |pose(cpu) - pose(cuda)| = {d:.3e}")
         if stats["launches"] or not d <= 1e-8:
@@ -724,12 +826,17 @@ def phase_cpu(kernels, data, window_poses, full_poses, dense_pose):
 
 
 # name, function, CUDA source, line of the TPU kernel in pallas_kernels.py,
-# and the shape whose float64 numbers the JSON line reports
+# the shape whose float64 numbers the JSON line reports, and the design
 KERNELS = (
-    ("K1", "window_factor_blocks", "window_factor_blocks.cu", ":299", "flagship"),
-    ("K2", "stereo_factor_blocks", "stereo_factor_blocks.cu", ":124", "kitti1100"),
-    ("K3", "schur_uy", "schur_uy.cu", ":591", "kitti1100"),
-    ("K4", "bilinear_sample_imgs", "bilinear_sample_imgs.cu", ":427", "240x320"),
+    ("K1", "window_factor_blocks", "window_factor_blocks.cu", ":299", "flagship",
+     "redesigned: one launch (pose blocks, landmark blocks), per-window plan, thin launch path"),
+    ("K2", "stereo_factor_blocks", "stereo_factor_blocks.cu", ":124", "kitti1100",
+     "thread per observation"),
+    ("K3", "schur_uy", "schur_uy.cu", ":591", "kitti1100",
+     "warp per landmark, then per pose"),
+    ("K4", "bilinear_sample_packed", "bilinear_sample_imgs.cu", ":427", "240x320",
+     "redesigned: packed [H, W, 4] texels, strided coordinates, per-solve plan, "
+     "thin launch path"),
 )
 
 
@@ -770,14 +877,15 @@ def main():
         launches["K4"], dense_pose = phase_dense(kernels, data)
     if "cpu" in phases:
         phase_cpu(kernels, data, window_poses, full_poses, dense_pose)
-    if "profile" in phases:
+    if "profile" in phases or ("kernels" in phases and not {"slice", "dense"} & set(phases)):
         phase_profile(torch, jobs, "dense" in phases)
     nan = {"max_abs_err": math.nan, "ms": math.nan, "plain_ms": math.nan, "bound_ms": math.nan,
            "bound_by": None, "library_ms": None}
     log(json.dumps({"kernels": [{
         "name": fn, "route": "cuda", "source": f"ceres_slam_tpu_torch/csrc/{src}",
         "replaces": f"ceres_slam_tpu/ops/pallas_kernels.py{line}", "launches": launches[name],
-        **k.get((name, shape, "f64"), nan)} for name, fn, src, line, shape in KERNELS]}))
+        **k.get((name, shape, "f64"), nan), "design": design}
+        for name, fn, src, line, shape, design in KERNELS]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -111,7 +111,7 @@ def test_match_disparity_f32_agrees_with_jax():
 
 def test_make_scene_matches_jax():
     """Every output of ``make_scene(stereo=True)``, f64, 1e-12."""
-    got = dense_stereo.make_scene(H=40, W=56, stereo=True)
+    got = dense_stereo.make_scene(H=40, W=56, stereo=True, device="cpu")
     ref = jds.make_scene(H=40, W=56, stereo=True)
     np.testing.assert_allclose(np.asarray(got[0]), [float(x) for x in ref[0]], rtol=0, atol=1e-12)
     for g, r in zip(got[1:], ref[1:]):
@@ -139,7 +139,7 @@ def test_end_to_end_frontend_alignment():
     within 25% of JAX's; both meet the JAX test's bounds."""
     kw = dict(H=120, W=160, pose_noise=0.02, frontend=True, max_disp=32, verbose=False)
     jsum, je0, je1 = jds.run(**kw)
-    summary, err0, err1, stats = dense_stereo.run(**kw)
+    summary, err0, err1, stats = dense_stereo.run(**kw, device="cpu")
     je1 = float(jnp.linalg.norm(je1))
     np.testing.assert_allclose(err0, float(jnp.linalg.norm(je0)), rtol=1e-12)
     assert abs(err1 - je1) <= 0.25 * je1
@@ -166,7 +166,25 @@ def test_run_images_from_files(tmp_path):
         np.save(p, np.asarray(img))
     kw = dict(cam_params=[150.0, 150.0, 64.0, 48.0, 0.5], pyrdown=1, max_disp=16, verbose=False)
     jsol, jsum = jds.run_images(*paths, **kw)
-    sol, summary, stats = dense_stereo.run_images(*paths, **kw)
+    sol, summary, stats = dense_stereo.run_images(*paths, **kw, device="cpu")
     assert summary.final_cost < summary.initial_cost
     assert torch.isfinite(sol.T).all() and stats["size"] == (48, 64)
     np.testing.assert_allclose(sol.T.numpy(), np.asarray(jsol.T), rtol=0, atol=1e-3)
+
+
+def test_entry_points_default_to_cuda(tmp_path):
+    """``make_scene``, ``synthetic_problem``, ``run`` and ``run_images`` run
+    on ``cuda`` unless told otherwise, and raise without a card (nothing
+    falls back to the CPU)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    paths = [str(tmp_path / f"{n}.npy") for n in ("l0", "r0", "l1")]
+    for path in paths:
+        np.save(path, np.zeros((16, 16)))
+    calls = (lambda: dense_stereo.make_scene(8, 8), lambda: dense_stereo.synthetic_problem(24, 24),
+             lambda: dense_stereo.run(H=24, W=24, verbose=False),
+             lambda: dense_stereo.run_images(*paths, [10.0, 10.0, 8.0, 8.0, 0.5], pyrdown=0,
+                                             verbose=False))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

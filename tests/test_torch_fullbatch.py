@@ -254,6 +254,17 @@ def test_cli_matches_jax(vo_file, tmp_path, argv):
         assert stats["windows"] == 23 and stats["cg_iterations"] == 0
 
 
+def test_dataset_defaults_to_cuda(vo_file):
+    """``DatasetProblem`` runs on ``cuda`` unless told otherwise, and raises
+    at its first device step without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    ds = DatasetProblem.read_csv(vo_file)
+    assert ds.device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ds.compute_initial_guess()
+
+
 def test_cli_cuda_without_card_fails(vo_file):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

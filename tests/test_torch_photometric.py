@@ -50,7 +50,7 @@ def test_k4_plain_matches_pallas_interpret_f32():
     H, W = 24, 40
     imgs, u, v = bilinear_kernel.random_inputs(3, H, W, 700, torch.float32, seed=1)
     got = bilinear_kernel.bilinear_sample_imgs(imgs, u, v).double().numpy()
-    assert bilinear_kernel.bilinear_sample_imgs.launches == 0  # CPU tensors take the plain version
+    assert bilinear_kernel.bilinear_sample_packed.launches == 0  # CPU tensors take the plain version
     ref = np.asarray(pallas_kernels.bilinear_sample_imgs(
         jnp.asarray(imgs.numpy()), jnp.asarray(u.numpy()), jnp.asarray(v.numpy()),
         interpret=True), np.float64)
@@ -75,6 +75,46 @@ def test_k4_plain_matches_sample_bilinear_f64():
         inb = np.asarray(inb)
         assert inb.sum() > 600
         np.testing.assert_allclose(got[c, inb], np.asarray(ref)[inb], rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_k4_packed_plain_equals_planar(dtype):
+    """The packed plain version equals the planar one bit for bit, at every
+    point: inside, outside the image and at NaN / +-inf coordinates (NaN
+    where the other is NaN). Strided coordinates (the columns of an
+    ``[N, 3]`` projection) give the same bits as contiguous ones."""
+    imgs, u, v = bilinear_kernel.random_inputs(3, 23, 37, 800, dtype, seed=7)
+    un, vn = u.numpy(), v.numpy()
+    assert np.isnan(un).any() and np.isinf(un).any() and (np.isfinite(un) & (un > 36)).any()
+    planar = bilinear_kernel.bilinear_sample_imgs_plain(imgs, u, v)
+    packed = bilinear_kernel.pack_imgs(imgs)
+    assert packed.texels.shape == (23, 37, 4) and packed.channels == 3 and packed.args is None
+    assert torch.equal(packed.texels[..., 3], torch.zeros(23, 37, dtype=dtype))
+    got = bilinear_kernel.bilinear_sample_packed_plain(packed, u, v)
+    torch.testing.assert_close(got, planar, rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(bilinear_kernel.bilinear_sample_imgs(imgs, u, v), planar, rtol=0,
+                               atol=0, equal_nan=True)
+    proj = torch.stack([u, v, torch.ones_like(u)], dim=-1)
+    assert proj[:, 0].stride(0) == 3
+    strided = bilinear_kernel.bilinear_sample_packed(packed, proj[:, 0], proj[:, 1])
+    torch.testing.assert_close(strided, got, rtol=0, atol=0, equal_nan=True)
+
+
+def test_k4_plan_checks():
+    """``pack_imgs`` checks the stack once (shape, channels, dtype, device);
+    a call checks only its coordinates (shape, dtype, device)."""
+    imgs, u, v = bilinear_kernel.random_inputs(2, 9, 11, 50, torch.float64, seed=8)
+    for bad, what in ((imgs[0], "expected"), (imgs.repeat(3, 1, 1), "C <= 4"),
+                      (imgs[:, :1], "H >= 2"), (imgs.int(), "float32 or float64"),
+                      (imgs.to("meta"), "cpu or cuda")):
+        with pytest.raises(ValueError, match=what):
+            bilinear_kernel.pack_imgs(bad)
+    packed = bilinear_kernel.pack_imgs(imgs)
+    for bu, bv, what in ((u[:-1], v, "shapes"), (u[:, None], v[:, None], "shapes"),
+                         (u[:0], v[:0], "N >= 1"), (u.float(), v, "dtypes"),
+                         (u.to("meta"), v.to("meta"), "are on")):
+        with pytest.raises(ValueError, match=what):
+            bilinear_kernel.bilinear_sample_packed(packed, bu, bv)
 
 
 # -- the samplers and the residual -----------------------------------------------
@@ -224,7 +264,8 @@ def test_alignment_recovers_pose():
     errors 1e-8 (the same numpy noise in the same order), and the JAX
     test's own bounds."""
     jsum, je0, je1 = jds.run(H=80, W=100, pose_noise=0.02, verbose=False)
-    summary, err0, err1, stats = dense_stereo.run(H=80, W=100, pose_noise=0.02, verbose=False)
+    summary, err0, err1, stats = dense_stereo.run(H=80, W=100, pose_noise=0.02, verbose=False,
+                                                  device="cpu")
     assert summary.iterations == int(jsum.iterations)
     np.testing.assert_allclose(summary.final_cost, float(jsum.final_cost), rtol=1e-8)
     np.testing.assert_allclose(err0, float(jnp.linalg.norm(je0)), rtol=0, atol=1e-8)

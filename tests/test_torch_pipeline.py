@@ -53,7 +53,10 @@ def sim_files(tmp_path_factory):
 
 
 def _read(cls, f):
-    return cls.read_csv(f["track"], f["ref_sun"], f["obs_sun"])
+    p = cls.read_csv(f["track"], f["ref_sun"], f["obs_sun"])
+    if cls is DatasetProblemSun:
+        p.device = "cpu"  # the port's default is cuda
+    return p
 
 
 def _jax_hypotheses(jprob) -> np.ndarray:
@@ -165,6 +168,18 @@ def test_cli_writes_both_passes(sim_files):
         assert poses.shape == (24, 12) and np.all(np.isfinite(poses))
         assert p["windows"] == 23 and p["iterations"] >= 23
         assert metrics.ate_translation(poses, ds.poses_gt) < 0.3
+
+
+def test_dataset_sun_defaults_to_cuda(sim_files):
+    """``DatasetProblemSun`` inherits the ``cuda`` default and raises at its
+    first device step without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    f, _ = sim_files
+    p = DatasetProblemSun.read_csv(f["track"], f["ref_sun"], f["obs_sun"])
+    assert p.device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        p.solve_sliding_window(window=2)
 
 
 def test_cli_cuda_without_card_fails(sim_files):

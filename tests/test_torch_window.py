@@ -64,52 +64,106 @@ def test_layout_matches_jax(case):
     lt = window.build_window_layout(convert.problem_from_numpy(_np(problem)), K, J)
     ref = convert.layout_from_numpy(_np(lj))
     assert lt.O == ref.O
-    for f in ("pose_idx", "slot_pose", "w_idx", "uvdT", "stiffT", "weight", "pose_free"):
+    for f in ("slot_pose", "w_idx"):
         assert torch.equal(getattr(lt, f), getattr(ref, f)), f
+    for f in ("obs", "pose_idx", "pose_order", "pose_start", "ticket"):
+        assert torch.equal(getattr(lt.plan, f), getattr(ref.plan, f)), f
+    M = J * lt.O
+    for name, cols, jf in (("uvd", slice(0, 3), lj.uvdT), ("stiffness", slice(3, 12), lj.stiffT),
+                           ("weight", slice(12, 13), lj.weightT),
+                           ("pose_free", slice(13, 14), lj.pose_freeT)):
+        np.testing.assert_array_equal(lt.plan.obs[:, cols].numpy(), np.asarray(jf)[:, :M].T,
+                                      err_msg=name)
     for f in ("uvd", "stiffness", "pose_idx", "point_idx", "valid"):
         a, b = getattr(lt.problem.stereo, f), np.asarray(getattr(lj.problem.stereo, f))
         np.testing.assert_array_equal(a.numpy(), b)
 
 
-def test_k1_plain_matches_pallas_f32(case):
+# K1 cases beyond ``case``: the flagship window shape (K=2, J=192, O=2), a
+# small S-scale window and a ragged O = 3, each with padding slots (~6% of
+# the observations invalid), a fixed first pose and two invalid landmarks.
+K1_SHAPES = {"flagship": (2, 192, 2), "small_S": (16, 256, 4), "ragged": (5, 77, 3)}
+
+
+@pytest.fixture(scope="module", params=["plain", "masked", *K1_SHAPES])
+def k1_case(request):
+    """``(problem, state, K, J)`` for the K1 parity tests."""
+    if request.param in ("plain", "masked"):
+        problem, state = ge._build_example(K=K, J=J, n_obs=N_OBS, dtype=jnp.float64, seed=3)
+        return (_masked(problem) if request.param == "masked" else problem), state, K, J
+    k, j, o = K1_SHAPES[request.param]
+    problem, state = ge._build_example(K=k, J=j, n_obs=j * o, dtype=jnp.float64, seed=5)
+    rng = np.random.default_rng(6)
+    st = problem.stereo
+    problem = problem._replace(
+        stereo=st._replace(valid=jnp.asarray(rng.random(j * o) > 0.06)),
+        fixed_pose_mask=jnp.zeros(k, bool).at[0].set(True),
+        point_valid=jnp.ones(j, bool).at[3].set(False).at[j - 1].set(False))
+    return problem, state, k, j
+
+
+def test_k1_plain_matches_pallas_f32(k1_case):
     """K1's plain version against the Pallas kernel in interpret mode, in
-    float32. Tolerances as tests/test_window.py holds the Pallas kernel to
-    the XLA assembly: f32 accumulation-order noise, relative to the largest
-    entry — 1e-5 for the Gram blocks, 5e-3 for the gradients (zero-mean
-    residuals cancel in them), rtol 1e-4 for the cost."""
-    problem, state = case
+    float32, the Pallas per-slot landmark outputs summed over each
+    landmark's O slots and its per-pose costs summed. Tolerances as
+    tests/test_window.py holds the Pallas kernel to the XLA assembly: f32
+    accumulation-order noise, relative to the largest entry — 1e-5 for the
+    Gram blocks, 5e-3 for the gradients (zero-mean residuals cancel in
+    them), rtol 1e-4 for the cost."""
+    problem, state, k, j = k1_case
     f32 = lambda x: x.astype(jnp.float32) if hasattr(x, "dtype") and x.dtype == jnp.float64 else x
     problem32, state32 = jax.tree.map(f32, problem), jax.tree.map(f32, state)
-    lj = jwindow.build_window_layout(problem32, K, J)
-    M = J * lj.O
-    pT = jnp.pad(jnp.repeat(state32.points.T, lj.O, axis=1), ((0, 0), (0, lj.onehotT.shape[1] - M)))
+    lj = jwindow.build_window_layout(problem32, k, j)
+    O = lj.O
+    M = j * O
+    pT = jnp.pad(jnp.repeat(state32.points.T, O, axis=1), ((0, 0), (0, lj.onehotT.shape[1] - M)))
     ref = pallas_kernels.window_factor_blocks(
         problem32.camera, state32.poses.T, lj.onehotT, pT, lj.uvdT, lj.stiffT, lj.weightT,
         lj.pose_freeT, interpret=True)
     lt, st = _ported(problem32, state32, lj)
-    out = window_kernel.window_factor_blocks_plain(
-        lt.problem.camera, st.poses, st.points, lt.pose_idx, lt.uvdT, lt.stiffT, lt.weight,
-        lt.pose_free)
-    hll, u, gl, hppgp = (np.asarray(x) for x in ref)
-    _close(out[0], hll[:, :M], 1e-5)
-    _close(out[1], u[:, :M], 1e-5)
-    _close(out[2], gl[:, :M], 5e-3)
-    _close(out[3][:36], hppgp[:36], 1e-5)
-    _close(out[3][36:42], hppgp[36:42], 5e-3)
-    np.testing.assert_allclose(out[3][42].sum().item(), hppgp[42].sum(), rtol=1e-4)
+    out = window_kernel.window_factor_blocks_plain(lt.plan, st.poses, st.points)
+    hll, u, gl, hppgp = (np.asarray(x, np.float64) for x in ref)
+    assert [tuple(x.shape) for x in out] == [(j, 9), (M, 18), (j, 3), (k, 43), ()]
+    _close(out[0], hll[:, :M].T.reshape(j, O, 9).sum(1), 1e-5)
+    _close(out[1], u[:, :M].T, 1e-5)
+    _close(out[2], gl[:, :M].T.reshape(j, O, 3).sum(1), 5e-3)
+    _close(out[3][:, :36], hppgp[:36].T, 1e-5)
+    _close(out[3][:, 36:42], hppgp[36:42].T, 5e-3)
+    np.testing.assert_allclose(out[3][:, 42].numpy(), hppgp[42], rtol=1e-4, atol=1e-4 * hppgp[42].max())
+    np.testing.assert_allclose(out[4].item(), hppgp[42].sum(), rtol=1e-4)
 
 
-def test_k1_plain_matches_xla_blocks_f64(case):
-    """K1's plain version (via the solver's reshape) against the JAX
-    float64 block assembly ``_xla_blocks``: atol 1e-10 x the largest entry
+def test_k1_plain_matches_xla_blocks_f64(k1_case):
+    """K1's plain version (via the solver's views) against the JAX float64
+    block assembly ``_xla_blocks``: atol 1e-10 x the largest entry
     (summation order is the only difference)."""
-    problem, state = case
-    lj = jwindow.build_window_layout(problem, K, J)
+    problem, state, k, j = k1_case
+    lj = jwindow.build_window_layout(problem, k, j)
     ref = jwindow._xla_blocks(lj, state)
     lt, st = _ported(problem, state, lj)
     out = window.factor_blocks(lt, st)
     for f in ("Hpp", "Hll", "U_jo", "gp", "gl", "stereo_cost"):
         _close(getattr(out, f), getattr(ref, f), 1e-10)
+
+
+def test_pose_order_lists_every_slot_once(k1_case):
+    """The plan's pose order: every non-padding slot exactly once, sorted by
+    pose (slot order within a pose), no padding slot, ``pose_start``
+    delimiting each pose's run, and the records and landmarks the kernel
+    reads in that order."""
+    problem, _, k, j = k1_case
+    plan = window.build_window_layout(convert.problem_from_numpy(_np(problem)), k, j).plan
+    pose_idx = plan.pose_idx.numpy()
+    order, start = plan.pose_order.numpy(), plan.pose_start.numpy()
+    assert (pose_idx < 0).any() == (plan.O * j > int(np.asarray(problem.stereo.valid).sum()))
+    np.testing.assert_array_equal(np.sort(order), np.nonzero(pose_idx >= 0)[0])
+    assert start[0] == 0 and start[-1] == order.size and start.size == k + 1
+    for kk in range(k):
+        run = order[start[kk]:start[kk + 1]]
+        assert np.all(pose_idx[run] == kk) and np.all(np.diff(run) > 0)
+    assert torch.equal(plan.obs_by_pose, plan.obs[plan.pose_order.long()])
+    np.testing.assert_array_equal(plan.point_by_pose.numpy(), order // plan.O)
+    assert plan.ticket.numpy().tolist() == [0]
 
 
 def test_k1_depth_guard_on_padding_slots():
@@ -134,28 +188,41 @@ def test_k1_depth_guard_on_padding_slots():
 
 
 def test_k1_wrapper_checks_and_dispatch(case):
+    """CPU plans take the plain version (no launch counted); a call checks
+    its poses and points (shape, dtype, device, contiguity) and the plan
+    its fixed inputs, once."""
     problem, state = case
     lt, st = _ported(problem, state)
-    args = (lt.problem.camera, st.poses, st.points, lt.pose_idx, lt.uvdT, lt.stiffT, lt.weight,
-            lt.pose_free)
-    # CPU tensors take the plain version and count no kernel launch
+    plan = lt.plan
     launches = window_kernel.window_factor_blocks.launches
-    for a, b in zip(window_kernel.window_factor_blocks(*args),
-                    window_kernel.window_factor_blocks_plain(*args)):
+    for a, b in zip(window_kernel.window_factor_blocks(plan, st.poses, st.points),
+                    window_kernel.window_factor_blocks_plain(plan, st.poses, st.points)):
         assert torch.equal(a, b)
     assert window_kernel.window_factor_blocks.launches == launches
-    bad = {
-        1: st.poses.float(),  # dtype mismatch
-        3: lt.pose_idx.long(),  # index dtype
-        4: lt.uvdT.T,  # shape
-        5: lt.stiffT.T.contiguous().T,  # not contiguous
-    }
-    for i, x in bad.items():
-        with pytest.raises(ValueError):
-            window_kernel.window_factor_blocks(*args[:i], x, *args[i + 1:])
-    many = torch.zeros((window_kernel.MAX_POSES + 1, 12), dtype=st.poses.dtype)
-    with pytest.raises(ValueError, match="poses"):
-        window_kernel.window_factor_blocks(args[0], many, *args[2:])
+    bad = [
+        (st.poses.float(), st.points, "dtype"),
+        (st.poses[:-1], st.points, "shape"),
+        (st.poses, st.points.T.contiguous().T, "contiguous"),
+        (st.poses.to("meta"), st.points, "is on"),
+    ]
+    for poses, points, what in bad:
+        with pytest.raises(ValueError, match=what):
+            window_kernel.window_factor_blocks(plan, poses, points)
+    M = J * plan.O
+    good = dict(camera=plan.camera, K=K, J=J, pose_idx=plan.pose_idx.numpy(),
+                uvd=plan.obs[:, :3], stiffness=plan.obs[:, 3:12], weight=plan.obs[:, 12],
+                pose_free=plan.obs[:, 13])
+    rebuilt = window_kernel.make_plan(**good)
+    for f in ("obs", "pose_idx", "pose_order", "pose_start"):
+        assert torch.equal(getattr(rebuilt, f), getattr(plan, f)), f
+    for change, what in ((dict(K=window_kernel.MAX_POSES + 1), "poses"),
+                         (dict(J=J + 1), "multiple"),
+                         (dict(pose_idx=np.full(M, K)), "past the last"),
+                         (dict(uvd=plan.obs[:, :2]), "uvd"),
+                         (dict(dtype=torch.int32), "float32 or float64"),
+                         (dict(device="meta"), "cpu or cuda")):
+        with pytest.raises(ValueError, match=what):
+            window_kernel.make_plan(**{**good, **change})
 
 
 @pytest.mark.parametrize("lam", [1e-4, 0.0])
