@@ -64,9 +64,10 @@ def obs_tables_from_numpy(tables, pose_idx, point_idx, device="cpu") -> pcg.ObsT
 
 
 def obs_blocks_from_numpy(b, device="cpu") -> pcg.ObsBlocks:
-    """A JAX ``pcg.ObsBlocks`` (its ``U`` field, a reshape of ``U18``, dropped)."""
+    """A JAX ``pcg.ObsBlocks`` (its ``U`` field, a reshape of ``U18``, dropped;
+    no K3 binding: bind one with ``schur_kernel.bind``)."""
     return pcg.ObsBlocks(**{f: _t(getattr(b, f), device) for f in pcg.ObsBlocks._fields
-                            if f not in ("pose_idx", "point_idx")},
+                            if f not in ("pose_idx", "point_idx", "uy")},
                          pose_idx=_t(b.pose_idx, device, torch.int64),
                          point_idx=_t(b.point_idx, device, torch.int64))
 

@@ -1,10 +1,10 @@
 """Build the package's CUDA sources with ``nvcc``, load them with ``ctypes``,
 and launch them with as little host work per call as possible.
 
-Each library is compiled once per content hash of its sources and flags
-into ``build/ceres_slam_tpu_torch/`` at the repository root (the directory
-``.gitignore`` lists), at first use, and loaded into the process. The
-sources expose a plain C interface (pointers and the stream as ``void*``),
+Each library is compiled once per content hash of its sources, the
+headers in ``csrc/`` and the flags into ``build/ceres_slam_tpu_torch/``
+at the repository root (the directory ``.gitignore`` lists), at first
+use, and loaded into the process. The sources expose a plain C interface (pointers and the stream as ``void*``),
 so no PyTorch header is compiled and a build takes seconds.
 
 The thin launch path (K1 and K4): ``load`` sets every C function's
@@ -53,6 +53,8 @@ def library_path(name: str, sources: tuple[str, ...]) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in sources:
         h.update((CSRC / s).read_bytes())
+    for header in sorted(CSRC.glob("*.h")):  # any source may include any of them
+        h.update(header.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 

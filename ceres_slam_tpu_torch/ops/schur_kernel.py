@@ -4,136 +4,147 @@
 ``ceres_slam_tpu/ops/pallas_kernels.py::schur_uy_packed`` (with its wrapper
 ``schur_uy``); the CUDA source, with the note on what bounds it on an H100
 and how its design answers that, is ``csrc/schur_uy.cu``. The plain
-PyTorch version ``schur_uy_plain`` is the coupling half of
-``ceres_slam_tpu/solver/pcg.py::make_schur_matvec_gather``: the CPU path
-and the kernel's reference on the card.
+PyTorch version ``schur_uy_plain`` sums over the same segments in slot
+order (``index_add_`` in observation order): the CPU path and the kernel's
+reference on the card.
 
 ``Uy [K, 6] = sum_j U_j Cinv_j U_j^T v`` for the component-flat couplings
 ``U18 [N, 18]``, the damped inverted landmark blocks ``Cinv [J, 3, 3]`` and
-``v [K, 6]``; ``tables`` is a ``solver.pcg.ObsTables`` (int32 slot tables
-``by_point``/``by_point_pose`` ``[J, O_l]`` and ``by_pose``/``by_pose_point``
-``[K, O_p]``, float32 0/1 slot weights ``by_point_w``/``by_pose_w``).
+``v [K, 6]``. ``U18`` and ``Cinv`` are the same for every CG iteration of
+an LM iteration: ``bind`` checks them once against the problem's
+``FullBatchPlan`` (``ops/full_batch_plan.py``), and a call checks only
+``v``, allocates its output and launches with one argument struct.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ceres_slam_tpu_torch.ops import cuda_build, lie
+from ceres_slam_tpu_torch.ops import cuda_build, full_batch_plan, lie
 
 _SOURCES = ("schur_uy.cu",)
 
 
-def schur_uy_plain(U18, Cinv, v, tables):
-    """Plain PyTorch version of the kernel (same arguments and output)."""
-    t = tables
-    J, O_l = t.by_point.shape
-    K, O_p = t.by_pose.shape
-    dtype = U18.dtype
-    U_l = (U18[t.by_point.long()] * t.by_point_w.to(dtype)[..., None]).reshape(J, O_l, 6, 3)
-    utv = torch.einsum("joac,joa->jc", U_l, v[t.by_point_pose.long()])
-    y = lie._mv(Cinv, utv)
-    U_p = (U18[t.by_pose.long()] * t.by_pose_w.to(dtype)[..., None]).reshape(K, O_p, 6, 3)
-    return torch.einsum("koac,koc->ka", U_p, y[t.by_pose_point.long()])
+class _UyArgs(ctypes.Structure):
+    """``UyArgs`` in csrc/schur_uy.cu: the plan and this LM iteration's blocks."""
+
+    _fields_ = [("plan", full_batch_plan._Plan), ("U18", ctypes.c_void_p),
+                ("cinv", ctypes.c_void_p)]
 
 
-def _check(U18, Cinv, v, t):
-    if U18.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"schur_uy takes float32 or float64, got {U18.dtype}")
-    N = U18.shape[0]
-    J, O_l = t.by_point.shape
-    K, O_p = t.by_pose.shape
-    if min(N, J, O_l, K, O_p) < 1:
-        raise ValueError("schur_uy needs at least one observation, landmark, pose and slot")
-    shapes = {"U18": (U18, (N, 18), U18.dtype), "Cinv": (Cinv, (J, 3, 3), U18.dtype),
-              "v": (v, (K, 6), U18.dtype),
-              "by_point": (t.by_point, (J, O_l), torch.int32),
-              "by_point_w": (t.by_point_w, (J, O_l), torch.float32),
-              "by_point_pose": (t.by_point_pose, (J, O_l), torch.int32),
-              "by_pose": (t.by_pose, (K, O_p), torch.int32),
-              "by_pose_w": (t.by_pose_w, (K, O_p), torch.float32),
-              "by_pose_point": (t.by_pose_point, (K, O_p), torch.int32)}
-    for name, (x, shape, dtype) in shapes.items():
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
-        if x.device != U18.device:
-            raise ValueError(f"{name} is on {x.device}, U18 on {U18.device}")
-        if not x.is_contiguous():
+class UyBinding(NamedTuple):
+    """K3's inputs fixed over an LM iteration, checked by ``bind``."""
+
+    plan: full_batch_plan.FullBatchPlan
+    U18: torch.Tensor  # [N, 18]
+    Cinv: torch.Tensor  # [J, 3, 3]
+    args: _UyArgs | None  # the C side's copy (None on the CPU)
+
+
+def bind(plan: full_batch_plan.FullBatchPlan, U18: torch.Tensor, Cinv: torch.Tensor) -> UyBinding:
+    """Check ``U18 [N, 18]`` and ``Cinv [J, 3, 3]`` against the plan (the
+    plan's dtype and device, contiguous) and bind them for ``schur_uy``."""
+    ref = plan.rec
+    for name, t, shape in (("U18", U18, (plan.N, 18)), ("Cinv", Cinv, (plan.J, 3, 3))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+        if t.dtype != ref.dtype:
+            raise ValueError(f"{name}: dtype {t.dtype}, expected {ref.dtype}")
+        if t.device != ref.device:
+            raise ValueError(f"{name} is on {t.device}, the plan on {ref.device}")
+        if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
-        if x.dtype != dtype:
-            raise ValueError(f"{name}: dtype {x.dtype}, expected {dtype}")
+    args = None
+    if plan.args is not None:
+        if U18.data_ptr() % 16:
+            raise ValueError("U18 is not 16-byte aligned (the kernel loads its rows in pairs)")
+        args = _UyArgs(plan.args, U18.data_ptr(), Cinv.data_ptr())
+    return UyBinding(plan, U18, Cinv, args)
+
+
+def schur_uy_plain(bound: UyBinding, v: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel (same arguments and output)."""
+    p, U = bound.plan, bound.U18.view(-1, 6, 3)
+    utv = torch.zeros((p.J, 3), dtype=v.dtype, device=v.device).index_add_(
+        0, p.point_idx, torch.einsum("nac,na->nc", U, v[p.pose_idx]))
+    y = lie._mv(bound.Cinv, utv)
+    return torch.zeros((p.K, 6), dtype=v.dtype, device=v.device).index_add_(
+        0, p.pose_idx, lie._mv(U, y[p.point_idx]))
 
 
 def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("schur_uy", _SOURCES)
-    if not getattr(lib, "_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.schur_uy_f32, lib.schur_uy_f64):
-            # U18, 6 tables, Cinv, v, J, O_l, K, O_p, y scratch, out, stream
-            fn.argtypes = [p] * 9 + [i] * 4 + [p] * 3
-            fn.restype = ctypes.c_int
-        lib._typed = True
-    return lib
+    p = ctypes.c_void_p
+    sig = [ctypes.POINTER(_UyArgs), p, p, p]  # binding, v, out, stream
+    return cuda_build.load("schur_uy", _SOURCES, {"schur_uy_f32": sig, "schur_uy_f64": sig})
+
+
+_fns: dict = {}
 
 
 def build() -> str:
     """Compile (at first use) and load the kernel; returns the library path."""
-    _library()
+    lib = _library()
+    _fns.update({torch.float32: lib.schur_uy_f32, torch.float64: lib.schur_uy_f64})
     return str(cuda_build.library_path("schur_uy", _SOURCES))
 
 
-def _launch(U18, Cinv, v, t):
-    lib = _library()
-    J, O_l = t.by_point.shape
-    K, O_p = t.by_pose.shape
-    y = torch.empty((J, 3), dtype=U18.dtype, device=U18.device)
-    out = torch.empty((K, 6), dtype=U18.dtype, device=U18.device)
-    fn = lib.schur_uy_f64 if U18.dtype == torch.float64 else lib.schur_uy_f32
-    with torch.cuda.device(U18.device):
-        stream = torch.cuda.current_stream().cuda_stream
-    err = fn(U18.data_ptr(), t.by_point.data_ptr(), t.by_point_w.data_ptr(),
-             t.by_point_pose.data_ptr(), t.by_pose.data_ptr(), t.by_pose_w.data_ptr(),
-             t.by_pose_point.data_ptr(), Cinv.data_ptr(), v.data_ptr(), J, O_l, K, O_p,
-             y.data_ptr(), out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"schur_uy launch failed with CUDA error {err}")
+def _bad_v(v, K, ref):
+    if v.device.type == "cuda" and v.data_ptr() % 16:
+        raise ValueError("v is not 16-byte aligned (the kernel loads its rows in pairs)")
+    if tuple(v.shape) != (K, 6):
+        raise ValueError(f"v: shape {tuple(v.shape)}, expected {(K, 6)}")
+    if v.dtype != ref.dtype:
+        raise ValueError(f"v: dtype {v.dtype}, expected {ref.dtype}")
+    if v.device != ref.device:
+        raise ValueError(f"v is on {v.device}, the plan on {ref.device}")
+    raise ValueError("v is not contiguous")
+
+
+def schur_uy(bound: UyBinding, v: torch.Tensor) -> torch.Tensor:
+    """``Uy [K, 6]``. A binding on the CPU takes the plain version; on CUDA
+    the kernel runs (and counts the launch in ``.launches``). Only ``v``
+    is checked here (shape, dtype, device, contiguity, and on the card a
+    16-byte aligned start)."""
+    U18, args = bound.U18, bound.args
+    K = bound.plan.K
+    if args is None:  # the plan is on the CPU
+        if (v.shape != (K, 6) or v.dtype != U18.dtype or v.device != U18.device
+                or not v.is_contiguous()):
+            _bad_v(v, K, U18)
+        return schur_uy_plain(bound, v)
+    if (v.shape != (K, 6) or v.dtype is not U18.dtype or v.get_device() != args.plan.device
+            or not v.is_contiguous() or v.data_ptr() % 16):
+        _bad_v(v, K, U18)
+    if not _fns:
+        build()
+    out = U18.new_empty((K, 6))
+    err = _fns[U18.dtype](args, v.data_ptr(), out.data_ptr(),
+                          cuda_build.current_stream(args.plan.device))
+    if err:
+        raise cuda_build.launch_error(err, "schur_uy")
     schur_uy.launches += 1
     return out
-
-
-def schur_uy(U18, Cinv, v, tables):
-    """``Uy [K, 6]``. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (and count the launch in ``.launches``)."""
-    _check(U18, Cinv, v, tables)
-    if U18.device.type == "cpu":
-        return schur_uy_plain(U18, Cinv, v, tables)
-    if U18.device.type != "cuda":
-        raise ValueError(f"schur_uy runs on cpu or cuda, not {U18.device}")
-    return _launch(U18, Cinv, v, tables)
 
 
 schur_uy.launches = 0
 
 
 def random_inputs(N: int, J: int, K: int, dtype=torch.float64, device="cpu", seed: int = 0):
-    """Seeded K3 arguments ``(U18, Cinv, v, tables)`` for ``N`` observations
-    of ``J`` landmarks from ``K`` poses, stored pose by pose as the datasets
-    are, with ~3% masked observations (zero coupling rows)."""
-    from ceres_slam_tpu_torch.solver import pcg
-
-    rng = np.random.default_rng(seed)
-    pose_idx = np.sort(rng.integers(0, K, N))
-    point_idx = rng.integers(0, J, N)
+    """Seeded K3 arguments ``(bound, v)`` at a full-batch shape: the plan of
+    ``full_batch_plan.random_problem`` (pose-ordered rows and a padding tail
+    at pose 0), random couplings with the masked rows' zeroed, SPD ``Cinv``."""
+    plan, _, _ = full_batch_plan.random_problem(N, J, K, dtype, device, seed)
+    rng = np.random.default_rng(seed + 1)
     U18 = rng.normal(0, 1.0, (N, 18))
-    U18[rng.random(N) < 0.03] = 0.0
+    U18[~plan.valid.cpu().numpy()] = 0.0
     A = rng.normal(0, 0.3, (J, 3, 3))
     Cinv = A @ A.transpose(0, 2, 1) + np.eye(3)
 
     def put(x):
         return torch.as_tensor(x).to(device=device, dtype=dtype).contiguous()
 
-    tables = pcg.build_obs_tables(pose_idx, point_idx, K, J, device=device)
-    return put(U18), put(Cinv), put(rng.normal(0, 1.0, (K, 6))), tables
+    return bind(plan, put(U18), put(Cinv)), put(rng.normal(0, 1.0, (K, 6)))

@@ -1,35 +1,47 @@
-"""K2: per-observation stereo factor blocks — CUDA kernel, wrapper and plain version.
+"""K2: the stereo factor pass with its pose and landmark sums — CUDA kernel,
+wrapper and plain versions.
 
-``stereo_factor_blocks`` replaces the Pallas TPU kernel
+``stereo_factor_sums`` replaces the Pallas TPU kernel
 ``ceres_slam_tpu/ops/pallas_kernels.py::stereo_factor_blocks`` (with
-``flat=True``); the CUDA source, with the note on what bounds it on an
-H100 and how its design answers that, is ``csrc/stereo_factor_blocks.cu``.
-The plain PyTorch version ``stereo_factor_blocks_plain`` is the port of
-the XLA branch of ``ceres_slam_tpu/solver/pcg.py::build_obs_blocks``, with
-the kernel's depth guard: the CPU path and the kernel's reference on the card.
+``flat=True``) together with the gather-table sums that
+``ceres_slam_tpu/solver/pcg.py::build_obs_blocks`` runs right after it; the
+CUDA source, with the note on what bounds it on an H100 and how its design
+answers that, is ``csrc/stereo_factor_blocks.cu``.
 
-Layout (per observation, row-major): gathered poses ``T [N, 12]``, points
-``p [N, 3]``, ``uvd [N, 3]``, ``stiffness [N, 3, 3]``, ``valid [N]`` bool.
-Outputs ``r [N, 3]``, ``hpp [N, 36]``, ``hll [N, 9]``, ``u [N, 18]``,
-``gp [N, 6]``, ``gl [N, 3]``, whitened and masked by ``valid``.
+Two plain PyTorch versions: ``stereo_factor_blocks_plain``, the TPU
+kernel's per-observation function (the port of the XLA branch of
+``build_obs_blocks``, with the kernel's depth guard), held against the
+Pallas kernel; and ``stereo_factor_sums_plain``, that function followed by
+the sums in slot order (``index_add_`` in observation order), the CPU path
+and the kernel's reference on the card.
+
+``stereo_factor_sums(plan, poses, points)``: the inputs fixed over a solve
+come from the problem's ``FullBatchPlan`` (``ops/full_batch_plan.py``);
+a call passes ``poses [K, 12]`` and ``points [J, 3]`` and gets ``(U18 [N,
+18], Hpp [K, 36], gp [K, 6], Hll [J, 9], gl [J, 3])``: the coupling per
+observation (zero where the observation is masked or its pose fixed), the
+pose side summed by pose (zero for a fixed pose), the landmark side summed
+by landmark (zero for an invalid landmark). On the card the five are views
+of one buffer.
 """
 
 from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from ceres_slam_tpu_torch.models.stereo_camera import StereoCamera
-from ceres_slam_tpu_torch.ops import cuda_build, factors, lie
+from ceres_slam_tpu_torch.ops import cuda_build, factors, full_batch_plan, lie
 
 _SOURCES = ("stereo_factor_blocks.cu",)
-_WIDTHS = (3, 36, 9, 18, 6, 3)
 
 
 def stereo_factor_blocks_plain(camera: StereoCamera, T, p, uvd, stiffness, valid):
-    """Plain PyTorch version of the kernel (same arguments and outputs)."""
+    """The TPU kernel's per-observation function: for gathered poses ``T
+    [N, 12]``, points ``p [N, 3]``, ``uvd [N, 3]``, ``stiffness [N, 3, 3]``
+    and ``valid [N]``, the whitened blocks ``(r [N, 3], hpp [N, 36], hll [N,
+    9], u [N, 18], gp [N, 6], gl [N, 3])`` masked by ``valid``."""
     N = T.shape[0]
     p_c, J_pc, R = lie.point_transform_jacobians(T, p)
     z = p_c[:, 2]
@@ -46,96 +58,88 @@ def stereo_factor_blocks_plain(camera: StereoCamera, T, p, uvd, stiffness, valid
             (JpT @ J_pt).reshape(N, 18), lie._mv(JpT, r), lie._mv(JlT, r))
 
 
-def _check(T, p, uvd, stiffness, valid):
-    N = T.shape[0]
-    if N < 1:
-        raise ValueError("stereo_factor_blocks needs at least one observation")
-    if T.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"stereo_factor_blocks takes float32 or float64, got {T.dtype}")
-    shapes = {"T": (T, (N, 12)), "p": (p, (N, 3)), "uvd": (uvd, (N, 3)),
-              "stiffness": (stiffness, (N, 3, 3)), "valid": (valid, (N,))}
-    for name, (t, shape) in shapes.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-        if t.device != T.device:
-            raise ValueError(f"{name} is on {t.device}, T on {T.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
-        want = torch.bool if name == "valid" else T.dtype
-        if t.dtype != want:
-            raise ValueError(f"{name}: dtype {t.dtype}, expected {want}")
+def stereo_factor_sums_plain(plan: full_batch_plan.FullBatchPlan, poses, points):
+    """Plain PyTorch version of the kernel (same arguments and outputs)."""
+    K, J, N = plan.K, plan.J, plan.N
+    _, hpp, hll, u, gp, gl = stereo_factor_blocks_plain(
+        plan.camera, poses[plan.pose_idx], points[plan.point_idx], plan.uvd, plan.stiffness,
+        torch.ones(N, dtype=torch.bool, device=poses.device))
+    zero = poses.new_zeros(())
+    on = plan.valid[:, None]
+
+    def sums(x, idx, n, keep):
+        out = poses.new_zeros((n, x.shape[1])).index_add_(0, idx, torch.where(on, x, zero))
+        return torch.where(keep[:, None], out, zero)
+
+    U18 = torch.where(on & plan.free_pose[plan.pose_idx][:, None], u, zero)
+    by_pose, by_point = (plan.pose_idx, K, plan.free_pose), (plan.point_idx, J, plan.point_valid)
+    return U18, sums(hpp, *by_pose), sums(gp, *by_pose), sums(hll, *by_point), sums(gl, *by_point)
 
 
 def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("stereo_factor_blocks", _SOURCES)
-    if not getattr(lib, "_typed", False):
-        p, d, i = ctypes.c_void_p, ctypes.c_double, ctypes.c_int
-        for fn in (lib.stereo_factor_blocks_f32, lib.stereo_factor_blocks_f64):
-            # 5 inputs, camera (fu, fv, cu, cv, b), N, 6 outputs, stream
-            fn.argtypes = [p] * 5 + [d] * 5 + [i] + [p] * 7
-            fn.restype = ctypes.c_int
-        lib._typed = True
-    return lib
+    p = ctypes.c_void_p
+    sig = [ctypes.POINTER(full_batch_plan._Plan), p, p, p, p]  # plan, poses, points, out, stream
+    return cuda_build.load("stereo_factor_blocks", _SOURCES,
+                           {"stereo_factor_sums_f32": sig, "stereo_factor_sums_f64": sig})
+
+
+_fns: dict = {}
 
 
 def build() -> str:
     """Compile (at first use) and load the kernel; returns the library path."""
-    _library()
+    lib = _library()
+    _fns.update({torch.float32: lib.stereo_factor_sums_f32,
+                 torch.float64: lib.stereo_factor_sums_f64})
     return str(cuda_build.library_path("stereo_factor_blocks", _SOURCES))
 
 
-def _launch(camera, T, p, uvd, stiffness, valid):
-    lib = _library()
-    N = T.shape[0]
-    outs = [torch.empty((N, w), dtype=T.dtype, device=T.device) for w in _WIDTHS]
-    fn = lib.stereo_factor_blocks_f64 if T.dtype == torch.float64 else lib.stereo_factor_blocks_f32
-    with torch.cuda.device(T.device):
-        stream = torch.cuda.current_stream().cuda_stream
-    err = fn(T.data_ptr(), p.data_ptr(), uvd.data_ptr(), stiffness.data_ptr(), valid.data_ptr(),
-             camera.fu, camera.fv, camera.cu, camera.cv, camera.b, N,
-             *(o.data_ptr() for o in outs), stream)
-    if err != 0:
-        raise RuntimeError(f"stereo_factor_blocks launch failed with CUDA error {err}")
-    stereo_factor_blocks.launches += 1
-    return tuple(outs)
+def _bad_input(name, t, shape, ref):
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if t.dtype != ref.dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {ref.dtype}")
+    if t.device != ref.device:
+        raise ValueError(f"{name} is on {t.device}, the plan on {ref.device}")
+    raise ValueError(f"{name} is not contiguous")
 
 
-def stereo_factor_blocks(camera: StereoCamera, T, p, uvd, stiffness, valid):
-    """Per-observation factor blocks ``(r, hpp, hll, u, gp, gl)``. CPU
-    tensors take the plain version; CUDA tensors launch the kernel (and
-    count the launch in ``.launches``)."""
-    _check(T, p, uvd, stiffness, valid)
-    if T.device.type == "cpu":
-        return stereo_factor_blocks_plain(camera, T, p, uvd, stiffness, valid)
-    if T.device.type != "cuda":
-        raise ValueError(f"stereo_factor_blocks runs on cpu or cuda, not {T.device}")
-    return _launch(camera, T, p, uvd, stiffness, valid)
+def stereo_factor_sums(plan: full_batch_plan.FullBatchPlan, poses: torch.Tensor,
+                       points: torch.Tensor):
+    """The factor pass with its sums. A plan on the CPU takes the plain
+    version; on CUDA the kernel runs (and counts the launch in
+    ``.launches``). Only ``poses`` and ``points`` are checked here (shape,
+    dtype, device, contiguity); the plan was checked when it was built."""
+    ref, args = plan.rec, plan.args
+    shapes = (("poses", poses, (plan.K, 12)), ("points", points, (plan.J, 3)))
+    if args is None:  # the plan is on the CPU
+        for name, t, shape in shapes:
+            if (t.shape != shape or t.dtype != ref.dtype or t.device != ref.device
+                    or not t.is_contiguous()):
+                _bad_input(name, t, shape, ref)
+        return stereo_factor_sums_plain(plan, poses, points)
+    for name, t, shape in shapes:
+        if (t.shape != shape or t.dtype is not ref.dtype or t.get_device() != args.device
+                or not t.is_contiguous()):
+            _bad_input(name, t, shape, ref)
+    if not _fns:
+        build()
+    K, J, N = plan.K, plan.J, plan.N
+    out = ref.new_empty(N * 18 + K * 42 + J * 12)
+    err = _fns[ref.dtype](args, poses.data_ptr(), points.data_ptr(), out.data_ptr(),
+                          cuda_build.current_stream(args.device))
+    if err:
+        raise cuda_build.launch_error(err, "stereo_factor_sums")
+    stereo_factor_sums.launches += 1
+    U18, Hpp, gp, Hll, gl = out.split_with_sizes([N * 18, K * 36, K * 6, J * 9, J * 3])
+    return U18.view(N, 18), Hpp.view(K, 36), gp.view(K, 6), Hll.view(J, 9), gl.view(J, 3)
 
 
-stereo_factor_blocks.launches = 0
+stereo_factor_sums.launches = 0
 
 
-def random_inputs(N: int, dtype=torch.float64, device="cpu", seed: int = 0):
-    """Seeded K2 arguments for ``N`` observations, for checking the kernel
-    against its plain version: poses near the origin looking along z,
-    points 4-30 m ahead, noisy observations, symmetric stiffnesses and ~5%
-    invalid rows, one of them at depth 0 (the guard's case)."""
-    rng = np.random.default_rng(seed)
-    xi = np.concatenate([rng.normal(0, 0.5, (N, 3)), rng.normal(0, 0.05, (N, 3))], axis=1)
-    xi[0, :3] = 0.0  # row 0: pose at the origin, point at the origin -> z = 0
-    T = lie.se3_exp(torch.as_tensor(xi))
-    p = rng.uniform([-4, -3, 4], [4, 3, 30], (N, 3))
-    p[0] = 0.0
-    p = torch.as_tensor(p)
-    camera = StereoCamera.create(500.0, 500.0, 320.0, 240.0, 0.5)
-    uvd = camera.project(lie.se3_transform_point(T, p)) + torch.as_tensor(rng.normal(0, 0.5, (N, 3)))
-    uvd[0] = 0.0
-    A = rng.normal(0, 0.1, (N, 3, 3))
-    stiffness = 2.0 * np.eye(3) + A + A.transpose(0, 2, 1)
-    valid = rng.random(N) > 0.05
-    valid[0] = False
-
-    def put(x, dt=dtype):
-        return torch.as_tensor(x).to(device=device, dtype=dt).contiguous()
-
-    return camera, put(T), put(p), put(uvd), put(stiffness), put(valid, torch.bool)
+def random_inputs(N: int, J: int, K: int, dtype=torch.float64, device="cpu", seed: int = 0):
+    """Seeded K2 arguments ``(plan, poses, points)`` at a full-batch shape
+    (``full_batch_plan.random_problem``: pose-ordered rows, a padding tail
+    at pose 0, masked rows, one at depth 0, pose 0 fixed)."""
+    return full_batch_plan.random_problem(N, J, K, dtype, device, seed)

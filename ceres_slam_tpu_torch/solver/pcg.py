@@ -14,13 +14,22 @@ block-Jacobi of S (``schur_diag_blocks``) or the banded cyclic-reduction
 factorization of ``solver/banded.py``.
 
 Two kernels carry the path on CUDA: K2 (``ops/stereo_factor_kernel``)
-evaluates every observation's factor blocks once per LM iteration, and K3
-(``ops/schur_kernel``) computes the coupling half ``U C^{-1} U^T v`` of
-every CG matvec. Both read the gather tables (``ObsTables``), which
-``solve_ba_pcg`` always builds on CUDA: every reduction by pose or by
-landmark is then a gather and a contraction, deterministic run to run, with
-no ``index_add_`` atomics. Without tables (the CPU default, as in the JAX
-package off the TPU) the reductions are ``index_add_`` segment sums.
+evaluates every observation's factor blocks and sums them by pose and by
+landmark once per LM iteration, and K3 (``ops/schur_kernel``) computes the
+coupling half ``U C^{-1} U^T v`` of every CG matvec. Both read the
+full-batch plan (``ops/full_batch_plan.FullBatchPlan``: the observations
+grouped by landmark and by pose, the static masks, K2's records and the
+kernels' scratch), which ``solve_ba_pcg`` builds once per problem on CUDA
+(``build_obs_blocks`` builds one where none is given: on the card K2 and
+K3 always run), beside the gather tables (``ObsTables``) that the
+remaining reductions (the right-hand side, the back-substitution, the
+block-Jacobi blocks) read:
+every reduction by pose or by landmark is then deterministic run to run,
+with no ``index_add_`` atomics. ``build_obs_blocks`` binds this LM
+iteration's ``U18`` and ``Cinv`` to the plan for K3 once (``ObsBlocks.uy``).
+Without a plan or tables (the CPU default, as in the JAX package off the
+TPU) the reductions are ``index_add_`` segment sums; on the CPU the
+kernels' wrappers run their plain versions.
 
 The CG loop runs on the host: its stop test ``|r| > tol |rhs|`` is read
 every iteration, so the iterate count equals the JAX ``while_loop``'s.
@@ -33,7 +42,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ceres_slam_tpu_torch.ops import lie, schur_kernel, stereo_factor_kernel
+from ceres_slam_tpu_torch.ops import full_batch_plan, lie, schur_kernel, stereo_factor_kernel
 from ceres_slam_tpu_torch.solver import dense, lm
 from ceres_slam_tpu_torch.solver.window import _damp, _inv3x3, _pin
 
@@ -50,6 +59,7 @@ class ObsBlocks(NamedTuple):
     Hpp_undamped: torch.Tensor  # [K, 6, 6]
     pose_idx: torch.Tensor  # [N]
     point_idx: torch.Tensor  # [N]
+    uy: schur_kernel.UyBinding | None = None  # K3's binding of U18 and Cinv (with a plan)
 
 
 class ObsTables(NamedTuple):
@@ -57,9 +67,10 @@ class ObsTables(NamedTuple):
 
     Row j of ``by_point`` lists landmark j's observations, padded with
     observation 0 at weight 0 (likewise ``by_pose``); ``by_point_pose`` and
-    ``by_pose_point`` hold each slot's pose and landmark, which K3 reads in
-    place of a second indirection. Built once per problem structure on the
-    host."""
+    ``by_pose_point`` hold each slot's pose and landmark, which the gather
+    matvec reads in place of a second indirection. Built once per problem
+    structure on the host. The reductions outside the kernels and the
+    JAX-parity tests read them; K2 and K3 read the ``FullBatchPlan``."""
 
     by_point: torch.Tensor  # [J, O_l] int32 observation ids
     by_point_w: torch.Tensor  # [J, O_l] float32 1/0 slot weights
@@ -136,8 +147,17 @@ def u18_vec(U18, y3):
 
 
 def build_obs_blocks(problem: dense.StereoBAProblem, state: dense.BAState, lam: float,
-                     tables: ObsTables | None = None) -> ObsBlocks:
-    """Per-observation factor blocks (K2) and the binned Gauss-Newton diagonals."""
+                     tables: ObsTables | None = None,
+                     plan: full_batch_plan.FullBatchPlan | None = None) -> ObsBlocks:
+    """Per-observation factor blocks and the binned Gauss-Newton diagonals:
+    with a plan, K2's sums (and K3 bound to the result); else, on the CPU,
+    the factor blocks summed through the gather tables or by ``index_add_``.
+    On CUDA K2 always runs: without a plan, one is built here (a host round
+    trip of the observation tables; ``solve_ba_pcg`` builds it once)."""
+    if plan is None and state.poses.device.type == "cuda":
+        plan = full_batch_plan.plan_for_problem(problem)
+    if plan is not None:
+        return _blocks_from_plan(problem, state, lam, plan)
     p, st = problem, problem.stereo
     K, J = state.poses.shape[0], state.points.shape[0]
     dtype = state.poses.dtype
@@ -145,13 +165,13 @@ def build_obs_blocks(problem: dense.StereoBAProblem, state: dense.BAState, lam: 
     # Invalid rows must contribute exact zeros, but their landmark can be
     # garbage: an uninitialized point at the origin seen from a pose at the
     # origin has z = 0. Evaluate invalid rows against a point 10 m ahead of
-    # their camera instead, so K2 and its plain version see finite inputs.
+    # their camera instead, so that they stay finite.
     T_obs = state.poses[st.pose_idx]
     p_obs = state.points[st.point_idx]
     ahead = torch.tensor([0.0, 0.0, 10.0], dtype=dtype, device=p_obs.device)
     safe_pt = lie.se3_transform_point(lie.se3_inverse(T_obs), ahead.expand_as(p_obs))
     p_obs = torch.where(valid[:, None], p_obs, safe_pt)
-    _, hpp36, hll9, U18, gp6, gl3 = stereo_factor_kernel.stereo_factor_blocks(
+    _, hpp36, hll9, U18, gp6, gl3 = stereo_factor_kernel.stereo_factor_blocks_plain(
         p.camera, T_obs, p_obs, st.uvd, st.stiffness, valid)
     if tables is not None:
         Hpp = _gather_sum_by_pose(tables, hpp36).reshape(K, 6, 6)
@@ -174,7 +194,25 @@ def build_obs_blocks(problem: dense.StereoBAProblem, state: dense.BAState, lam: 
     Hll = Hll * free_pt[:, None, None]
     gl = gl * free_pt[:, None]
     U18 = U18 * (free_pose[st.pose_idx] * free_pt[st.point_idx])[:, None]
+    return _finish(U18, Hpp, gp, Hll, gl, lam, st)
 
+
+def _blocks_from_plan(problem, state, lam, plan):
+    """K2's sums come masked; the sun and prior blocks are added under the
+    gauge mask, then pinned and damped as on the other paths."""
+    K, J = plan.K, plan.J
+    U18, hpp36, gp, hll9, gl = stereo_factor_kernel.stereo_factor_sums(plan, state.poses,
+                                                                       state.points)
+    Hpp_aux, gp_aux = dense.aux_pose_blocks(problem, state)
+    zero = Hpp_aux.new_zeros(())
+    free = plan.free_pose
+    Hpp = hpp36.view(K, 6, 6) + torch.where(free[:, None, None], Hpp_aux, zero)
+    gp = gp + torch.where(free[:, None], gp_aux, zero)
+    b = _finish(U18, Hpp, gp, hll9.view(J, 3, 3), gl, lam, problem.stereo)
+    return b._replace(uy=schur_kernel.bind(plan, b.U18, b.Cinv))
+
+
+def _finish(U18, Hpp, gp, Hll, gl, lam, st) -> ObsBlocks:
     Hpp = _pin(Hpp)
     Hll_pinned = _pin(Hll)
     return ObsBlocks(U18=U18, Hpp=_damp(Hpp, lam), Cinv=_inv3x3(_damp(Hll_pinned, lam)), gp=gp,
@@ -191,20 +229,28 @@ def schur_matvec(b: ObsBlocks, v: torch.Tensor) -> torch.Tensor:
     return lie._mv(b.Hpp, v) - Uy
 
 
-def make_schur_matvec_gather(b: ObsBlocks, t: ObsTables):
-    """``v -> S v`` through the gather tables: ``Hpp v`` in plain torch and
-    the coupling half by K3 (``ops/schur_kernel.schur_uy``; the kernel on
-    CUDA, its plain gather version on the CPU)."""
-
-    def matvec(v: torch.Tensor) -> torch.Tensor:
-        return lie._mv(b.Hpp, v) - schur_kernel.schur_uy(b.U18, b.Cinv, v, t)
-
-    return matvec
+def _uy_gather(b: ObsBlocks, t: ObsTables, v: torch.Tensor) -> torch.Tensor:
+    """``U C^{-1} U^T v`` through the gather tables (the JAX gather matvec's
+    coupling half)."""
+    J, O_l = t.by_point.shape
+    K, O_p = t.by_pose.shape
+    dtype = b.U18.dtype
+    U_l = (b.U18[t.by_point.long()] * t.by_point_w.to(dtype)[..., None]).reshape(J, O_l, 6, 3)
+    y = lie._mv(b.Cinv, torch.einsum("joac,joa->jc", U_l, v[t.by_point_pose.long()]))
+    U_p = (b.U18[t.by_pose.long()] * t.by_pose_w.to(dtype)[..., None]).reshape(K, O_p, 6, 3)
+    return torch.einsum("koac,koc->ka", U_p, y[t.by_pose_point.long()])
 
 
 def schur_matvec_gather(b: ObsBlocks, t: ObsTables, v: torch.Tensor) -> torch.Tensor:
-    """``S v`` through the gather tables (single-shot convenience)."""
-    return make_schur_matvec_gather(b, t)(v)
+    """``S v`` through the gather tables."""
+    return lie._mv(b.Hpp, v) - _uy_gather(b, t, v)
+
+
+def schur_matvec_plan(b: ObsBlocks, v: torch.Tensor) -> torch.Tensor:
+    """``S v`` with the coupling half by K3 (``b.uy``, bound by
+    ``build_obs_blocks`` with a plan; the kernel on CUDA, its plain version
+    on the CPU)."""
+    return lie._mv(b.Hpp, v) - schur_kernel.schur_uy(b.uy, v)
 
 
 def whitened_u18(b: ObsBlocks) -> torch.Tensor:
@@ -237,15 +283,22 @@ def pcg_solve(b: ObsBlocks, rhs: torch.Tensor, max_iters: int, tol: float,
     """Preconditioned CG on the reduced camera system; returns ``(x,
     iterations)``. The default preconditioner is the exact block-Jacobi;
     ``precond`` (a callable ``r -> M^{-1} r``, e.g.
-    ``banded.make_banded_precond``) overrides it. With ``tables`` the
-    matvec is ``Hpp v - K3(v)``, whatever the preconditioner."""
+    ``banded.make_banded_precond``) overrides it. Whatever the
+    preconditioner, the matvec is ``Hpp v - K3(v)`` when ``b`` carries K3's
+    binding (always on CUDA: ``b`` must come from ``build_obs_blocks``),
+    else the gather matvec with ``tables``, else segment sums."""
+    if b.uy is None and b.U18.device.type == "cuda":
+        raise ValueError("on CUDA the matvec runs K3: take the blocks from build_obs_blocks, "
+                         "which binds them to the full-batch plan")
     if precond is None:
         precond = _block_precond(schur_diag_blocks(b, tables))
-    if tables is not None:
-        matvec = make_schur_matvec_gather(b, tables)
-    else:
-        def matvec(v):
-            return schur_matvec(b, v)
+
+    def matvec(v):
+        if b.uy is not None:
+            return schur_matvec_plan(b, v)
+        if tables is not None:
+            return schur_matvec_gather(b, tables, v)
+        return schur_matvec(b, v)
 
     x = torch.zeros_like(rhs)
     r = rhs
@@ -270,12 +323,15 @@ def pcg_solve(b: ObsBlocks, rhs: torch.Tensor, max_iters: int, tol: float,
 
 
 def pcg_step(problem, state, lam: float, max_cg_iters: int = 100, cg_tol: float = 1e-6,
-             tables: ObsTables | None = None, tracks=None):
+             tables: ObsTables | None = None, tracks=None,
+             plan: full_batch_plan.FullBatchPlan | None = None):
     """One damped LM linear solve via Schur + PCG. Returns ``(dx, grad_norm,
     pred_decrease, cg_iterations)``; the first three are the LM core's
     step contract. With ``tracks`` (a ``banded.TrackInfo``) the
-    preconditioner is the banded cyclic-reduction factorization."""
-    b = build_obs_blocks(problem, state, lam, tables=tables)
+    preconditioner is the banded cyclic-reduction factorization; with
+    ``plan``, and always on CUDA, K2 and K3 carry the assembly and the
+    matvecs (``build_obs_blocks`` builds the plan where none is given)."""
+    b = build_obs_blocks(problem, state, lam, tables=tables, plan=plan)
     precond = None
     if tracks is not None:
         from ceres_slam_tpu_torch.solver import banded
@@ -302,13 +358,15 @@ def pcg_step(problem, state, lam: float, max_cg_iters: int = 100, cg_tol: float 
 
 def solve_ba_pcg(problem: dense.StereoBAProblem, state0: dense.BAState,
                  config: lm.SolveConfig = lm.SolveConfig(), max_cg_iters: int = 100,
-                 cg_tol: float = 1e-6, tables: ObsTables | None = None, precond: str = "auto"):
+                 cg_tol: float = 1e-6, tables: ObsTables | None = None, precond: str = "auto",
+                 plan: full_batch_plan.FullBatchPlan | None = None):
     """LM with the matrix-free Schur-PCG linear solver (the role of Ceres'
     ITERATIVE_SCHUR). Returns ``(state, SolveSummary)`` with the CG
     iterations of the whole solve in ``linear_iterations``.
 
-    On CUDA the gather tables are built here whenever none are given, so
-    every matvec runs K3; on the CPU they are used only if given.
+    On CUDA the full-batch plan and the gather tables are built here
+    whenever none are given, so K2 runs every LM iteration and K3 every
+    matvec; on the CPU they are used only if given.
 
     ``precond``: ``'jacobi'`` (exact block-Jacobi), ``'banded'`` (the
     cyclic-reduction factorization of the banded part of S,
@@ -318,9 +376,12 @@ def solve_ba_pcg(problem: dense.StereoBAProblem, state0: dense.BAState,
     measurements (ROADMAP)."""
     K, J = state0.poses.shape[0], state0.points.shape[0]
     st = problem.stereo
-    if tables is None and state0.poses.device.type == "cuda":
-        tables = build_obs_tables(st.pose_idx.cpu(), st.point_idx.cpu(), K, J,
-                                  device=state0.poses.device)
+    if state0.poses.device.type == "cuda":
+        if tables is None:
+            tables = build_obs_tables(st.pose_idx.cpu(), st.point_idx.cpu(), K, J,
+                                      device=state0.poses.device)
+        if plan is None:
+            plan = full_batch_plan.plan_for_problem(problem)
     tracks = None
     if precond in ("banded", "auto"):
         from ceres_slam_tpu_torch.solver import banded
@@ -337,7 +398,7 @@ def solve_ba_pcg(problem: dense.StereoBAProblem, state0: dense.BAState,
 
     def step(s, lam):
         dx, grad_norm, pred, iters = pcg_step(problem, s, lam, max_cg_iters, cg_tol,
-                                              tables=tables, tracks=tracks)
+                                              tables=tables, tracks=tracks, plan=plan)
         cg_iters.append(iters)
         return dx, grad_norm, pred
 

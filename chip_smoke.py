@@ -14,9 +14,11 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            float64 and float32, with median times per call (CUDA events
            around the wrapper, host included): K1 at the flagship window
            shape (K=2, J=192, O=2) and the S scale (K=64, J=2048, 16,384
-           slots), called twice for equal bits; K2 and K3 at the full-batch
-           shapes of triangle200 (N 12,992, J 448, K 200) and kitti1100 (N
-           124,480, J 16,640, K 1,100); K4 at the photometric shape
+           slots), called twice for equal bits; K2 (fused with its pose and
+           landmark sums) and K3 (bound to the full-batch plan) at the
+           full-batch shapes of triangle200 (N 12,992, J 448, K 200) and
+           kitti1100 (N 124,480, J 16,640, K 1,100), called twice for equal
+           bits, with host time per call back to back; K4 at the photometric shape
            (3x240x320, N 68,096) and at KITTI's full resolution (3x375x1242,
            N 440,134), equal to its plain versions bit for bit, its packing
            (once per solve) timed apart, beside one
@@ -44,14 +46,19 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            arithmetic, the same bits on either device), and the dense
            --gt-disparity run (pose equal to the CUDA run's to 1e-8)
   profile  torch.profiler, last, so that no profiler session precedes a
-           timed run: the device time per call of every kernel checked in
-           the kernels phase (and of grid_sample) with the share of its
-           bound, failing unless K1 runs one device kernel per call; K4's
-           device time on the path's own coordinates (the 240x320
-           problem's projections, float64 and float32); and a trace of one
-           photometric rate solve (device busy share, launches per LM
-           iteration). It runs whenever the kernels phase runs with no
-           main-path phase (slice, dense) after it.
+           timed run: the device time per call (the sum of its kernels) of
+           every kernel checked in the kernels phase (and of grid_sample)
+           with the share of its bound, failing unless K1 runs one device
+           kernel per call and K2 and K3 two; for K2 and K3 each kernel's
+           (phase's) time and the device time per call of calls back to
+           back, the gaps between kernels included; K4's device time on the path's own
+           coordinates (the 240x320 problem's projections, float64 and
+           float32); kitti1100's full problem (float64): one
+           build_obs_blocks and one CG iteration (device time, kernels,
+           launches, syncs, copies); and a trace of one photometric rate
+           solve (device busy share, launches per LM iteration). It runs
+           whenever the kernels phase runs with no main-path phase (slice,
+           dense) after it.
 
 Any failure exits non-zero before the result line. The last line of
 standard output is ``{"ok": true, "device": {...}}``; before it come the
@@ -109,7 +116,7 @@ TOL64 = 1e-12
 TOL32 = {"hll": 1e-5, "u": 1e-5, "gl": 5e-3, "hpp": 1e-5, "gp": 5e-3, "pcost": 1e-4,
          "cost": 1e-4}
 COST_RTOL32 = 1e-4
-K2_TOL32 = {"r": 1e-4, "hpp": 1e-4, "hll": 1e-4, "u": 1e-4, "gp": 5e-3, "gl": 5e-3}
+K2_TOL32 = {"U18": 1e-4, "Hpp": 1e-4, "Hll": 1e-4, "gp": 5e-3, "gl": 5e-3}
 K3_TOL32 = 2e-5
 FULL_SHAPES = {"triangle200": (12992, 448, 200), "kitti1100": (124480, 16640, 1100)}
 
@@ -130,7 +137,7 @@ K4_LIB_TOL = {"f64": 1e-9, "f32": 1e-4}
 # K4 per point and channel plus the index arithmetic)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"f64": 34e12, "f32": 67e12}
-OPS_PER_ROW = {"K1": 750, "K2": 710, "K3": 90}
+OPS_PER_ROW = {"K1": 750, "K2": 650, "K3": 90}
 K4_OPS = (6, 9)
 
 # JAX package reference figures of dense_stereo at 240x320 (float64, seed
@@ -226,20 +233,90 @@ def _host_us(torch, fn, n=1000):
     return dt / n * 1e6
 
 
-def _device_ms(torch, fn, reps=20):
-    """Mean device time per call and device kernels per call: the CUDA
-    events of a torch.profiler trace of ``reps`` calls (no host time in it)."""
+def _device_ms(fn):
+    """Device time per call from the CUDA events of a torch.profiler trace
+    of 20 calls (no host time in it): the sum of the call's kernels, the
+    device kernels per call (checked rounded), and each kernel's mean time
+    per call by name, in ms (``full_batch_trace.kernel_ms``)."""
+    from ceres_slam_tpu_torch.ops.full_batch_trace import kernel_ms
+
+    by_name, kernels = kernel_ms(fn)
+    return sum(by_name.values()), kernels, by_name
+
+
+def _trace(torch, fn):
+    """One run of ``fn`` under torch.profiler (CPU and CUDA): device time
+    (sum of the device events), device kernels, launches (runtime launch
+    calls), host syncs (runtime synchronize calls) and copies, and the wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    for _ in range(3):  # a session on the card now and then records no event
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
             fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return sum(e.device_time_total for e in events) / reps / 1e3, len(events) / reps
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = prof.events()
+        dev = [e for e in events if e.device_type == DeviceType.CUDA]
+        if dev:
+            break
+    host = [e.name for e in events if e.device_type != DeviceType.CUDA]
+    return {"device_us": sum(e.device_time_total for e in dev), "kernels": len(dev),
+            "launches": sum(n.startswith("cudaLaunchKernel") for n in host),
+            "syncs": sum("Synchronize" in n for n in host),
+            "copies": sum(n.startswith("cudaMemcpy") for n in host), "wall_us": wall * 1e6}
+
+
+def _profile_full_batch(torch, data):
+    """kitti1100's full problem (the dataset_vo --window 0 problem, float64,
+    from the CLI's initial guess): one build_obs_blocks and one CG
+    iteration (21 iterations less 1, block-Jacobi, tol 0) under the
+    profiler, with the plan and the gather tables built beforehand, as
+    solve_ba_pcg builds them once per problem."""
+    from ceres_slam_tpu_torch.ops import full_batch_plan
+    from ceres_slam_tpu_torch.problems.dataset import DatasetProblem
+    from ceres_slam_tpu_torch.solver import dense, pcg
+
+    path = os.path.join(data, "kitti1100_vo.csv")
+    if not os.path.exists(path):
+        from ceres_slam_tpu_torch.apps import make_sim
+
+        make_sim.main([data, "--kind", "kitti", "--num-states", "1100", "--sun-noise", "10"])
+    ds = DatasetProblem.read_csv(path)
+    ds.device = "cuda"
+    ds.compute_initial_guess()
+    n_obs_pad, n_pts_pad, _ = ds._window_budget(ds.num_states)
+    problem, state, _ = ds.build_window_problem(0, ds.num_states, n_obs_pad, n_pts_pad)
+    problem = dense.to_device(problem, "cuda")
+    st = problem.stereo
+    K, J = state.poses.shape[0], state.points.shape[0]
+    tables = pcg.build_obs_tables(st.pose_idx.cpu(), st.point_idx.cpu(), K, J, device="cuda")
+    plan = full_batch_plan.plan_for_problem(problem)
+
+    def blocks():
+        return pcg.build_obs_blocks(problem, state, 1e-4, tables=tables, plan=plan)
+
+    b = blocks()
+    torch.cuda.synchronize()
+    reps = 10
+    t = _trace(torch, lambda: [blocks() for _ in range(reps)])
+    log(f"[profile] full batch kitti1100 f64 (N {st.uvd.shape[0]}, J {J}, K {K}): build_obs_blocks "
+        f"{t['device_us'] / reps:.2f} us of device time, {t['kernels'] / reps:g} device kernels, "
+        f"{t['launches'] / reps:g} launches, {t['syncs'] / reps:g} syncs, "
+        f"{t['copies'] / reps:g} copies, wall {t['wall_us'] / reps:.1f} us (profiled) per call")
+    rhs = -b.gp
+    precond = pcg._block_precond(pcg.schur_diag_blocks(b, tables))
+
+    def cg(n):
+        return lambda: pcg.pcg_solve(b, rhs, n, 0.0, tables=tables, precond=precond)
+
+    cg(21)()
+    one, many = _trace(torch, cg(1)), _trace(torch, cg(21))
+    d = {k: (many[k] - one[k]) / 20 for k in one}
+    log(f"[profile] full batch kitti1100 f64: one CG iteration {d['device_us']:.2f} us of device "
+        f"time, {d['kernels']:g} device kernels, {d['launches']:g} launches, {d['syncs']:g} "
+        f"syncs, {d['copies']:g} copies, wall {d['wall_us']:.1f} us (profiled)")
 
 
 def _split(out):
@@ -312,49 +389,67 @@ def _compare(tag, names, got, ref, tol):
 
 
 def _kernel_full_batch(torch, kernels, results, jobs):
+    """K2 (fused) and K3 (bound to the plan) on random full-batch problems:
+    against their plain versions, bit-equal across two calls, wrapper and
+    host times, and the bounds of the functions' own bytes."""
     k2, k3 = kernels["K2"], kernels["K3"]
     for shape, (N, J, K) in FULL_SHAPES.items():
         for dtype in (torch.float64, torch.float32):
             tag = "f64" if dtype == torch.float64 else "f32"
             f64 = dtype == torch.float64
-            args = k2.random_inputs(N, dtype, "cuda", seed=7)
-            names = ("r", "hpp", "hll", "u", "gp", "gl")
-            out = k2.stereo_factor_blocks(*args)
+            e = 8 if f64 else 4
+            args = k2.random_inputs(N, J, K, dtype, "cuda", seed=7)
+            names = ("U18", "Hpp", "gp", "Hll", "gl")
+            out = k2.stereo_factor_sums(*args)
+            again = k2.stereo_factor_sums(*args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(out, again)):
+                fail(f"K2 {shape} {tag}: two calls on the same inputs differ")
             worst, errs = _compare(
-                f"K2 {shape} {tag}", names, out,
-                k2.stereo_factor_blocks_plain(*args),
+                f"K2 {shape} {tag}", names, out, k2.stereo_factor_sums_plain(*args),
                 lambda n, r: (TOL64 * r.abs().max() if f64
                               else K2_TOL32[n] * max(1.0, r.abs().max().item())))
-            ms = _median_ms(torch, lambda: k2.stereo_factor_blocks(*args))
-            plain_ms = _median_ms(torch, lambda: k2.stereo_factor_blocks_plain(*args))
+            ms = _median_ms(torch, lambda: k2.stereo_factor_sums(*args))
+            plain_ms = _median_ms(torch, lambda: k2.stereo_factor_sums_plain(*args))
+            host_us = _host_us(torch, lambda: k2.stereo_factor_sums(*args))
+            # the function's own bytes: uvd, stiffness, one pose and one landmark
+            # index (int32) and a validity byte per observation, the state; U18
+            # and the four sums
+            nbytes = N * (12 * e + 8 + 1) + (12 * K + 3 * J) * e + (18 * N + 42 * K + 12 * J) * e
             results[("K2", shape, tag)] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-                                           **_bound(args, out, OPS_PER_ROW["K2"] * N, tag),
+                                           **_bound_of(nbytes, OPS_PER_ROW["K2"] * N, tag),
                                            "library_ms": None}
-            jobs.append((f"K2 {shape} {tag}", lambda a=args: k2.stereo_factor_blocks(*a),
+            jobs.append((f"K2 {shape} {tag}", lambda a=args: k2.stereo_factor_sums(*a),
                          results[("K2", shape, tag)]))
-            log(f"[kernels] K2 {shape} N={N} {tag}: kernel {ms * 1e3:.1f} us, plain "
-                f"{plain_ms * 1e3:.1f} us, {_bound_str(results[('K2', shape, tag)])}, "
-                f"max|err| {worst:.3e} "
-                + " ".join(f"{k}={v:.1e}" for k, v in errs.items()))
+            log(f"[kernels] K2 {shape} N={N} J={J} K={K} {tag}: kernel {ms * 1e3:.1f} us (host "
+                f"{host_us:.1f} us per call back to back), plain {plain_ms * 1e3:.1f} us, "
+                f"{_bound_str(results[('K2', shape, tag)])}, two calls bit-equal, max|err| "
+                f"{worst:.3e} " + " ".join(f"{k}={v:.1e}" for k, v in errs.items()))
 
-            args = k3.random_inputs(N, J, K, dtype, "cuda", seed=7)
-            out = k3.schur_uy(*args)
+            bound, v = k3.random_inputs(N, J, K, dtype, "cuda", seed=7)
+            out = k3.schur_uy(bound, v)
+            again = k3.schur_uy(bound, v)
+            torch.cuda.synchronize()
+            if not torch.equal(out, again):
+                fail(f"K3 {shape} {tag}: two calls on the same inputs differ")
             worst, _ = _compare(
-                f"K3 {shape} {tag}", ("uy",), (out,), (k3.schur_uy_plain(*args),),
+                f"K3 {shape} {tag}", ("uy",), (out,), (k3.schur_uy_plain(bound, v),),
                 lambda n, r: (TOL64 * r.abs().max() if f64
                               else K3_TOL32 * (r.abs().max().item() + 1.0)))
-            ms = _median_ms(torch, lambda: k3.schur_uy(*args))
-            plain_ms = _median_ms(torch, lambda: k3.schur_uy_plain(*args))
+            ms = _median_ms(torch, lambda: k3.schur_uy(bound, v))
+            plain_ms = _median_ms(torch, lambda: k3.schur_uy_plain(bound, v))
+            host_us = _host_us(torch, lambda: k3.schur_uy(bound, v))
+            # U18, Cinv, v and Uy, and one pose and one landmark index per observation
+            nbytes = (18 * N + 9 * J + 12 * K) * e + 8 * N
             results[("K3", shape, tag)] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-                                           **_bound(args, out, OPS_PER_ROW["K3"] * N, tag),
+                                           **_bound_of(nbytes, OPS_PER_ROW["K3"] * N, tag),
                                            "library_ms": None}
-            t = args[3]
-            jobs.append((f"K3 {shape} {tag}", lambda a=args: k3.schur_uy(*a),
+            jobs.append((f"K3 {shape} {tag}", lambda a=(bound, v): k3.schur_uy(*a),
                          results[("K3", shape, tag)]))
-            log(f"[kernels] K3 {shape} N={N} J={J} K={K} O_l={t.by_point.shape[1]} "
-                f"O_p={t.by_pose.shape[1]} {tag}: kernel {ms * 1e3:.1f} us, plain "
-                f"{plain_ms * 1e3:.1f} us, {_bound_str(results[('K3', shape, tag)])}, "
-                f"max|err| {worst:.3e}")
+            log(f"[kernels] K3 {shape} N={N} J={J} K={K} {tag}: kernel {ms * 1e3:.1f} us (host "
+                f"{host_us:.1f} us per call back to back), plain {plain_ms * 1e3:.1f} us, "
+                f"{_bound_str(results[('K3', shape, tag)])}, two calls bit-equal, max|err| "
+                f"{worst:.3e}")
 
 
 def _nbytes(x) -> int:
@@ -370,7 +465,11 @@ def _bound(inputs, outputs, ops, tag):
     """The least time the card could take: bytes (each input read once,
     each output written once) over the HBM rate, or operations over the
     peak rate of their type, whichever is larger."""
-    t_bytes = (_nbytes(inputs) + _nbytes(outputs)) / HBM_BYTES_PER_S * 1e3
+    return _bound_of(_nbytes(inputs) + _nbytes(outputs), ops, tag)
+
+
+def _bound_of(nbytes, ops, tag):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[tag] * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -471,18 +570,27 @@ def phase_kernels(torch, kernels):
     return results, jobs
 
 
-def phase_profile(torch, jobs, dense: bool):
+def phase_profile(torch, jobs, dense: bool, data):
     """torch.profiler measurements, run last so that no profiler session
     precedes the timed main-path runs: each kernel call's device time and
-    kernels per call (K1 must run one), K4 on the path's own coordinates,
-    and a trace of one photometric solve."""
+    kernels per call (K1 must run one, K2 and K3 two), K4 on the path's own
+    coordinates, kitti1100's build_obs_blocks and CG iteration, and a trace
+    of one photometric solve."""
+    from ceres_slam_tpu_torch.ops.full_batch_trace import device_span_ms
+
     for label, fn, row in jobs:
-        ms, kernels = _device_ms(torch, fn)
+        ms, kernels, by_name = _device_ms(fn)
         share = f", {100 * row['bound_ms'] / ms:.1f}% of its bound" if row else ""
+        more = ""
+        if label.split()[0] in ("K2", "K3"):
+            span = device_span_ms(fn)
+            more = (" (" + ", ".join(f"{n} {t * 1e3:.2f} us" for n, t in by_name.items())
+                    + f"); {span * 1e3:.2f} us per call back to back, gaps included")
         log(f"[profile] {label}: {ms * 1e3:.2f} us of device time per call, {kernels:g} device "
-            f"kernels per call{share}")
-        if label.startswith("K1") and kernels != 1:
-            fail(f"{label}: {kernels:g} device kernels per call, not one")
+            f"kernels per call{more}{share}")
+        want = {"K1": 1, "K2": 2, "K3": 2}.get(label.split()[0])
+        if want and round(kernels) != want:
+            fail(f"{label}: {kernels:g} device kernels per call, not {want}")
     from ceres_slam_tpu_torch.apps import dense_stereo
     from ceres_slam_tpu_torch.ops import bilinear_kernel, lie
     from ceres_slam_tpu_torch.ops import photometric as ops_ph
@@ -493,10 +601,11 @@ def phase_profile(torch, jobs, dense: bool):
         cam = problem.camera
         obs = torch.cat([problem.ref_uv, state0.disparities[:, None]], dim=-1)
         proj = cam.project(lie.se3_transform_point(state0.T, cam.triangulate(obs)))
-        ms, _ = _device_ms(torch, lambda: bilinear_kernel.bilinear_sample_packed(
+        ms, _, _ = _device_ms(lambda: bilinear_kernel.bilinear_sample_packed(
             packed, proj[:, 0], proj[:, 1]))
         log(f"[profile] K4 on the path's coordinates (240x320 --gt-disparity start, N "
             f"{proj.shape[0]}, {dtype}): {ms * 1e3:.2f} us of device time per call")
+    _profile_full_batch(torch, data)
     if dense:
         from ceres_slam_tpu_torch.solver import photometric
         from ceres_slam_tpu_torch.solver.lm import SolveConfig
@@ -548,7 +657,7 @@ def _run_full(data, seq, dtype, device, kernels):
     from ceres_slam_tpu_torch.utils import csvio, metrics
 
     base = os.path.join(data, seq)
-    k2, k3 = kernels["K2"].stereo_factor_blocks, kernels["K3"].schur_uy
+    k2, k3 = kernels["K2"].stereo_factor_sums, kernels["K3"].schur_uy
     k2.launches = k3.launches = 0
     stats = dataset_vo.main([base + "_vo.csv", "--window", "0", "--dtype", dtype,
                              "--device", device])
@@ -645,7 +754,7 @@ def _banded_full(data, kernels, jacobi_cost):
     n_obs_pad, n_pts_pad, _ = ds._window_budget(ds.num_states)
     problem, state, _ = ds.build_window_problem(0, ds.num_states, n_obs_pad, n_pts_pad)
     config = SolveConfig(max_iters=1000, nonmonotonic=True, ftol=1e-6, xtol=1e-6)
-    k2, k3 = kernels["K2"].stereo_factor_blocks, kernels["K3"].schur_uy
+    k2, k3 = kernels["K2"].stereo_factor_sums, kernels["K3"].schur_uy
     k2.launches = k3.launches = 0
     _, summary = pcg.solve_ba_pcg(dense.to_device(problem, "cuda"), state, config,
                                   precond="banded")
@@ -830,10 +939,12 @@ def phase_cpu(kernels, data, window_poses, full_poses, dense_pose):
 KERNELS = (
     ("K1", "window_factor_blocks", "window_factor_blocks.cu", ":299", "flagship",
      "redesigned: one launch (pose blocks, landmark blocks), per-window plan, thin launch path"),
-    ("K2", "stereo_factor_blocks", "stereo_factor_blocks.cu", ":124", "kitti1100",
-     "thread per observation"),
+    ("K2", "stereo_factor_sums", "stereo_factor_blocks.cu", ":124", "kitti1100",
+     "redesigned: fused with its pose and landmark sums (a block per pose, then a landmark "
+     "pass in slot order), staged 16-byte stores, full-batch plan, thin launch path"),
     ("K3", "schur_uy", "schur_uy.cu", ":591", "kitti1100",
-     "warp per landmark, then per pose"),
+     "redesigned: rows staged through shared memory, a block per landmark group then per "
+     "pose, full-batch plan bound once per LM iteration, thin launch path"),
     ("K4", "bilinear_sample_packed", "bilinear_sample_imgs.cu", ":427", "240x320",
      "redesigned: packed [H, W, 4] texels, strided coordinates, per-solve plan, "
      "thin launch path"),
@@ -844,7 +955,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
-    phases = ap.parse_args().phases.split(",")
+    cli = ap.parse_args()
+    phases = cli.phases.split(",")
     if not set(phases) <= set(PHASES) or ("cpu" in phases and not {"slice", "dense"} & set(phases)):
         fail(f"bad --phases {phases}")
 
@@ -878,7 +990,7 @@ def main():
     if "cpu" in phases:
         phase_cpu(kernels, data, window_poses, full_poses, dense_pose)
     if "profile" in phases or ("kernels" in phases and not {"slice", "dense"} & set(phases)):
-        phase_profile(torch, jobs, "dense" in phases)
+        phase_profile(torch, jobs, "dense" in phases, data)
     nan = {"max_abs_err": math.nan, "ms": math.nan, "plain_ms": math.nan, "bound_ms": math.nan,
            "bound_by": None, "library_ms": None}
     log(json.dumps({"kernels": [{

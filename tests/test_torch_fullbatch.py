@@ -22,6 +22,7 @@ from ceres_slam_tpu.solver import lm as jlm
 from ceres_slam_tpu.solver import pcg as jpcg
 from ceres_slam_tpu_torch import convert
 from ceres_slam_tpu_torch.apps import dataset_vo
+from ceres_slam_tpu_torch.ops import full_batch_plan
 from ceres_slam_tpu_torch.problems.dataset import DatasetProblem
 from ceres_slam_tpu_torch.solver import dense, lm, pcg
 from ceres_slam_tpu_torch.utils import csvio, sim
@@ -141,21 +142,24 @@ def test_dense_solve_ba_matches_jax(nonmonotonic):
 # -- full-batch Schur-PCG ------------------------------------------------------
 
 
-@pytest.mark.parametrize("precond,with_tables", [("jacobi", False), ("banded", True)],
-                         ids=["jacobi-segment", "banded-tables"])
-def test_solve_ba_pcg_matches_jax(precond, with_tables):
-    """``solve_ba_pcg`` against JAX's on the CPU (the gather-table path runs
-    K3's plain version): the same LM iteration count, final cost rtol
+@pytest.mark.parametrize("precond,path", [("jacobi", "segment"), ("banded", "tables"),
+                                          ("jacobi", "plan")],
+                         ids=["jacobi-segment", "banded-tables", "jacobi-plan"])
+def test_solve_ba_pcg_matches_jax(precond, path):
+    """``solve_ba_pcg`` against JAX's on the CPU (the gather-table path, and
+    the plan path that runs K2's and K3's plain versions, against JAX's
+    gather-table solve): the same LM iteration count, final cost rtol
     1e-9, poses atol 1e-8."""
     problem, state = _perturbed()
     st = problem.stereo
-    tables = jpcg.build_obs_tables(st.pose_idx, st.point_idx, K, J) if with_tables else None
+    tables = jpcg.build_obs_tables(st.pose_idx, st.point_idx, K, J) if path != "segment" else None
     ref = jpcg.solve_ba_pcg(problem, state, jlm.SolveConfig(**CFG), tables=tables,
                             precond=precond)
     p, s = _ported(problem, state)
     tt = convert.obs_tables_from_numpy(_np(tables), st.pose_idx, st.point_idx) \
-        if with_tables else None
-    got = pcg.solve_ba_pcg(p, s, lm.SolveConfig(**CFG), tables=tt, precond=precond)
+        if tables is not None else None
+    plan = full_batch_plan.plan_for_problem(p) if path == "plan" else None
+    got = pcg.solve_ba_pcg(p, s, lm.SolveConfig(**CFG), tables=tt, precond=precond, plan=plan)
     _same_solve(got, ref)
     assert got[1].linear_iterations >= got[1].iterations
 

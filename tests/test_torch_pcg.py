@@ -1,5 +1,5 @@
-"""Port parity: K2 and K3 (plain versions), the PCG assembly, the Schur
-matvecs, the PCG step and the banded preconditioner.
+"""Port parity: K2 and K3 (plain versions), the full-batch plan, the PCG
+assembly, the Schur matvecs, the PCG step and the banded preconditioner.
 
 Inputs come from ``__graft_entry__._build_example`` (seeded numpy) and
 reach both packages as the same numpy arrays (``ceres_slam_tpu_torch.convert``).
@@ -7,6 +7,9 @@ On the CPU the K2 and K3 wrappers run their plain PyTorch versions; the
 CUDA kernels are held against those on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
 """
+
+import ctypes
+import re
 
 import jax
 import jax.numpy as jnp
@@ -22,7 +25,7 @@ from ceres_slam_tpu.solver import banded as jbanded
 from ceres_slam_tpu.solver import pcg as jpcg
 from ceres_slam_tpu_torch import convert
 from ceres_slam_tpu_torch.models.stereo_camera import StereoCamera
-from ceres_slam_tpu_torch.ops import schur_kernel, stereo_factor_kernel
+from ceres_slam_tpu_torch.ops import cuda_build, full_batch_plan, schur_kernel, stereo_factor_kernel
 from ceres_slam_tpu_torch.solver import banded, dense, lm, pcg
 
 torch.set_num_threads(1)
@@ -102,7 +105,7 @@ def test_k2_plain_matches_pallas(dtype):
     valid = jax.random.bernoulli(k[3], 0.8, (N,))
     args = [x.astype(getattr(jnp, dtype)) for x in (T, p, uvd, stiff)]
     ref = pallas_kernels.stereo_factor_blocks(JCAM, *args, valid, interpret=True, flat=True)
-    got = stereo_factor_kernel.stereo_factor_blocks(
+    got = stereo_factor_kernel.stereo_factor_blocks_plain(
         StereoCamera.create(*JCAM), *(torch.as_tensor(np.asarray(x)) for x in args),
         torch.as_tensor(np.asarray(valid)))
     for name, g, r, tol32 in zip(("r", "hpp", "hll", "u", "gp", "gl"), got, ref,
@@ -116,35 +119,54 @@ def test_k2_plain_matches_pallas(dtype):
 
 
 def test_k2_wrapper_checks_and_dispatch():
-    args = stereo_factor_kernel.random_inputs(37, seed=2)
-    launches = stereo_factor_kernel.stereo_factor_blocks.launches
-    for a, b in zip(stereo_factor_kernel.stereo_factor_blocks(*args),
-                    stereo_factor_kernel.stereo_factor_blocks_plain(*args)):
+    """On the CPU the fused wrapper is its plain version (no launch);
+    masked rows, row 0 at depth 0 among them, add exact zeros; bad
+    per-call tensors raise."""
+    plan, poses, points = stereo_factor_kernel.random_inputs(300, 40, 9, seed=2)
+    launches = stereo_factor_kernel.stereo_factor_sums.launches
+    got = stereo_factor_kernel.stereo_factor_sums(plan, poses, points)
+    for a, b in zip(got, stereo_factor_kernel.stereo_factor_sums_plain(plan, poses, points)):
         assert torch.equal(a, b) and torch.isfinite(a).all()
-    assert stereo_factor_kernel.stereo_factor_blocks.launches == launches
-    # row 0 sits at depth 0 and is invalid: the guard keeps it an exact zero
-    for out in stereo_factor_kernel.stereo_factor_blocks(*args):
-        assert torch.all(out[0] == 0)
-    cam, T, p, uvd, S, valid = args
-    bad = {1: T.float(), 2: p[:, :2].contiguous(), 4: S.transpose(1, 2), 5: valid.double()}
-    for i, x in bad.items():
+    assert stereo_factor_kernel.stereo_factor_sums.launches == launches
+    U18, Hpp, gp, Hll, gl = got
+    assert torch.all(U18[~plan.valid] == 0) and torch.all(U18[plan.pose_idx == 0] == 0)
+    assert torch.all(Hpp[0] == 0) and torch.all(gp[0] == 0)  # pose 0 is fixed
+    assert torch.all(Hll[~plan.point_valid] == 0) and torch.all(gl[~plan.point_valid] == 0)
+    # the sums are the per-observation blocks of the valid rows, summed by bin
+    _, hpp, hll, u, _, _ = stereo_factor_kernel.stereo_factor_blocks_plain(
+        plan.camera, poses[plan.pose_idx], points[plan.point_idx], plan.uvd, plan.stiffness,
+        plan.valid)
+    on = plan.valid
+    for k in range(1, plan.K):
+        _close(Hpp[k], hpp[on & (plan.pose_idx == k)].sum(0), 1e-12)
+    for j in torch.nonzero(plan.point_valid).flatten()[:10]:
+        _close(Hll[j], hll[on & (plan.point_idx == j)].sum(0), 1e-12)
+    _close(U18[on], torch.where((plan.pose_idx != 0)[:, None], u, 0.0)[on], 1e-12)
+    bad = {"poses": poses.float(), "points": points[:, :2].contiguous()}
+    for name, x in bad.items():
         with pytest.raises(ValueError):
-            stereo_factor_kernel.stereo_factor_blocks(*args[:i], x, *args[i + 1:])
+            stereo_factor_kernel.stereo_factor_sums(plan, **{"poses": poses, "points": points,
+                                                            name: x})
+    with pytest.raises(ValueError):
+        stereo_factor_kernel.stereo_factor_sums(plan, poses, points.T.contiguous().T)
 
 
 # -- PCG assembly --------------------------------------------------------------
 
 
-@pytest.mark.parametrize("with_tables", [False, True], ids=["segment", "tables"])
-def test_build_obs_blocks_matches_jax(case, with_tables):
+@pytest.mark.parametrize("path", ["segment", "tables", "plan"])
+def test_build_obs_blocks_matches_jax(case, path):
     """``build_obs_blocks`` against the JAX XLA assembly (segment-sum path,
-    and with gather tables): atol 1e-12 x the largest entry (rounding and
+    and with gather tables; the plan path, K2's fused plain version, against
+    the tables path): atol 1e-12 x the largest entry (rounding and
     summation order only)."""
     problem, state, tables = case
-    t = tables if with_tables else None
+    t = None if path == "segment" else tables
     ref = _jax_blocks(problem, state, t)
-    p, s, tt = _ported(problem, state, t)
-    got = pcg.build_obs_blocks(p, s, LAM, tables=tt)
+    p, s, tt = _ported(problem, state, t if path == "tables" else None)
+    plan = full_batch_plan.plan_for_problem(p) if path == "plan" else None
+    got = pcg.build_obs_blocks(p, s, LAM, tables=tt, plan=plan)
+    assert (got.uy is not None) == (path == "plan")
     for f in ("U18", "Hpp", "Cinv", "gp", "gl", "Hll", "Hpp_undamped"):
         g, r = getattr(got, f), np.asarray(getattr(ref, f))
         assert torch.isfinite(g).all(), f
@@ -160,12 +182,93 @@ def test_obs_tables_match_jax(case):
         assert torch.equal(getattr(got, f), getattr(ref, f)), f
 
 
+@pytest.mark.parametrize("tail", [False, True], ids=["example", "padded"])
+def test_plan_segments_match_obs_tables(case, tail):
+    """The plan's landmark and pose segments are the JAX gather tables'
+    rows (slot for slot), also when the rows are stored pose by pose with a
+    padding tail at pose 0 (``build_window_problem``'s layout), which makes
+    pose 0's observation ids non-consecutive."""
+    problem, _, _ = case
+    pose_idx = np.asarray(problem.stereo.pose_idx).copy()
+    point_idx = np.asarray(problem.stereo.point_idx)
+    if tail:
+        pose_idx = np.sort(pose_idx)
+        pose_idx[-12:] = 0
+    tables = jpcg.build_obs_tables(jnp.asarray(pose_idx), jnp.asarray(point_idx), K, J)
+    N = pose_idx.size
+    plan = full_batch_plan.make_plan(StereoCamera.create(*JCAM), K, J, pose_idx, point_idx,
+                                     np.zeros((N, 3)), np.zeros((N, 3, 3)), np.ones(N, bool),
+                                     np.ones(K, bool), np.ones(J, bool))
+    for seg, start, other, table, w, table_other, n in (
+            (plan.pt_obs, plan.pt_start, plan.pt_pose, tables.by_point, tables.by_point_w,
+             pose_idx, J),
+            (plan.ps_obs, plan.ps_start, plan.ps_point, tables.by_pose, tables.by_pose_w,
+             point_idx, K)):
+        table, w = np.asarray(table), np.asarray(w)
+        for i in range(n):
+            ids = table[i][w[i] > 0]
+            np.testing.assert_array_equal(seg[start[i]:start[i + 1]].numpy(), ids)
+            np.testing.assert_array_equal(other[start[i]:start[i + 1]].numpy(), table_other[ids])
+    assert torch.equal(plan.ps_obs[plan.pt_q.long()], plan.pt_obs)
+    for k in range(K):
+        ids = plan.ps_obs[plan.ps_start[k]:plan.ps_start[k + 1]].numpy()
+        assert bool(plan.ps_contig[k]) == bool(np.all(np.diff(ids) == 1)), k
+    if tail:
+        assert not plan.ps_contig[0] and plan.ps_contig[1:].all()
+
+
+def test_make_plan_rejects_bad_inputs():
+    N = 20
+    good = dict(camera=StereoCamera.create(*JCAM), K=3, J=4, pose_idx=np.arange(N) % 3,
+                point_idx=np.arange(N) % 4, uvd=np.zeros((N, 3)), stiffness=np.zeros((N, 3, 3)),
+                valid=np.ones(N, bool), free_pose=np.ones(3, bool), point_valid=np.ones(4, bool))
+    full_batch_plan.make_plan(**good)
+    for name, x in (("pose_idx", np.full(N, 3)), ("point_idx", -np.ones(N, int)),
+                    ("uvd", np.zeros((N, 2))), ("free_pose", np.ones(2, bool)),
+                    ("dtype", torch.float16)):
+        with pytest.raises(ValueError):
+            full_batch_plan.make_plan(**{**good, name: x})
+
+
+def test_plan_struct_matches_the_header():
+    """``_Plan`` lists the fields of ``Plan`` in csrc/full_batch_plan.h (which
+    K2 and K3 include) in order and with their C types, and GROUP_LANDMARKS
+    is the header's ``kGroupLandmarks``, the size of K3's phase-1 arrays."""
+    text = (cuda_build.CSRC / "full_batch_plan.h").read_text()
+    body = re.sub(r"//[^\n]*", "", re.search(r"struct Plan \{(.*?)\};", text, re.S).group(1))
+    fields = []
+    for decl in filter(None, (d.strip() for d in body.split(";"))):
+        kind = (ctypes.c_void_p if "*" in decl else
+                ctypes.c_double if decl.startswith("double ") else ctypes.c_int)
+        fields += [(item.split()[-1].lstrip("*"), kind) for item in decl.split(",")]
+    assert fields == list(full_batch_plan._Plan._fields_)
+    limit = int(re.search(r"constexpr int kGroupLandmarks = (\d+);", text).group(1))
+    assert limit == full_batch_plan.GROUP_LANDMARKS
+
+
+@pytest.mark.parametrize("most", [4, 300], ids=["short", "long"])
+def test_landmark_groups_fit_k3s_block(most):
+    """K3's landmark groups are runs of whole landmarks covering all J, of at
+    most GROUP_LANDMARKS landmarks and GROUP_SLOTS slots (a longer landmark
+    alone); the plan's ``max_group`` is the largest."""
+    counts = np.random.default_rng(most).integers(0, most + 1, 3000)
+    start = np.concatenate([[0], np.cumsum(counts)])
+    groups = full_batch_plan._landmark_groups(start)
+    assert groups[0] == 0 and groups[-1] == counts.size and np.all(np.diff(groups) >= 1)
+    sizes = np.diff(groups)
+    slots = start[groups[1:]] - start[groups[:-1]]
+    assert sizes.max() <= full_batch_plan.GROUP_LANDMARKS
+    assert np.all((slots <= full_batch_plan.GROUP_SLOTS) | (sizes == 1))
+    if most == 4:  # short landmarks: the landmark cap binds
+        assert sizes.max() == full_batch_plan.GROUP_LANDMARKS
+
+
 # -- K3 and the Schur matvec --------------------------------------------------
 
 
 def test_k3_matvec_matches_pallas_f32():
-    """The gather matvec (K3's plain version) against the Pallas matvec
-    kernel in interpret mode, float32, as tests/test_pallas.py holds that
+    """The gather matvec against the Pallas matvec kernel in interpret
+    mode, float32, as tests/test_pallas.py holds that
     kernel: atol 2e-5 of the matvec's scale (max|S v| + 1)."""
     problem, state = ge._build_example(K=K, J=J, n_obs=N_OBS, dtype=jnp.float32, seed=0)
     tables = jpcg.build_obs_tables(problem.stereo.pose_idx, problem.stereo.point_idx, K, J)
@@ -181,10 +284,30 @@ def test_k3_matvec_matches_pallas_f32():
     np.testing.assert_allclose(got / scale, ref / scale, atol=2e-5)
 
 
-@pytest.mark.parametrize("path", ["segment", "gather"])
+def test_k3_plan_matches_pallas_f32():
+    """K3's plan path (the plain version, bound to JAX's float32 blocks)
+    against the Pallas matvec kernel in interpret mode: atol 2e-5 of the
+    matvec's scale (max|S v| + 1), as tests/test_pallas.py holds that
+    kernel."""
+    problem, state = ge._build_example(K=K, J=J, n_obs=N_OBS, dtype=jnp.float32, seed=0)
+    tables = jpcg.build_obs_tables(problem.stereo.pose_idx, problem.stereo.point_idx, K, J)
+    b = jax.jit(lambda p, s, t: jpcg.build_obs_blocks(
+        p, s, jnp.asarray(1e-4, jnp.float32), tables=t, fused=False))(problem, state, tables)
+    v = np.random.default_rng(3).normal(size=(K, 6)).astype(np.float32)
+    ref = np.asarray(jpcg.make_schur_matvec_kernel(b, tables, interpret=True)(jnp.asarray(v)))
+    plan = full_batch_plan.plan_for_problem(_ported(problem, state)[0])
+    tb = convert.obs_blocks_from_numpy(_np(b))
+    tb = tb._replace(uy=schur_kernel.bind(plan, tb.U18, tb.Cinv))
+    got = pcg.schur_matvec_plan(tb, torch.as_tensor(v)).numpy()
+    scale = float(np.abs(np.asarray(jpcg.schur_matvec(b, jnp.asarray(v)))).max()) + 1.0
+    np.testing.assert_allclose(got / scale, ref / scale, atol=2e-5)
+
+
+@pytest.mark.parametrize("path", ["segment", "gather", "plan"])
 def test_schur_matvec_matches_jax_f64(case, path):
-    """Both matvecs against JAX's float64 segment / gather matvecs: atol
-    1e-12 x max|S v|."""
+    """The matvecs against JAX's float64 segment / gather matvecs (the plan
+    path, K3's plain version, against the gather matvec): atol 1e-12 x
+    max|S v|."""
     problem, state, tables = case
     b = _jax_blocks(problem, state, tables)
     v = np.random.default_rng(5).normal(size=(K, 6))
@@ -192,37 +315,50 @@ def test_schur_matvec_matches_jax_f64(case, path):
     if path == "segment":
         ref = jpcg.schur_matvec(b, jnp.asarray(v))
         got = pcg.schur_matvec(tb, torch.as_tensor(v))
-    else:
+    elif path == "gather":
         ref = jpcg.schur_matvec_gather(b, tables, jnp.asarray(v))
         tt = convert.obs_tables_from_numpy(_np(tables), problem.stereo.pose_idx,
                                            problem.stereo.point_idx)
         got = pcg.schur_matvec_gather(tb, tt, torch.as_tensor(v))
+    else:
+        ref = jpcg.schur_matvec_gather(b, tables, jnp.asarray(v))
+        plan = full_batch_plan.plan_for_problem(_ported(problem, state)[0])
+        tb = tb._replace(uy=schur_kernel.bind(plan, tb.U18, tb.Cinv))
+        got = pcg.schur_matvec_plan(tb, torch.as_tensor(v))
     _close(got, ref, 1e-12)
 
 
 def test_k3_wrapper_checks_and_dispatch():
-    U18, Cinv, v, t = schur_kernel.random_inputs(300, 40, 9, seed=4)
+    """On the CPU the bound wrapper is its plain version (no launch), which
+    is W C^-1 W^T v with W the dense coupling (atol 1e-12 x the largest
+    entry); mismatched bound or per-call tensors raise."""
+    bound, v = schur_kernel.random_inputs(300, 40, 9, seed=4)
+    plan, U18, Cinv = bound.plan, bound.U18, bound.Cinv
     launches = schur_kernel.schur_uy.launches
-    out = schur_kernel.schur_uy(U18, Cinv, v, t)
-    assert torch.equal(out, schur_kernel.schur_uy_plain(U18, Cinv, v, t))
+    out = schur_kernel.schur_uy(bound, v)
+    assert torch.equal(out, schur_kernel.schur_uy_plain(bound, v))
     assert schur_kernel.schur_uy.launches == launches
     # the plain version is W C^-1 W^T v, with W the dense [6K, 3J] coupling
     W = torch.zeros((9, 40, 6, 3), dtype=torch.float64)
     for k in range(9):
-        for o in range(t.by_pose.shape[1]):
-            if t.by_pose_w[k, o]:
-                W[k, int(t.by_pose_point[k, o])] += U18[int(t.by_pose[k, o])].reshape(6, 3)
+        for s in range(int(plan.ps_start[k]), int(plan.ps_start[k + 1])):
+            W[k, int(plan.ps_point[s])] += U18[int(plan.ps_obs[s])].reshape(6, 3)
     Wd = W.permute(0, 2, 1, 3).reshape(54, 120)
     ref = Wd @ torch.block_diag(*Cinv) @ Wd.T @ v.reshape(-1)
     _close(out.reshape(-1), ref, 1e-12)
     bad = {"U18": U18.float(), "Cinv": Cinv[:-1], "v": v.T.contiguous().T}
     for name, x in bad.items():
-        kw = dict(U18=U18, Cinv=Cinv, v=v, tables=t)
-        kw[name] = x
         with pytest.raises(ValueError):
-            schur_kernel.schur_uy(**kw)
+            kw = dict(U18=U18, Cinv=Cinv)
+            if name == "v":
+                schur_kernel.schur_uy(bound, x)
+            else:
+                kw[name] = x
+                schur_kernel.bind(plan, **kw)
     with pytest.raises(ValueError):
-        schur_kernel.schur_uy(U18, Cinv, v, t._replace(by_point=t.by_point.long()))
+        schur_kernel.schur_uy(bound, v.float())
+    with pytest.raises(ValueError):
+        schur_kernel.bind(plan, U18.T.contiguous().T, Cinv)
 
 
 # -- the PCG step --------------------------------------------------------------
@@ -235,20 +371,22 @@ def _tracks(problem):
 
 
 @pytest.mark.parametrize("precond", ["jacobi", "banded"])
-@pytest.mark.parametrize("with_tables", [False, True], ids=["segment", "tables"])
-def test_pcg_step_matches_jax(case, precond, with_tables):
+@pytest.mark.parametrize("path", ["segment", "tables", "plan"])
+def test_pcg_step_matches_jax(case, precond, path):
     """``pcg_step`` against JAX's (block-Jacobi and banded preconditioners,
-    segment and gather paths): dx atol 1e-9 x max|dx| after 200 CG
-    iterations at tol 1e-12 (both converge to the same linear solution),
-    gradient norm and predicted decrease rtol 1e-9."""
+    segment and gather paths; the plan path, K2's and K3's plain versions,
+    with the tables, against JAX's gather path): dx atol 1e-9 x max|dx|
+    after 200 CG iterations at tol 1e-12 (both converge to the same linear
+    solution), gradient norm and predicted decrease rtol 1e-9."""
     problem, state, tables = case
-    t = tables if with_tables else None
+    t = None if path == "segment" else tables
     jtracks = _tracks(problem) if precond == "banded" else None
     dx_r, gn_r, pred_r = jax.jit(lambda p, s: jpcg.pcg_step(
         p, s, jnp.asarray(LAM), 200, 1e-12, tables=t, tracks=jtracks))(problem, state)
     p, s, tt = _ported(problem, state, t)
     tracks = None if jtracks is None else convert.track_info_from_numpy(_np(jtracks))
-    dx, gn, pred, iters = pcg.pcg_step(p, s, LAM, 200, 1e-12, tables=tt, tracks=tracks)
+    plan = full_batch_plan.plan_for_problem(p) if path == "plan" else None
+    dx, gn, pred, iters = pcg.pcg_step(p, s, LAM, 200, 1e-12, tables=tt, tracks=tracks, plan=plan)
     assert torch.isfinite(dx).all() and 0 < iters <= 200
     _close(dx, dx_r, 1e-9)
     np.testing.assert_allclose(gn.item(), float(gn_r), rtol=1e-9)
