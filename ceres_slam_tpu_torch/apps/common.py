@@ -7,7 +7,7 @@ import sys
 
 import torch
 
-from ceres_slam_tpu_torch.utils import device
+from ceres_slam_tpu_torch.utils import device, telemetry
 
 
 def base_parser(desc: str) -> argparse.ArgumentParser:
@@ -18,8 +18,9 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     # reference iteration budget: max_num_iterations = 1000
     p.add_argument("--max-iters", type=int, default=1000,
                    help="max trust-region iterations per solve")
-    p.add_argument("--report", default="none", choices=["none", "brief"],
-                   help="per-window solver report (Ceres BriefReport equivalent)")
+    p.add_argument("--report", default="none", choices=["none", "brief", "full"],
+                   help="per-window solver report (Ceres Brief/FullReport equivalent; "
+                        "full records the per-iteration history)")
     return p
 
 
@@ -44,10 +45,11 @@ def solver_tolerance(dtype: str, num_windows: int) -> float:
 
 
 def print_reports(summaries, mode: str, file=None) -> None:
-    """Per-window brief solver reports."""
+    """Per-window solver reports: ``brief`` one line each, ``full`` the
+    per-iteration history too (the solves must record it)."""
     if mode == "none":
         return
     file = file or sys.stderr
+    fmt = telemetry.full_report if mode == "full" else telemetry.brief_report
     for i, s in enumerate(summaries):
-        print(f"[window {i}] iterations {s.iterations}, cost {s.initial_cost:.6e} -> "
-              f"{s.final_cost:.6e}, |g|max {s.final_grad_norm:.3e}", file=file)
+        print(f"[window {i}] {fmt(s)}", file=file)

@@ -10,7 +10,7 @@ Levenberg-Marquardt and nonmonotonic steps, and writes ``<track>_poses.csv``
 and ``<track>_map.csv``. ``--linear-solver auto`` picks dense Cholesky at
 window scale, the explicit-Schur window solver up to 128 poses and
 matrix-free Schur-PCG beyond (the full-batch path, kernels K2 and K3 on
-CUDA). ``--report full`` is not ported yet.
+CUDA).
 
 The float32 tolerance is chosen by the window count (the JAX app passes
 the state count; ROADMAP F5). Full batch is one window either way.
@@ -54,7 +54,8 @@ def main(argv=None) -> dict:
     num_windows = max(1, dataset.num_states - (args.window or dataset.num_states) + 1)
     tol = common.solver_tolerance(args.dtype, num_windows)
     # the reference's minimizer: LM with nonmonotonic steps
-    config = SolveConfig(max_iters=args.max_iters, nonmonotonic=True, ftol=tol, xtol=tol)
+    config = SolveConfig(max_iters=args.max_iters, nonmonotonic=True, ftol=tol, xtol=tol,
+                         record_history=args.report == "full")
     t1 = time.perf_counter()
     dataset.precompute_pair_alignments()
     t2 = time.perf_counter()

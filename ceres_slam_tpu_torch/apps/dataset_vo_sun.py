@@ -52,7 +52,8 @@ def solve_config(args, num_windows: int):
     from ceres_slam_tpu_torch.solver.lm import SolveConfig
 
     tol = args.ftol if args.ftol is not None else common.solver_tolerance(args.dtype, num_windows)
-    return SolveConfig(max_iters=args.max_iters, nonmonotonic=True, ftol=tol, xtol=tol)
+    return SolveConfig(max_iters=args.max_iters, nonmonotonic=True, ftol=tol, xtol=tol,
+                       record_history=args.report == "full")
 
 
 def main(argv=None) -> dict:

@@ -1,8 +1,8 @@
 """Carry problems over from the JAX package: numpy in, torch out.
 
 The JAX package's ``StereoBAProblem``, ``BAState``, ``WindowLayout``,
-``ObsTables``, ``ObsBlocks``, ``TrackInfo``, ``PhotometricProblem`` and
-``PhotometricState`` are NamedTuples; given with
+``ObsTables``, ``ObsBlocks``, ``TrackInfo``, ``PhotometricProblem``,
+``PhotometricState``, ``PhongBAProblem`` and ``PhongState`` are NamedTuples; given with
 numpy leaves (``jax.tree.map(np.asarray, x)``) these functions build the
 port's containers on ``device``, so that a test can hand both packages the
 same inputs. Nothing here imports JAX.
@@ -15,7 +15,7 @@ import torch
 
 from ceres_slam_tpu_torch.models.stereo_camera import StereoCamera
 from ceres_slam_tpu_torch.ops import window_kernel
-from ceres_slam_tpu_torch.solver import banded, dense, pcg, photometric, window
+from ceres_slam_tpu_torch.solver import banded, dense, pcg, phong, photometric, window
 
 
 def _t(x, device, dtype=None) -> torch.Tensor:
@@ -96,11 +96,13 @@ def layout_from_numpy(layout, device="cpu") -> window.WindowLayout:
         problem=problem,
         O=M // J,
         slot_pose=_t(slot_pose, device, torch.int64),
-        w_idx=_t(slot_pose * J + np.repeat(np.arange(J), M // J), device, torch.int64),
+        w_idx=_t(window.gather_table(slot_pose * J + np.repeat(np.arange(J), M // J), K * J),
+                 device, torch.int64),
         plan=window_kernel.make_plan(
             problem.camera, K, J, pose_idx, np.asarray(layout.uvdT)[:, :M].T,
             np.asarray(layout.stiffT)[:, :M].T, np.asarray(layout.weightT)[0, :M],
             np.asarray(layout.pose_freeT)[0, :M], problem.stereo.uvd.dtype, device),
+        pose_slots=_t(window.gather_table(slot_pose, K), device, torch.int64),
     )
 
 
@@ -118,3 +120,23 @@ def photometric_problem_from_numpy(problem, device="cpu") -> photometric.Photome
 def photometric_state_from_numpy(state, device="cpu") -> photometric.PhotometricState:
     return photometric.PhotometricState(T=_t(state.T, device),
                                         disparities=_t(state.disparities, device))
+
+
+def phong_problem_from_numpy(problem, device="cpu") -> phong.PhongBAProblem:
+    """A JAX ``phong.PhongBAProblem``; indices become int64."""
+    o = problem.obs
+    ints = {f: _t(getattr(o, f), device, torch.int64)
+            for f in ("pose_idx", "vertex_idx", "material_idx")}
+    obs = phong.PhongObs(uvd=_t(o.uvd, device), int_obs=_t(o.int_obs, device),
+                         normal_obs=_t(o.normal_obs, device), valid=_t(o.valid, device), **ints)
+    return phong.PhongBAProblem(
+        camera=_camera(problem.camera), obs=obs,
+        stereo_stiffness=_t(problem.stereo_stiffness, device),
+        normal_stiffness=_t(problem.normal_stiffness, device),
+        int_stiffness=_t(problem.int_stiffness, device),
+        fixed_pose_mask=_t(problem.fixed_pose_mask, device),
+        vertex_valid=_t(problem.vertex_valid, device))
+
+
+def phong_state_from_numpy(state, device="cpu") -> phong.PhongState:
+    return phong.PhongState(*(_t(x, device) for x in state))

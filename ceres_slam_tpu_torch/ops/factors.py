@@ -1,7 +1,8 @@
 """Batched residual/Jacobian factors of the sliding-window problem.
 
-Port of ``ceres_slam_tpu/ops/factors.py`` (the main-path factors only).
-Each factor is one batched evaluation over all observations of its type:
+Port of ``ceres_slam_tpu/ops/factors.py`` (all but ``relative_pose``,
+which the pose-graph slice brings). Each factor is one batched evaluation
+over all observations of its type:
 gathered states in, whitened residuals ``r = S (predicted - observed)`` and
 analytic tangent-space Jacobians out, ``S`` being the stiffness (inverse
 matrix square root of the measurement covariance).
@@ -13,6 +14,7 @@ import math
 
 import torch
 
+from ceres_slam_tpu_torch.models import lighting
 from ceres_slam_tpu_torch.models.stereo_camera import StereoCamera
 from ceres_slam_tpu_torch.ops import lie
 
@@ -101,3 +103,74 @@ def sun_sensor(
     r = torch.where(ok, torch.stack([r_az, r_zen], dim=-1), 0.0)
     J_pose = (J_angles @ J_pose_vec) * ok[..., None].to(s_c.dtype)
     return _whiten(stiffness, r, J_pose)
+
+
+def normal_obs(
+    T_c_g: torch.Tensor,  # [..., 12]
+    normal_g: torch.Tensor,  # [..., 3] estimated normal, global frame
+    obs_normal_c: torch.Tensor,  # [..., 3] observed normal, camera frame
+    stiffness: torch.Tensor,  # [..., 3, 3]
+):
+    """``r = S (R n_g - n_obs_c)``; returns (r, J_pose[...,3,6],
+    J_normal[...,3,3]). ``J_normal`` is with respect to the raw 3-vector:
+    the solver chains ``unit_vector_tangent_projector`` onto it."""
+    n_c, J_pose, R = lie.vector_transform_jacobians(T_c_g, normal_g)
+    return _whiten(stiffness, n_c - obs_normal_c, J_pose, R)
+
+
+def _intensity_predict(T_c_g, pt_g, normal_g, phong, texture, light_g, directional: bool):
+    """Predicted intensity per observation: the point, normal and light
+    moved into the camera frame, shaded with the camera at the origin and
+    light colour 1."""
+    pt_c = lie.se3_transform_point(T_c_g, pt_g)
+    normal_c = lie.se3_transform_vector(T_c_g, normal_g)
+    campos_c = torch.zeros_like(pt_c)
+    if directional:
+        light_c = lie.se3_transform_vector(T_c_g, light_g)
+        return lighting.directional_light_shade(pt_c, normal_c, phong, texture, light_c, campos_c)
+    light_c = lie.se3_transform_point(T_c_g, light_g)
+    return lighting.point_light_shade(pt_c, normal_c, phong, texture, light_c, campos_c)
+
+
+def _intensity(T, pt_g, normal_g, phong, texture, light_g, obs, stiffness, directional):
+    """Residual ``s (I_pred - I_obs)`` and its Jacobians with respect to the
+    pose tangent (left perturbation at 0), point, normal, Phong
+    parameters, texture and light. The prediction of observation n depends
+    on row n of every input alone (the light is broadcast to a row per
+    observation), so one reverse pass over the sum of the predictions gives
+    every row's gradient: the result of ``vmap(grad)`` over the
+    observations, as the JAX package computes it."""
+    N = T.shape[0]
+    with torch.enable_grad():
+        leaves = [x.detach().clone().requires_grad_(True) for x in (
+            T.new_zeros((N, 6)), pt_g, normal_g, phong, texture, light_g.expand(N, 3))]
+        eps, pt, nrm, ph, tex, light = leaves
+        pred = _intensity_predict(lie.se3_retract(T, eps), pt, nrm, ph, tex, light, directional)
+        grads = torch.autograd.grad(pred.sum(), leaves)
+    pred = pred.detach()
+    return (stiffness * (pred - obs), *(g * (stiffness if g.dim() == 1 else stiffness[:, None])
+                                        for g in grads))
+
+
+def intensity_point_light(T, pt_g, normal_g, phong, texture, light_pos_g, obs, stiffness):
+    """Point-light intensity factor, batched over N observations (``T [N,
+    12]``, ``pt_g``, ``normal_g [N, 3]``, ``phong [N, 3]``, ``texture [N]``,
+    ``light_pos_g [3]``, ``obs [N]``, ``stiffness [N]``). Returns
+    ``(r [N], J_pose [N, 6], J_point [N, 3], J_normal [N, 3], J_phong [N, 3],
+    J_texture [N], J_light [N, 3])``."""
+    return _intensity(T, pt_g, normal_g, phong, texture, light_pos_g, obs, stiffness, False)
+
+
+def intensity_directional_light(T, pt_g, normal_g, phong, texture, light_dir_g, obs, stiffness):
+    """Directional-light intensity factor (a light direction in place of a
+    position); the same arguments and outputs as ``intensity_point_light``."""
+    return _intensity(T, pt_g, normal_g, phong, texture, light_dir_g, obs, stiffness, True)
+
+
+def unit_vector_tangent_projector(x: torch.Tensor) -> torch.Tensor:
+    """``d retract(x, delta) / d delta`` at 0 = ``I - x x^T / |x|^2``: chained
+    onto the Jacobian columns of a state that uses the unit-vector
+    retraction (a normal, a light direction)."""
+    eye = torch.eye(3, dtype=x.dtype, device=x.device).expand(*x.shape, 3)
+    x2 = torch.sum(x * x, dim=-1, keepdim=True)
+    return eye - x[..., :, None] * x[..., None, :] / x2[..., None]

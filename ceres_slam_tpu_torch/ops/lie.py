@@ -198,6 +198,15 @@ def se3_retract(T: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
     return se3_compose(se3_exp(eps), T)
 
 
+def unit_vector_retract(x: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """Tangent-plane retraction of unit vectors: project ``delta`` onto the
+    tangent plane of ``x``, add, renormalize (the reference's
+    UnitVectorPerturbation)."""
+    x2 = torch.sum(x * x, dim=-1, keepdim=True)
+    y = x + (delta - (torch.sum(delta * x, dim=-1, keepdim=True) / x2) * x)
+    return y / torch.linalg.norm(y, dim=-1, keepdim=True)
+
+
 def point_transform_jacobians(T: torch.Tensor, p_g: torch.Tensor):
     """``(p_c, J_pose[..., 3, 6], J_point[..., 3, 3])`` with
     ``d p_c / d eps = [I | -p_c^]`` and ``d p_c / d p_g = R``."""

@@ -5,11 +5,14 @@ problem (camera, Huber parameter, sun thresholds, which pose carries the
 prior and whether it is on) is held as Python scalars; everything indexed
 by observation, pose or landmark is a tensor.
 
-Masked stereo rows are dropped with ``torch.where``, never multiplied by
-the mask: an invalid row may hold an uninitialized landmark at the origin
-seen from a pose at the origin (z = 0), whose residual is not finite, and
-eagerly ``NaN * 0`` is NaN (ROADMAP F9). The dense solve (``solve_ba``) is
-for windows and small batches; ``solver/pcg.py`` covers full-batch BA.
+Every mask is a ``torch.where``, never a product with the mask: an
+invalid row may hold an uninitialized landmark at the origin seen from a
+pose at the origin (z = 0), whose residual is not finite, and eagerly
+``NaN * 0`` is NaN (ROADMAP F9, F15). Sums by pose, landmark or pair go
+through a gather table and a reduction over a fixed axis
+(``segment_sum``), so they are bit-reproducible on the card too (F14).
+The dense solve (``solve_ba``) is for windows and small batches;
+``solver/pcg.py`` covers full-batch BA.
 ``dogleg_solve`` (``strategy="dogleg"``) and the covariance helpers of the
 JAX module are not ported yet.
 """
@@ -92,49 +95,70 @@ def ba_cost_aux(problem: StereoBAProblem, state: BAState) -> torch.Tensor:
     """Sun + prior cost only (the stereo cost comes out of the window factor pass)."""
     r_sun, _, sq = _sun_terms(problem, state)
     rho = loss_mod.huber_rho(sq, problem.sun_huber) if problem.sun_huber > 0.0 else sq
-    r_pr, _ = _prior_terms(problem, state)
-    dtype = state.poses.dtype
-    return 0.5 * (
-        torch.sum(rho * problem.sun.valid.to(dtype))
-        + torch.sum(r_pr * r_pr) * float(problem.prior.valid)
-    )
+    cost = torch.sum(torch.where(problem.sun.valid, rho, 0.0))
+    if problem.prior.valid:
+        r_pr, _ = _prior_terms(problem, state)
+        cost = cost + torch.sum(r_pr * r_pr)
+    return 0.5 * cost
 
 
 def aux_pose_blocks(problem: StereoBAProblem, state: BAState):
     """Sun + pose-prior contributions to the pose diagonal blocks:
     ``(Hpp_add [K, 6, 6], gp_add [K, 6])``."""
     r_sun, J_sun, sq = _sun_terms(problem, state)
-    dtype = state.poses.dtype
-    w = problem.sun.valid.to(dtype)
     if problem.sun_huber > 0.0:
-        w = w * loss_mod.huber_weight(sq, problem.sun_huber)
-    r_sun = r_sun * w[:, None]
-    J_sun = J_sun * w[:, None, None]
+        w = loss_mod.huber_weight(sq, problem.sun_huber)
+        r_sun, J_sun = r_sun * w[:, None], J_sun * w[:, None, None]
+    valid = problem.sun.valid
+    r_sun = torch.where(valid[:, None], r_sun, 0.0)
+    J_sun = torch.where(valid[:, None, None], J_sun, 0.0)
     Hpp = J_sun.transpose(-1, -2) @ J_sun
     gp = lie._mv(J_sun.transpose(-1, -2), r_sun)
-
-    r_pr, J_pr = _prior_terms(problem, state)
-    wp = float(problem.prior.valid)
-    k = problem.prior.pose_idx
-    Hpp = Hpp.clone()
-    gp = gp.clone()
-    Hpp[k] += wp * (J_pr.T @ J_pr)
-    gp[k] += wp * (J_pr.T @ r_pr)
+    if problem.prior.valid:
+        r_pr, J_pr = _prior_terms(problem, state)
+        k = problem.prior.pose_idx
+        Hpp[k] += J_pr.T @ J_pr
+        gp[k] += J_pr.T @ r_pr
     return Hpp, gp
 
 
 def _retract_state(problem: StereoBAProblem, state: BAState, dx: torch.Tensor) -> BAState:
     K = state.poses.shape[0]
     J = state.points.shape[0]
-    d_pose = dx[: 6 * K].reshape(K, 6) * (~problem.fixed_pose_mask)[:, None].to(dx.dtype)
-    d_pt = dx[6 * K:].reshape(J, 3) * problem.point_valid[:, None].to(dx.dtype)
+    d_pose = torch.where(problem.fixed_pose_mask[:, None], 0.0, dx[: 6 * K].reshape(K, 6))
+    d_pt = torch.where(problem.point_valid[:, None], dx[6 * K:].reshape(J, 3), 0.0)
     return BAState(poses=lie.se3_retract(state.poses, d_pose), points=state.points + d_pt)
 
 
+def segment_table(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``[n, O]`` gather table of ``idx [N]``: row b lists the rows of bin b
+    in increasing order, padded with ``N``; ``O`` is the largest bin (one
+    host read). Built on ``idx``'s device: a stable sort, integer counts
+    and an indexed write of distinct targets, all deterministic."""
+    N = idx.shape[0]
+    order = torch.sort(idx, stable=True).indices
+    counts = torch.bincount(idx, minlength=n)
+    sorted_ids = idx[order]
+    rank = torch.arange(N, device=idx.device) - (torch.cumsum(counts, 0) - counts)[sorted_ids]
+    table = torch.full((n, max(1, int(counts.max()))), N, dtype=torch.int64, device=idx.device)
+    table[sorted_ids, rank] = order
+    return table
+
+
+def gather_sum(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``rows [N, F]`` summed through a gather table ``[n, D]`` (entries
+    ``N`` are padding) -> ``[n, F]``, in a fixed order: a gather (padding
+    reads an appended zero row) and a sum over the table's slot axis. No
+    float atomics, so the card gives the same bits every run."""
+    rows = torch.cat([rows, rows.new_zeros((1, rows.shape[1]))])
+    return rows[table].sum(1)
+
+
 def segment_sum(per_obs: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    """Sum rows of ``per_obs`` into ``n`` bins by ``idx`` (``index_add_``)."""
-    out = torch.zeros((n,) + per_obs.shape[1:], dtype=per_obs.dtype, device=per_obs.device)
-    return out.index_add_(0, idx, per_obs)
+    """Sum rows of ``per_obs`` into ``n`` bins by ``idx``, in a fixed order
+    (``gather_sum`` through ``segment_table``)."""
+    rows = per_obs.reshape(per_obs.shape[0], -1)
+    return gather_sum(segment_table(idx, n), rows).reshape((n,) + per_obs.shape[1:])
 
 
 def stereo_valid(problem: StereoBAProblem) -> torch.Tensor:
@@ -165,8 +189,8 @@ class BlockNormalEq(NamedTuple):
 
 def stereo_block_contrib(camera: StereoCamera, stereo: StereoObs, point_valid: torch.Tensor,
                          state: BAState) -> BlockNormalEq:
-    """Stereo-factor contribution in block form (segment sums by pose, by
-    landmark and by (pose, landmark) pair)."""
+    """Stereo-factor contribution in block form (fixed-order segment sums
+    by pose, by landmark and by (pose, landmark) pair)."""
     K, J = state.poses.shape[0], state.points.shape[0]
     r, J_pose, J_pt = factors.stereo_reprojection(
         camera, state.poses[stereo.pose_idx], state.points[stereo.point_idx], stereo.uvd,
@@ -212,10 +236,10 @@ def apply_gauge_mask(problem: StereoBAProblem, H: torch.Tensor, g: torch.Tensor)
     invalid landmarks) and a unit diagonal wherever the diagonal is zero —
     the tangent equivalent of ``SetParameterBlockConstant``."""
     free = torch.cat([(~problem.fixed_pose_mask).repeat_interleave(6),
-                      problem.point_valid.repeat_interleave(3)]).to(H.dtype)
-    H = H * free[:, None] * free[None, :]
+                      problem.point_valid.repeat_interleave(3)])
+    H = torch.where(free[:, None] & free[None, :], H, 0.0)
     diag = torch.diagonal(H)
-    return H + torch.diag((diag == 0.0).to(H.dtype)), g * free
+    return H + torch.diag((diag == 0.0).to(H.dtype)), torch.where(free, g, 0.0)
 
 
 def ba_normal_equations(problem: StereoBAProblem, state: BAState):

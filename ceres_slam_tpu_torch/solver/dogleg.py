@@ -25,18 +25,17 @@ from ceres_slam_tpu_torch.solver import dense, lm
 from ceres_slam_tpu_torch.solver import window as window_mod
 
 
-def block_hvp(Hpp_p, Hll_p, U_jo, slot_pose, v):
+def block_hvp(Hpp_p, Hll_p, U_jo, slot_pose, pose_slots, v):
     """``H v`` for ``H = [[Hpp, W], [W^T, Hll]]`` without materializing W:
-    the coupling goes through the per-slot U blocks, gathered and
-    scattered by slot pose (padding slots carry U = 0 and pose K)."""
+    the coupling goes through the per-slot U blocks, gathered by slot pose
+    (padding slots carry U = 0 and pose K) and summed by pose through the
+    layout's by-pose table, in a fixed order."""
     K, J = Hpp_p.shape[0], Hll_p.shape[0]
     vp = v[: 6 * K].reshape(K, 6)
     vl = v[6 * K:].reshape(J, 3)
     U4 = U_jo.reshape(J, -1, 6, 3)
     Wvl = (U4 @ vl[:, None, :, None]).squeeze(-1)  # [J, O, 6]
-    Hvp = lie._mv(Hpp_p, vp) + torch.zeros(
-        (K + 1, 6), dtype=v.dtype, device=v.device
-    ).index_add_(0, slot_pose, Wvl.reshape(-1, 6))[:K]
+    Hvp = lie._mv(Hpp_p, vp) + dense.gather_sum(pose_slots, Wvl.reshape(-1, 6))
     vp_obs = torch.cat([vp, torch.zeros_like(vp[:1])])[slot_pose].reshape(J, -1, 6)
     Hvl = lie._mv(Hll_p, vl) + torch.einsum("joab,joa->jb", U4, vp_obs)
     return torch.cat([Hvp.reshape(-1), Hvl.reshape(-1)])
@@ -139,6 +138,7 @@ def blocks_dogleg_loop(layout, state0, config: lm.SolveConfig, init_radius: floa
     pass per iteration). Returns ``(state, summary, blocks_at_state)``."""
     problem = layout.problem
     total_blocks = window_mod.total_blocks_fn(layout)
+    history = lm.History(config)
     blocks, cost_t = total_blocks(state0)
     dtype = cost_t.dtype
     cost0 = cost = float(cost_t)
@@ -158,7 +158,9 @@ def blocks_dogleg_loop(layout, state0, config: lm.SolveConfig, init_radius: floa
         g = torch.cat([gp.reshape(-1), blocks.gl.reshape(-1)])
         dx_gn = torch.where(torch.all(torch.isfinite(dx_gn)), dx_gn, -g)
 
-        hvp = lambda v: block_hvp(Hpp_p, Hll_p, blocks.U_jo, layout.slot_pose, v)  # noqa: E731
+        def hvp(v, Hpp_p=Hpp_p, Hll_p=Hll_p, U_jo=blocks.U_jo):
+            return block_hvp(Hpp_p, Hll_p, U_jo, layout.slot_pose, layout.pose_slots, v)
+
         b1, b2, model = _subspace_basis(g, dx_gn, hvp)
         y0, y1, pred = subspace_solution(*model.tolist(), radius)
         dx = y0 * b1 + y1 * b2
@@ -190,10 +192,11 @@ def blocks_dogleg_loop(layout, state0, config: lm.SolveConfig, init_radius: floa
             cost_buf[it % config.nonmonotonic_window] = new_cost
             if new_cost < best[2]:
                 best = (new_state, new_blocks, new_cost)
+        history.add(it, cost, radius, grad_norm, accept)  # the radius in the lambda slot
         it += 1
         if (small or grad_norm <= config.gtol or (dx_ok and dx_max <= config.xtol)
                 or radius <= 1e-11):
             break
     if config.nonmonotonic:
         state, blocks, cost = best
-    return state, lm.SolveSummary(it, cost0, cost, grad_norm, radius), blocks
+    return state, history.summary(it, cost0, cost, grad_norm, radius), blocks

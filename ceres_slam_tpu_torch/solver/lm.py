@@ -7,9 +7,10 @@ trust-region control (accept test, damping, termination) runs on the host
 in float64 on a few scalars read from the device: one read per iteration,
 plus one for the initial cost. The window solver's block-carrying loops
 (``solver/window.py``, ``solver/dogleg.py``) follow the same rules.
+``record_history`` keeps the per-iteration cost, damping, gradient norm
+and accept decision on the host (``utils/telemetry.full_report``).
 
-Not ported yet: ``dogleg_solve`` and the ``record_history`` field (no
-path of the port sets it).
+Not ported yet: ``dogleg_solve``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from __future__ import annotations
 import math
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -33,6 +35,9 @@ class SolveConfig(NamedTuple):
     # relative to the worst of the last `nonmonotonic_window` accepted costs
     nonmonotonic: bool = False
     nonmonotonic_window: int = 5
+    # record the per-iteration cost, lambda (trust radius for dogleg),
+    # gradient norm and accept decision in the SolveSummary
+    record_history: bool = False
     # benchmarking only: ignore every convergence test and run exactly
     # max_iters iterations, accepted or not, so a measured rate is a pure
     # per-iteration rate
@@ -49,6 +54,35 @@ class SolveSummary(NamedTuple):
     final_grad_norm: float
     final_lambda: float  # trust radius for dogleg
     linear_iterations: int = 0  # CG iterations over the whole solve (Schur-PCG only)
+    # with record_history: [max_iters] arrays, NaN (False) past `iterations`
+    cost_history: np.ndarray | None = None
+    lambda_history: np.ndarray | None = None
+    grad_norm_history: np.ndarray | None = None
+    step_accepted: np.ndarray | None = None
+
+
+class History:
+    """Per-iteration record of a trust-region loop (host values)."""
+
+    def __init__(self, config: SolveConfig):
+        self.on = config.record_history
+        n = config.max_iters
+        if self.on:
+            self.arrays = (np.full(n, math.nan), np.full(n, math.nan), np.full(n, math.nan),
+                           np.zeros(n, bool))
+
+    def add(self, it: int, cost: float, lam: float, grad_norm: float, accept: bool):
+        if self.on:
+            for a, x in zip(self.arrays, (cost, lam, grad_norm, accept)):
+                a[it] = x
+
+    def summary(self, *fields) -> SolveSummary:
+        """``SolveSummary(*fields)`` with the history attached."""
+        s = SolveSummary(*fields)
+        if not self.on:
+            return s
+        return s._replace(**dict(zip(("cost_history", "lambda_history", "grad_norm_history",
+                                      "step_accepted"), self.arrays)))
 
 
 def lm_solve(state0, config: SolveConfig, cost_fn: Callable, step_fn: Callable,
@@ -62,7 +96,10 @@ def lm_solve(state0, config: SolveConfig, cost_fn: Callable, step_fn: Callable,
 
     A non-finite ``dx`` (a failed factorization) is a rejected step, not
     convergence; ``ftol`` fires only on a real decrease, so an accepted
-    uphill step under ``nonmonotonic`` does not end the solve."""
+    uphill step under ``nonmonotonic`` does not end the solve.
+    ``config.record_history`` attaches the per-iteration history to the
+    summary."""
+    history = History(config)
     cost0 = cost = float(cost_fn(state0))
     state, lam, grad_norm, it = state0, config.init_lambda, math.inf, 0
     cost_buf = [cost0] * config.nonmonotonic_window
@@ -94,12 +131,13 @@ def lm_solve(state0, config: SolveConfig, cost_fn: Callable, step_fn: Callable,
                 best_state, best_cost = new_state, new_cost
         else:
             lam = min(lam * 4.0, config.max_lambda)
+        history.add(it, cost, lam, grad_norm, accept)
         it += 1
         if done:
             break
     if config.nonmonotonic:
         state, cost = best_state, best_cost
-    return state, SolveSummary(it, cost0, cost, grad_norm, lam)
+    return state, history.summary(it, cost0, cost, grad_norm, lam)
 
 
 def _cholesky_or_nan(A: torch.Tensor) -> torch.Tensor:

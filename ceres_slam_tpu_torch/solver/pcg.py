@@ -27,9 +27,11 @@ block-Jacobi blocks) read:
 every reduction by pose or by landmark is then deterministic run to run,
 with no ``index_add_`` atomics. ``build_obs_blocks`` binds this LM
 iteration's ``U18`` and ``Cinv`` to the plan for K3 once (``ObsBlocks.uy``).
-Without a plan or tables (the CPU default, as in the JAX package off the
-TPU) the reductions are ``index_add_`` segment sums; on the CPU the
-kernels' wrappers run their plain versions.
+On CUDA ``pcg_step`` builds the tables when none are given, and a sum by
+pose or by landmark without them raises. On the CPU, without a plan or
+tables (the CPU default, as in the JAX package off the TPU), the
+reductions are ``dense.segment_sum``, and the kernels' wrappers run their
+plain versions. Masks are ``torch.where`` (ROADMAP F15).
 
 The CG loop runs on the host: its stop test ``|r| > tol |rhs|`` is read
 every iteration, so the iterate count equals the JAX ``while_loop``'s.
@@ -124,15 +126,23 @@ def _gather_sum_by_pose(t: ObsTables, per_obs: torch.Tensor) -> torch.Tensor:
     return _gather_sum(t.by_pose, t.by_pose_w, per_obs)
 
 
+def _no_tables(per_obs):
+    if per_obs.device.type == "cuda":
+        raise ValueError("on CUDA the sums by pose and by landmark read the gather tables: "
+                         "pass tables (build_obs_tables), as solve_ba_pcg and pcg_step do")
+
+
 def _sum_by_pose(b: ObsBlocks, tables, per_obs):
     if tables is not None:
         return _gather_sum_by_pose(tables, per_obs)
+    _no_tables(per_obs)
     return dense.segment_sum(per_obs, b.pose_idx, b.Hpp.shape[0])
 
 
 def _sum_by_point(b: ObsBlocks, tables, per_obs):
     if tables is not None:
         return _gather_sum_by_point(tables, per_obs)
+    _no_tables(per_obs)
     return dense.segment_sum(per_obs, b.point_idx, b.Cinv.shape[0])
 
 
@@ -151,7 +161,8 @@ def build_obs_blocks(problem: dense.StereoBAProblem, state: dense.BAState, lam: 
                      plan: full_batch_plan.FullBatchPlan | None = None) -> ObsBlocks:
     """Per-observation factor blocks and the binned Gauss-Newton diagonals:
     with a plan, K2's sums (and K3 bound to the result); else, on the CPU,
-    the factor blocks summed through the gather tables or by ``index_add_``.
+    the factor blocks summed through the gather tables or by
+    ``dense.segment_sum``.
     On CUDA K2 always runs: without a plan, one is built here (a host round
     trip of the observation tables; ``solve_ba_pcg`` builds it once)."""
     if plan is None and state.poses.device.type == "cuda":
@@ -187,13 +198,13 @@ def build_obs_blocks(problem: dense.StereoBAProblem, state: dense.BAState, lam: 
     # sun + prior touch only pose blocks
     Hpp_aux, gp_aux = dense.aux_pose_blocks(problem, state)
     # gauge / validity masks at block level
-    free_pose = (~p.fixed_pose_mask).to(dtype)
-    free_pt = p.point_valid.to(dtype)
-    Hpp = (Hpp + Hpp_aux) * free_pose[:, None, None]
-    gp = (gp + gp_aux) * free_pose[:, None]
-    Hll = Hll * free_pt[:, None, None]
-    gl = gl * free_pt[:, None]
-    U18 = U18 * (free_pose[st.pose_idx] * free_pt[st.point_idx])[:, None]
+    free_pose, free_pt = ~p.fixed_pose_mask, p.point_valid
+    zero = Hpp.new_zeros(())
+    Hpp = torch.where(free_pose[:, None, None], Hpp + Hpp_aux, zero)
+    gp = torch.where(free_pose[:, None], gp + gp_aux, zero)
+    Hll = torch.where(free_pt[:, None, None], Hll, zero)
+    gl = torch.where(free_pt[:, None], gl, zero)
+    U18 = torch.where((free_pose[st.pose_idx] & free_pt[st.point_idx])[:, None], U18, zero)
     return _finish(U18, Hpp, gp, Hll, gl, lam, st)
 
 
@@ -221,7 +232,8 @@ def _finish(U18, Hpp, gp, Hll, gl, lam, st) -> ObsBlocks:
 
 
 def schur_matvec(b: ObsBlocks, v: torch.Tensor) -> torch.Tensor:
-    """``S v`` for ``v [K, 6]`` with ``index_add_`` segment sums."""
+    """``S v`` for ``v [K, 6]`` with ``dense.segment_sum`` (the CPU path
+    without tables)."""
     K, J = b.Hpp.shape[0], b.Cinv.shape[0]
     Utv = dense.segment_sum(u18_t_vec(b.U18, v[b.pose_idx]), b.point_idx, J)
     y = lie._mv(b.Cinv, Utv)
@@ -330,7 +342,14 @@ def pcg_step(problem, state, lam: float, max_cg_iters: int = 100, cg_tol: float 
     step contract. With ``tracks`` (a ``banded.TrackInfo``) the
     preconditioner is the banded cyclic-reduction factorization; with
     ``plan``, and always on CUDA, K2 and K3 carry the assembly and the
-    matvecs (``build_obs_blocks`` builds the plan where none is given)."""
+    matvecs (``build_obs_blocks`` builds the plan where none is given). On
+    CUDA the gather tables are built here where none are given (a host
+    round trip; ``solve_ba_pcg`` builds them once), so every sum outside
+    the kernels has a fixed order."""
+    if tables is None and state.poses.device.type == "cuda":
+        st = problem.stereo
+        tables = build_obs_tables(st.pose_idx.cpu(), st.point_idx.cpu(), state.poses.shape[0],
+                                  state.points.shape[0], device=state.poses.device)
     b = build_obs_blocks(problem, state, lam, tables=tables, plan=plan)
     precond = None
     if tracks is not None:

@@ -4,8 +4,11 @@ Port of ``ceres_slam_tpu/solver/window.py``. Observations are reordered
 landmark-grouped and padded to ``[J, O]`` slots (``M = J*O``) on the host,
 once per window; every landmark-side reduction is then a contiguous
 reshape-sum. The pose side, which the TPU version reduced with one-hot MXU
-matmuls, is an indexed gather or ``index_add`` by each slot's pose. The
-damped step is
+matmuls, is a gather by each slot's pose, and a sum by pose goes through
+the layout's by-pose gather table (``pose_slots``) and a reduction over a
+fixed axis, and so does the dense coupling ``W``, through a by-pair table
+(``w_idx``): no float sum on the card depends on the order of atomics
+(ROADMAP F14). The damped step is
 
     S = Hpp_d (block diag) - W C^{-1} W^T,   dense Cholesky on S (6K x 6K),
     landmarks back-substituted,
@@ -43,13 +46,31 @@ class WindowLayout(NamedTuple):
     slots (padding slots: valid False, pose 0). ``plan`` holds the K1
     kernel's inputs fixed over the window (slot poses, per-slot records
     with weight = valid & point_valid and pose_free = ~fixed_pose[pose],
-    the slots sorted by pose), checked once."""
+    the slots sorted by pose), checked once. ``pose_slots`` lists each
+    pose's slots in pose order, padded with ``M`` (the index of a zero row
+    that a sum appends), for the fixed-order sums by pose."""
 
     problem: dense.StereoBAProblem
     O: int
-    slot_pose: torch.Tensor  # [M] int64, K for padding slots (index_add target)
-    w_idx: torch.Tensor  # [M] int64: slot_pose * J + landmark (W scatter)
+    slot_pose: torch.Tensor  # [M] int64, K for padding slots
+    w_idx: torch.Tensor  # [K*J, D] int64: row k*J + j lists pair (k, j)'s slots, padded with M
     plan: window_kernel.WindowPlan
+    pose_slots: torch.Tensor | None = None  # [K, P] int64: pose k's slots, padded with M
+
+
+def gather_table(ids: np.ndarray, n: int) -> np.ndarray:
+    """``[n, D]`` gather table of ``ids [M]`` for ``dense.gather_sum``, built
+    on the host: row b lists the positions m with ``ids[m] == b`` in
+    increasing order, padded with ``M`` (ids outside ``[0, n)`` are left
+    out); ``D`` is the largest count (at least 1)."""
+    M = ids.size
+    on = np.nonzero((ids >= 0) & (ids < n))[0]
+    order = on[np.argsort(ids[on], kind="stable")]
+    counts = np.bincount(ids[on], minlength=n)
+    rank = np.arange(order.size) - np.concatenate([[0], np.cumsum(counts)])[ids[order]]
+    table = np.full((n, max(1, int(counts.max(initial=0)))), M, np.int64)
+    table[ids[order], rank] = order
+    return table
 
 
 def build_window_layout(problem: dense.StereoBAProblem, K: int, J: int,
@@ -102,10 +123,11 @@ def build_window_layout(problem: dense.StereoBAProblem, K: int, J: int,
         problem=dense.to_device(problem._replace(stereo=stereo), device),
         O=O,
         slot_pose=put(slot_pose, torch.int64),
-        w_idx=put(slot_pose * J + slot_landmark, torch.int64),
+        w_idx=put(gather_table(slot_pose * J + slot_landmark, K * J), torch.int64),
         plan=window_kernel.make_plan(
             problem.camera, K, J, np.where(wf, pose_idx[flat], -1), uvd, stiff,
             v & point_valid[slot_landmark], ~fixed_pose[p_idx], dtype, device),
+        pose_slots=put(gather_table(slot_pose, K), torch.int64),
     )
 
 
@@ -138,10 +160,13 @@ def factor_blocks(layout: WindowLayout, state: dense.BAState) -> Blocks:
 
 
 def _masked_aux_blocks(problem, state, dtype):
-    """Sun + prior pose blocks with gauge masking applied."""
+    """Sun + prior pose blocks with gauge masking applied (a fixed pose's
+    blocks are exact zeros, whatever its sun or prior terms hold)."""
     Hpp_aux, gp_aux = dense.aux_pose_blocks(problem, state)
-    free = (~problem.fixed_pose_mask).to(dtype)
-    return Hpp_aux * free[:, None, None], gp_aux * free[:, None]
+    free = ~problem.fixed_pose_mask
+    zero = Hpp_aux.new_zeros(())
+    return (torch.where(free[:, None, None], Hpp_aux, zero).to(dtype),
+            torch.where(free[:, None], gp_aux, zero).to(dtype))
 
 
 def _inv3x3(M: torch.Tensor) -> torch.Tensor:
@@ -168,7 +193,7 @@ def _pin(H: torch.Tensor) -> torch.Tensor:
     """Unit diagonal for all-zero diagonal blocks (fixed poses, invalid points)."""
     d = torch.diagonal(H, dim1=-2, dim2=-1)
     eye = torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
-    return H + eye * torch.all(d == 0.0, dim=-1)[:, None, None].to(H.dtype)
+    return H + torch.where(torch.all(d == 0.0, dim=-1)[:, None, None], eye, 0.0)
 
 
 def _damp(H: torch.Tensor, lam: float) -> torch.Tensor:
@@ -177,12 +202,11 @@ def _damp(H: torch.Tensor, lam: float) -> torch.Tensor:
 
 
 def _contract(X: torch.Tensor, w_idx: torch.Tensor, K: int, J: int) -> torch.Tensor:
-    """``[J, O, 6, 3]`` slot blocks -> dense coupling ``[6K, 3J]``: slot
-    ``(j, o)`` adds into block ``(pose(j, o), j)``; padding slots land in
-    the dropped rows past ``K*J``."""
-    out = torch.zeros(((K + 1) * J, 18), dtype=X.dtype, device=X.device)
-    out.index_add_(0, w_idx, X.reshape(-1, 18))
-    return out[: K * J].reshape(K, J, 6, 3).permute(0, 2, 1, 3).reshape(6 * K, 3 * J)
+    """``[J, O, 6, 3]`` slot blocks -> dense coupling ``[6K, 3J]``: block
+    ``(k, j)`` is the sum of pair (k, j)'s slots, through the layout's
+    by-pair table (one slot a pair but for repeated observations)."""
+    out = dense.gather_sum(w_idx, X.reshape(-1, 18))
+    return out.reshape(K, J, 6, 3).permute(0, 2, 1, 3).reshape(6 * K, 3 * J)
 
 
 def _schur_reduce(Hpp, Hll, U_jo, w_idx, lam: float):
@@ -269,6 +293,7 @@ def blocks_lm_loop(layout: WindowLayout, state0: dense.BAState, config: lm.Solve
     iteration). Returns ``(state, summary, blocks_at_state)``."""
     problem = layout.problem
     total_blocks = total_blocks_fn(layout)
+    history = lm.History(config)
     blocks, cost_t = total_blocks(state0)
     dtype = cost_t.dtype
     cost0 = cost = float(cost_t)
@@ -302,12 +327,13 @@ def blocks_lm_loop(layout: WindowLayout, state0: dense.BAState, config: lm.Solve
                 best = (new_state, new_blocks, new_cost)
         else:
             lam = min(lam * 4.0, config.max_lambda)
+        history.add(it, cost, lam, grad_norm, accept)
         it += 1
         if done:
             break
     if config.nonmonotonic:
         state, blocks, cost = best
-    return state, lm.SolveSummary(it, cost0, cost, grad_norm, lam), blocks
+    return state, history.summary(it, cost0, cost, grad_norm, lam), blocks
 
 
 def _run_loop(layout, state0, config, strategy):

@@ -43,3 +43,7 @@ def inv_sqrt_psd(M: np.ndarray) -> np.ndarray:
     w, V = np.linalg.eigh(M)
     w = np.maximum(w, np.finfo(M.dtype).tiny)
     return np.einsum("...ij,...j,...kj->...ik", V, 1.0 / np.sqrt(w), V)
+
+
+def transform_vector(T: np.ndarray, v: np.ndarray) -> np.ndarray:
+    return np.einsum("...ij,...j->...i", rot(T), v)

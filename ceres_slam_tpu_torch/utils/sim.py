@@ -10,9 +10,9 @@ writes them in the reference's exact CSV formats (dataset_problem.cpp:16-121,
 dataset_problem_sun.cpp:16-182) so the IO layer and apps exercise the
 same parsing paths the reference datasets would.
 
-A copy of ``ceres_slam_tpu/utils/sim.py`` (the stereo/sun generators and
-writers; the Phong generator is not ported yet), kept in the port because
-importing anything under ``ceres_slam_tpu`` imports JAX. Same seed, same
+A copy of ``ceres_slam_tpu/utils/sim.py`` (the stereo/sun and Phong
+generators and writers), kept in the port because importing anything
+under ``ceres_slam_tpu`` imports JAX. Same seed, same
 bytes: tests/test_torch_pipeline.py holds the two to identical CSVs.
 """
 
@@ -368,6 +368,161 @@ def generate_kitti(
         sun_dir_g=sun_dir_g, sun_obs_c=sun_obs_c, sun_covar=sun_covar,
         has_sun=np.ones(num_states, bool),
     )
+
+
+@dataclasses.dataclass
+class PhongSimDataset:
+    """Simulated Phong-shaded scene (dataset_ba_phong workload)."""
+
+    fu: float
+    fv: float
+    cu: float
+    cv: float
+    b: float
+    poses_gt: np.ndarray  # [K, 12]
+    points_gt: np.ndarray  # [J, 3]
+    normals_gt: np.ndarray  # [J, 3]
+    material_of_vertex: np.ndarray  # [J]
+    phong_gt: np.ndarray  # [M, 3]
+    textures_gt: np.ndarray  # [M]
+    light_gt: np.ndarray  # [3] position or unit direction
+    directional: bool
+    state_ids: np.ndarray  # [N] (written as the timestamp column)
+    vertex_ids: np.ndarray  # [N]
+    material_ids: np.ndarray  # [N]
+    uvd: np.ndarray  # [N, 3]
+    intensities: np.ndarray  # [N]
+    normal_obs: np.ndarray  # [N, 3] camera-frame observed normals
+    stereo_var: np.ndarray  # [3]
+    normal_var: np.ndarray  # [3]
+    int_var: float
+
+    @property
+    def num_states(self):
+        return self.poses_gt.shape[0]
+
+
+def generate_phong(
+    kind: str = "triangle",
+    num_states: int = 30,
+    num_points: int = 200,
+    num_materials: int = 3,
+    radius: float = 10.0,
+    seed: int = 0,
+    stereo_noise: tuple = (0.4, 0.4, 0.4),
+    normal_noise: float = 0.02,
+    int_noise: float = 0.01,
+    directional: bool = False,
+) -> PhongSimDataset:
+    """Generate a Phong-shaded sim scene with the same trajectory model as
+    `generate` plus per-vertex normals, shared materials, and a light."""
+    base = generate(
+        kind=kind,
+        num_states=num_states,
+        num_points=num_points,
+        radius=radius,
+        seed=seed,
+        stereo_noise=stereo_noise,
+    )
+    rng = np.random.default_rng(seed + 1)
+    J = num_points
+    K = num_states
+
+    # Normals: point from each landmark roughly toward the arena center.
+    to_center = -base.points_gt
+    normals = to_center + rng.normal(0, 0.5, (J, 3))
+    normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
+    mat = rng.integers(0, num_materials, J)
+    phong_gt = np.stack(
+        [
+            np.zeros(num_materials),  # ambient (disabled in the model)
+            rng.uniform(0.1, 0.4, num_materials),  # specular
+            rng.uniform(4.0, 12.0, num_materials),  # exponent
+        ],
+        axis=-1,
+    )
+    tex_gt = rng.uniform(0.3, 0.9, num_materials)
+    if directional:
+        light = np.array([0.4, -0.3, -0.85])
+        light /= np.linalg.norm(light)
+    else:
+        light = np.array([0.0, 0.0, 15.0])
+
+    # Shade each observation in the camera frame with the same equations as
+    # the factor kernels (ambient off, clamp [0,1]).
+    N = base.uvd.shape[0]
+    I = np.zeros(N)
+    n_obs = np.zeros((N, 3))
+    for n in range(N):
+        k, j = base.state_ids[n], base.point_ids[n]
+        R = base.poses_gt[k, 3:].reshape(3, 3)
+        t = base.poses_gt[k, :3]
+        p_c = R @ base.points_gt[j] + t
+        nc = R @ normals[j]
+        if directional:
+            l_c = R @ light
+            lv = l_c / np.linalg.norm(l_c)
+        else:
+            l_c = R @ light + t
+            lv = l_c - p_c
+            lv = lv / np.linalg.norm(lv)
+        cv_ = -p_c / np.linalg.norm(p_c)
+        diffuse = tex_gt[mat[j]] * max(0.0, float(lv @ nc))
+        mirror = 2.0 * (nc @ lv) * nc - lv
+        mn = np.linalg.norm(mirror)
+        spec = 0.0
+        if mn > 0:
+            md = float((mirror / mn) @ cv_)
+            if md > 0:
+                spec = phong_gt[mat[j], 1] * md ** phong_gt[mat[j], 2]
+        I[n] = min(1.0, max(0.0, diffuse + spec)) + rng.normal(0, int_noise)
+        n_obs[n] = nc + rng.normal(0, normal_noise, 3)
+
+    return PhongSimDataset(
+        fu=base.fu, fv=base.fv, cu=base.cu, cv=base.cv, b=base.b,
+        poses_gt=base.poses_gt,
+        points_gt=base.points_gt,
+        normals_gt=normals,
+        material_of_vertex=mat,
+        phong_gt=phong_gt,
+        textures_gt=tex_gt,
+        light_gt=light,
+        directional=directional,
+        state_ids=base.state_ids,
+        vertex_ids=base.point_ids,
+        material_ids=mat[base.point_ids],
+        uvd=base.uvd,
+        intensities=np.clip(I, 0.0, 1.0),
+        normal_obs=n_obs,
+        stereo_var=base.stereo_var,
+        normal_var=np.full(3, max(normal_noise, 1e-3) ** 2),
+        int_var=max(int_noise, 1e-3) ** 2,
+    )
+
+
+def write_phong_track_csv(ds: PhongSimDataset, path: str):
+    """DatasetProblemPhong track format (dataset_problem_phong.cpp:16-117):
+    header K,J,M; intrinsics; stereo+normal+intensity variances; initial
+    light pos/dir; first GT pose; rows [t,j,m,u,v,d,I,nx,ny,nz]."""
+    with open(path, "w") as f:
+        f.write(f"{ds.num_states},{ds.points_gt.shape[0]},{ds.textures_gt.shape[0]}\n")
+        f.write(f"{ds.fu!r},{ds.fv!r},{ds.cu!r},{ds.cv!r},{ds.b!r}\n")
+        f.write(
+            ",".join(repr(float(x)) for x in ds.stereo_var)
+            + ","
+            + ",".join(repr(float(x)) for x in ds.normal_var)
+            + f",{ds.int_var!r}\n"
+        )
+        f.write(",".join(repr(float(x)) for x in ds.light_gt) + "\n")
+        f.write(_pose_to_matrix_row(ds.poses_gt[0]) + "\n")
+        for n in range(ds.uvd.shape[0]):
+            row = (
+                [str(ds.state_ids[n]), str(ds.vertex_ids[n]), str(ds.material_ids[n])]
+                + [repr(float(x)) for x in ds.uvd[n]]
+                + [repr(float(ds.intensities[n]))]
+                + [repr(float(x)) for x in ds.normal_obs[n]]
+            )
+            f.write(",".join(row) + "\n")
 
 
 # ---------------------------------------------------------------------------

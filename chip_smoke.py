@@ -7,9 +7,9 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
 
   device   the card's name and power limit (nvidia-smi), torch and CUDA versions
   build    compiles the kernels K1 (csrc/window_factor_blocks.cu), K2
-           (csrc/stereo_factor_blocks.cu), K3 (csrc/schur_uy.cu) and K4
-           (csrc/bilinear_sample_imgs.cu) with nvcc, one process each, all
-           started together
+           (csrc/stereo_factor_blocks.cu), K3 (csrc/schur_uy.cu), K4
+           (csrc/bilinear_sample_imgs.cu) and P (csrc/double_kernel.cu) with
+           nvcc, one process each, all started together
   kernels  each kernel against its plain PyTorch version on the card, in
            float64 and float32, with median times per call (CUDA events
            around the wrapper, host included): K1 at the flagship window
@@ -23,12 +23,20 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            N 440,134), equal to its plain versions bit for bit, its packing
            (once per solve) timed apart, beside one
            torch.nn.functional.grid_sample call (its yardstick, which the
-           port never calls); and the host cost of the two ways to read
-           PyTorch's current stream
+           port never calls); P (o = 2 x on [2, 512] float32) in both launch
+           forms, eager and captured in a CUDA graph, equal to x * 2 (x * 8
+           after 3 launches) bit for bit, host us per launch eager and per
+           replayed launch; P's path, the graph probe's four P cases
+           (apps/probe_graph_loop.py), run in this process with P's launches
+           counted; and the host cost of the two ways to read PyTorch's
+           current stream
   slice    generates triangle200 and kitti1100 with the port's make_sim and
            runs both CLIs on CUDA: the flagship sliding window (dataset_vo_sun,
            triangle200 float64 and float32, kitti1100 float64; K1 launch
-           counts and ATE against the JAX figures) and full-batch BA
+           counts and ATE against the JAX figures; triangle200 float64 twice,
+           which must write byte-identical *_poses.csv, and kitti1100's sun
+           pass alone twice, whose bytes are reported, not gated) and
+           full-batch BA
            (dataset_vo --window 0, the same three runs; K2 and K3 launch
            counts, final cost and ATE against the JAX figures), plus one
            banded-preconditioner solve of the triangle200 full problem
@@ -40,6 +48,13 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            scripts/bench_xl.py (float32, 20 LM iterations under
            run_full_budget, 3 timed repetitions after a warm-up); K4
            launches at least twice per LM iteration
+  phong    Phong-illumination BA through the dataset_ba_phong CLI: phong200
+           (make_sim --kind phong --num-states 200 --num-points 1000: K=200,
+           J=1,000 vertices, ~31k observations, 3 materials, a point light)
+           --multistage in float64 and float32 (auto picks the vertex-Schur
+           solver), phong60 --dirlight (directional light) and phong30
+           --window 5, each stage's final cost and the ATE against the JAX
+           figures; LM iterations/s with the card's name and power limit
   cpu      triangle200 float64 once more on the CPU, through both BA CLIs
            (poses must equal the CUDA runs' to 1e-6; all runs draw the same
            RANSAC hypotheses: seed 42 + pair, the threefry draw is integer
@@ -55,10 +70,11 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            coordinates (the 240x320 problem's projections, float64 and
            float32); kitti1100's full problem (float64): one
            build_obs_blocks and one CG iteration (device time, kernels,
-           launches, syncs, copies); and a trace of one photometric rate
-           solve (device busy share, launches per LM iteration). It runs
-           whenever the kernels phase runs with no main-path phase (slice,
-           dense) after it.
+           launches, syncs, copies); a trace of one photometric rate
+           solve (device busy share, launches per LM iteration); and, after
+           the phong phase, a trace of 5 LM iterations of phong200's joint
+           stage (float64, vertex-Schur). It runs whenever the kernels phase
+           runs with no main-path phase (slice, dense, phong) after it.
 
 Any failure exits non-zero before the result line. The last line of
 standard output is ``{"ok": true, "device": {...}}``; before it come the
@@ -86,7 +102,7 @@ sys.modules["jax"] = None
 sys.modules["ceres_slam_tpu"] = None
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "slice", "dense", "cpu", "profile")
+PHASES = ("device", "build", "kernels", "slice", "dense", "phong", "cpu", "profile")
 
 # JAX package reference ATEs [m] (f64, --window 2, gtsun10 obs file), and
 # the relative bound each run is held to: the 1,100-window chain gets a
@@ -137,7 +153,7 @@ K4_LIB_TOL = {"f64": 1e-9, "f32": 1e-4}
 # K4 per point and channel plus the index arithmetic)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"f64": 34e12, "f32": 67e12}
-OPS_PER_ROW = {"K1": 750, "K2": 650, "K3": 90}
+OPS_PER_ROW = {"K1": 750, "K2": 650, "K3": 90, "P": 1}
 K4_OPS = (6, 9)
 
 # JAX package reference figures of dense_stereo at 240x320 (float64, seed
@@ -154,6 +170,29 @@ DENSE_GT_COST_RTOL, DENSE_GT_ERR_ATOL = 1e-12, 1e-10
 JAX_DENSE_CHAIN = {"pixels_valid": 66653, "matcher_median_derr": 0.124,
                    "err1": 1.2379311009159493e-03}
 DENSE_ARGS = ["--height", "240", "--width", "320", "--max-disp", "48"]
+
+# JAX package reference figures of dataset_ba_phong (each stage's final
+# cost, then the ATE [m] against ground truth; on a CPU, for the port's
+# make_sim output at the same sizes and seed 0, with --max-iters 1000 and
+# ftol 1e-6 as the app sets them). phong30 --window 5 solves 26 windows: its
+# last window's final cost. The bounds (relative on the costs, absolute on
+# the ATE): the port on the CPU lands within ~1e-9 of the float64 costs
+# (it takes JAX's RANSAC hypotheses and every solve the same steps), so
+# 1e-6 leaves room for the card's order of sums and stays far below any
+# change of minimum; float32 sums round at ~6e-8 per term over ~31k
+# observations, and JAX's own float32 run lands 2.3e-7 from its float64
+# cost and 0.1 mm from its ATE, so 1e-4 and 1 mm; the 26 chained windows
+# carry each window's rounding into the next, so 1e-5 and 1 mm.
+JAX_PHONG = {
+    "phong200 float64": ([44907.44617987456, 106159.62152712909, 106147.28045223694],
+                         0.004005475743688968),
+    "phong200 float32": ([44907.44140625, 106159.6015625, 106147.3046875], 0.00410522274851653),
+    "phong60 dirlight": ([9259.855724445255], 0.01194270982689677),
+    "phong30 window5": ([358.42567110045786], 0.06184270490929676),
+}
+PHONG_BOUNDS = {"phong200 float64": (1e-6, 1e-4), "phong200 float32": (1e-4, 1e-3),
+                "phong60 dirlight": (1e-6, 1e-4), "phong30 window5": (1e-5, 1e-3)}
+PHONG_WINDOWS = 26
 
 
 def fail(msg: str):
@@ -537,6 +576,61 @@ def _kernel_k4(torch, k4, results, jobs):
                 f"(grid_sample {lib_err:.1e} off on {int(inb.sum())} in-bounds points)")
 
 
+def _kernel_p(torch, P, results, jobs):
+    """P in both launch forms, eager and captured in a CUDA graph (3
+    launches), against its plain version bit for bit; wrapper, plain and
+    library times; host us per launch eager and per replayed launch."""
+    x = torch.arange(1024, dtype=torch.float32, device="cuda").reshape(2, 512)
+    plain = P.double_kernel_plain(x)
+    graphs = {}
+    for one_block in (False, True):
+        form = "1 block" if one_block else "4 blocks"
+        got = P.double_kernel(x, one_block=one_block)
+        torch.cuda.synchronize()
+        if not torch.equal(got, plain):
+            fail(f"P ({form}): eager launch differs from x * 2")
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            y = x
+            for _ in range(3):
+                y = P.double_kernel(y, one_block=one_block)
+        g.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(y, plain * 4):
+            fail(f"P ({form}): 3 graph-captured launches differ from x * 8")
+        graphs[one_block] = g
+    ms, plain_ms, library_ms = _medians_ms(torch, [
+        lambda: P.double_kernel(x), lambda: P.double_kernel_plain(x), lambda: torch.mul(x, 2)])
+    one_ms = _median_ms(torch, lambda: P.double_kernel(x, one_block=True))
+    eager_us = _host_us(torch, lambda: P.double_kernel(x))
+    replay_us = _host_us(torch, graphs[False].replay) / 3
+    results[("P", "2x512", "f32")] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                                      **_bound(x, plain, OPS_PER_ROW["P"] * x.numel(), "f32"),
+                                      "library_ms": library_ms}
+    jobs.append(("P 2x512 f32 (4 blocks)", lambda: P.double_kernel(x), results[("P", "2x512", "f32")]))
+    jobs.append(("P 2x512 f32 (1 block)", lambda: P.double_kernel(x, one_block=True), None))
+    log(f"[kernels] P [2, 512] f32: kernel {ms * 1e3:.1f} us (1 block {one_ms * 1e3:.1f} us), "
+        f"plain {plain_ms * 1e3:.1f} us, torch.mul {library_ms * 1e3:.1f} us, "
+        f"{_bound_str(results[('P', '2x512', 'f32')])}; host {eager_us:.2f} us per launch eager, "
+        f"{replay_us:.2f} us per replayed launch (a graph of 3); eager and graph-captured "
+        "launches equal x * 2 (x * 8 after 3) bit for bit in both forms")
+
+
+def _p_path(torch, P):
+    """P's path: the graph probe's four P cases (apps/probe_graph_loop.py)
+    in this process; returns P's launches."""
+    from ceres_slam_tpu_torch.apps import probe_graph_loop
+
+    P.double_kernel.launches = 0
+    for case in probe_graph_loop.P_CASES:
+        try:
+            total = probe_graph_loop.p_case(torch, case)
+        except (AssertionError, RuntimeError) as e:
+            fail(f"P probe case {case}: {e}")
+        log(f"[kernels] P probe {case} OK {total}")
+    return P.double_kernel.launches
+
+
 def _stream_lookup(torch, cuda_build):
     """Host cost of reading PyTorch's current stream: the raw handle (what
     the thin launch path reads) against the public Stream object."""
@@ -567,10 +661,11 @@ def phase_kernels(torch, kernels):
     _kernel_k1(torch, kernels["K1"], results, jobs)
     _kernel_full_batch(torch, kernels, results, jobs)
     _kernel_k4(torch, kernels["K4"], results, jobs)
-    return results, jobs
+    _kernel_p(torch, kernels["P"], results, jobs)
+    return results, jobs, _p_path(torch, kernels["P"])
 
 
-def phase_profile(torch, jobs, dense: bool, data):
+def phase_profile(torch, jobs, dense: bool, phong: bool, data):
     """torch.profiler measurements, run last so that no profiler session
     precedes the timed main-path runs: each kernel call's device time and
     kernels per call (K1 must run one, K2 and K3 two), K4 on the path's own
@@ -588,7 +683,7 @@ def phase_profile(torch, jobs, dense: bool, data):
                     + f"); {span * 1e3:.2f} us per call back to back, gaps included")
         log(f"[profile] {label}: {ms * 1e3:.2f} us of device time per call, {kernels:g} device "
             f"kernels per call{more}{share}")
-        want = {"K1": 1, "K2": 2, "K3": 2}.get(label.split()[0])
+        want = {"K1": 1, "K2": 2, "K3": 2, "P": 1}.get(label.split()[0])
         if want and round(kernels) != want:
             fail(f"{label}: {kernels:g} device kernels per call, not {want}")
     from ceres_slam_tpu_torch.apps import dense_stereo
@@ -614,6 +709,34 @@ def phase_profile(torch, jobs, dense: bool, data):
                                                             device="cuda")
         cfg = SolveConfig(max_iters=20, ftol=0.0, gtol=0.0, run_full_budget=True)
         _profile_solve(torch, lambda: photometric.solve_photometric(problem, state0, cfg))
+    if phong:
+        _profile_phong(torch, data)
+
+
+def _profile_phong(torch, data):
+    """5 LM iterations (run_full_budget) of phong200's joint stage, float64,
+    vertex-Schur, from the VO initial guess, under the profiler."""
+    from ceres_slam_tpu_torch.problems.dataset_phong import DatasetProblemPhong
+    from ceres_slam_tpu_torch.solver import phong, phong_schur
+    from ceres_slam_tpu_torch.solver.lm import SolveConfig
+
+    ds = DatasetProblemPhong.read_csv(os.path.join(data, "phong200.csv"))
+    ds.compute_initial_guess()
+    problem, state, _ = ds.build_window_problem(0, ds.num_states,
+                                                *ds._window_budget(ds.num_states))
+    layout = phong_schur.build_phong_layout(problem)
+    cfg = SolveConfig(max_iters=5, ftol=0.0, gtol=0.0, run_full_budget=True)
+
+    def solve():
+        return phong.solve_phong_ba(problem, state, cfg, linear_solver="schur", layout=layout)
+
+    solve()
+    t = _trace(torch, solve)
+    log(f"[profile] phong200 joint stage float64, 5 LM iterations (vertex-Schur): wall "
+        f"{t['wall_us'] / 5e3:.2f} ms per iteration (profiled), device busy "
+        f"{t['device_us'] / 5e3:.2f} ms ({100 * t['device_us'] / t['wall_us']:.2f}%), "
+        f"{t['kernels'] / 5:g} device kernels, {t['launches'] / 5:g} launches, "
+        f"{t['syncs'] / 5:g} syncs, {t['copies'] / 5:g} copies per LM iteration")
 
 
 def _make_sims(data):
@@ -625,7 +748,7 @@ def _make_sims(data):
     log(f"[slice] sims (triangle200, kitti1100): {time.perf_counter() - t0:.2f} s")
 
 
-def _run_cli(data, seq, dtype, device, window_kernel):
+def _run_cli(data, seq, dtype, device, window_kernel, extra=()):
     import numpy as np
 
     from ceres_slam_tpu_torch.apps import dataset_vo_sun
@@ -635,7 +758,7 @@ def _run_cli(data, seq, dtype, device, window_kernel):
     window_kernel.window_factor_blocks.launches = 0
     stats = dataset_vo_sun.main([base + ".csv", base + "_sun_ref.csv",
                                  base + "_sun_dir_gtsun10.csv", "--window", "2",
-                                 "--dtype", dtype, "--device", device])
+                                 "--dtype", dtype, "--device", device, *extra])
     launches = window_kernel.window_factor_blocks.launches
     gt = csvio.read_poses_csv(base + "_gt_poses.csv")
     poses, ate = {}, {}
@@ -676,6 +799,22 @@ def _run_full(data, seq, dtype, device, kernels):
     return stats, launches, poses, metrics.ate_translation(poses, gt)
 
 
+def _repeat_bytes(data, seq, dtype, kernels, stats, gate: bool, extra=()):
+    """Run the flagship CLI again (ROADMAP F14: every sum on the card in a
+    fixed order) and compare its *_poses.csv with the first run's bytes;
+    fails on a difference when ``gate``. Returns the rerun's K1 launches."""
+    first = {name: open(p["output"], "rb").read() for name, p in stats["passes"].items()}
+    again, launches, _, _ = _run_cli(data, seq, dtype, "cuda", kernels["K1"], extra)
+    for name, p in again["passes"].items():
+        same = open(p["output"], "rb").read() == first[name]
+        log(f"[slice] {seq} {dtype} {name}: a second run writes "
+            f"{'byte-identical' if same else 'DIFFERENT'} {os.path.basename(p['output'])}"
+            f"{'' if gate else ' (reported, not gated)'}")
+        if gate and not same:
+            fail(f"{seq} {dtype} {name}: two runs wrote different poses")
+    return launches
+
+
 def _slice_window(data, kernels):
     """The flagship sliding-window CLI; returns K1's launches and the
     triangle200 float64 poses."""
@@ -700,6 +839,14 @@ def _slice_window(data, kernels):
                 f"({p['windows_per_s']:.1f} windows/s), {p['mean_iters']:.2f} iterations/window")
         if (seq, dtype) == ("triangle200", "float64"):
             keep = poses
+            total_launches += _repeat_bytes(data, seq, dtype, kernels, stats, gate=True)
+        if seq == "kitti1100":
+            # the sun pass alone, twice (after a VO pass it starts from
+            # that pass's state, so it is compared with itself)
+            sun_only = ("--sun-only",)
+            stats, launches, _, _ = _run_cli(data, seq, dtype, "cuda", kernels["K1"], sun_only)
+            total_launches += launches + _repeat_bytes(data, seq, dtype, kernels, stats,
+                                                       gate=False, extra=sun_only)
     return total_launches, keep
 
 
@@ -775,6 +922,68 @@ def phase_slice(kernels, data):
     full_launches, (full_poses, jacobi_cost) = _slice_full(data, kernels)
     _banded_full(data, kernels, jacobi_cost)
     return {"K1": k1_launches, **full_launches}, window_poses, full_poses
+
+
+def _make_phong_sims(data):
+    from ceres_slam_tpu_torch.apps import make_sim
+
+    t0 = time.perf_counter()
+    make_sim.main([data, "--kind", "phong", "--num-states", "200", "--num-points", "1000"])
+    make_sim.main([os.path.join(data, "dir"), "--kind", "phong", "--num-states", "60",
+                   "--num-points", "300", "--directional"])
+    make_sim.main([os.path.join(data, "win"), "--kind", "phong", "--num-states", "30",
+                   "--num-points", "200"])
+    shutil.copy(os.path.join(data, "phong200.csv"), os.path.join(data, "phong200_f32.csv"))
+    log(f"[phong] sims (phong200, phong60 directional, phong30): {time.perf_counter() - t0:.2f} s")
+
+
+PHONG_RUNS = (("phong200 float64", "phong200.csv", ["--multistage"], "float64"),
+              ("phong200 float32", "phong200_f32.csv", ["--multistage"], "float32"),
+              ("phong60 dirlight", "dir/phong60.csv", ["--dirlight"], "float64"),
+              ("phong30 window5", "win/phong30.csv", ["--window", "5"], "float64"))
+
+
+def phase_phong(data, smi):
+    """dataset_ba_phong on the card: each stage's final cost and the ATE
+    against the JAX figures, and LM iterations per second."""
+    import numpy as np
+
+    from ceres_slam_tpu_torch.apps import dataset_ba_phong
+    from ceres_slam_tpu_torch.utils import csvio, metrics
+
+    _make_phong_sims(data)
+    for label, name, argv, dtype in PHONG_RUNS:
+        path = os.path.join(data, name)
+        stats = dataset_ba_phong.main([path, *argv, "--dtype", dtype, "--device", "cuda"])
+        for out in (stats["poses"], stats["map"], stats["lights"]):
+            if not os.path.exists(out):
+                fail(f"{label}: {out} was not written")
+        poses = csvio.read_poses_csv(stats["poses"])
+        gt = csvio.read_poses_csv(path.replace("_f32", "").rsplit(".", 1)[0] + "_gt_poses.csv")
+        if poses.shape != gt.shape or not np.all(np.isfinite(poses)):
+            fail(f"{label}: poses not finite or of shape {gt.shape}")
+        ate = metrics.ate_translation(poses, gt)
+        ref_costs, ref_ate = JAX_PHONG[label]
+        rtol, ate_atol = PHONG_BOUNDS[label]
+        stages = stats["stages"]
+        if label == "phong30 window5":
+            if len(stages) != PHONG_WINDOWS:
+                fail(f"{label}: {len(stages)} window solves, not {PHONG_WINDOWS}")
+            stages = stages[-1:]
+        costs = [st["final_cost"] for st in stages]
+        devs = [abs(c - r) / r for c, r in zip(costs, ref_costs)]
+        log(f"[phong] {label}: {stats['observations']} observations, stages (iterations, final "
+            f"cost, JAX's) " + ", ".join(
+                f"({st['iterations']}, {c:.9e}, {r:.9e}, {d:.2e} off)"
+                for st, c, r, d in zip(stages, costs, ref_costs, devs))
+            + f"; ATE {ate:.6f} m (JAX {ref_ate:.6f}); bounds rtol {rtol:g}, ATE +-{ate_atol:g} m")
+        log(f"[phong] {label} on {smi}: {stats['lm_iterations']} LM iterations in "
+            f"{stats['solve_s']:.3f} s of solve = {stats['it_s']:.2f} LM iterations/s; load "
+            f"{stats['load_s']:.2f} s, initial guess {stats['init_s']:.2f} s, total "
+            f"{stats['total_s']:.2f} s")
+        if len(costs) != len(ref_costs) or max(devs) > rtol or abs(ate - ref_ate) > ate_atol:
+            fail(f"{label}: costs {costs} / ATE {ate:.6f} outside the bounds of JAX's "
+                 f"{ref_costs} / {ref_ate:.6f}")
 
 
 def _run_dense(label, argv, device, k4):
@@ -934,20 +1143,24 @@ def phase_cpu(kernels, data, window_poses, full_poses, dense_pose):
         fail(f"CPU and CUDA full-batch poses differ by {d:.3e}")
 
 
-# name, function, CUDA source, line of the TPU kernel in pallas_kernels.py,
-# the shape whose float64 numbers the JSON line reports, and the design
+# name, function, CUDA source, the TPU kernel it replaces (file:line), the
+# shape and dtype whose numbers the JSON line reports, and the design
+PALLAS = "ceres_slam_tpu/ops/pallas_kernels.py"
 KERNELS = (
-    ("K1", "window_factor_blocks", "window_factor_blocks.cu", ":299", "flagship",
+    ("K1", "window_factor_blocks", "window_factor_blocks.cu", f"{PALLAS}:299", "flagship", "f64",
      "redesigned: one launch (pose blocks, landmark blocks), per-window plan, thin launch path"),
-    ("K2", "stereo_factor_sums", "stereo_factor_blocks.cu", ":124", "kitti1100",
+    ("K2", "stereo_factor_sums", "stereo_factor_blocks.cu", f"{PALLAS}:124", "kitti1100", "f64",
      "redesigned: fused with its pose and landmark sums (a block per pose, then a landmark "
      "pass in slot order), staged 16-byte stores, full-batch plan, thin launch path"),
-    ("K3", "schur_uy", "schur_uy.cu", ":591", "kitti1100",
+    ("K3", "schur_uy", "schur_uy.cu", f"{PALLAS}:591", "kitti1100", "f64",
      "redesigned: rows staged through shared memory, a block per landmark group then per "
      "pose, full-batch plan bound once per LM iteration, thin launch path"),
-    ("K4", "bilinear_sample_packed", "bilinear_sample_imgs.cu", ":427", "240x320",
+    ("K4", "bilinear_sample_packed", "bilinear_sample_imgs.cu", f"{PALLAS}:427", "240x320", "f64",
      "redesigned: packed [H, W, 4] texels, strided coordinates, per-solve plan, "
      "thin launch path"),
+    ("P", "double_kernel", "double_kernel.cu", "scripts/probe_pallas_scan.py:27", "2x512", "f32",
+     "first form: 4 blocks of 256 threads or 1 looping block, thin launch path, capturable "
+     "in a CUDA graph; latency-bound"),
 )
 
 
@@ -966,18 +1179,20 @@ def main():
         fail("torch.cuda.is_available() is false: this smoke test needs an NVIDIA GPU")
     sys.path.insert(0, ROOT)
     try:
-        from ceres_slam_tpu_torch.ops import (bilinear_kernel, schur_kernel, stereo_factor_kernel,
-                                              window_kernel)
+        from ceres_slam_tpu_torch.ops import (bilinear_kernel, double_kernel, schur_kernel,
+                                              stereo_factor_kernel, window_kernel)
     except ImportError as e:
         fail(f"cannot import the port: {e}")
     kernels = {"K1": window_kernel, "K2": stereo_factor_kernel, "K3": schur_kernel,
-               "K4": bilinear_kernel}
+               "K4": bilinear_kernel, "P": double_kernel}
 
     smi = phase_device(torch)
     if "build" in phases or "kernels" in phases:
         phase_build(kernels)
-    k, jobs = phase_kernels(torch, kernels) if "kernels" in phases else ({}, [])
     launches = {name: 0 for name in kernels}
+    k, jobs = {}, []
+    if "kernels" in phases:
+        k, jobs, launches["P"] = phase_kernels(torch, kernels)
     window_poses = full_poses = dense_pose = None
     data = os.path.join(ROOT, "build", "chip_smoke_data")
     shutil.rmtree(data, ignore_errors=True)
@@ -987,17 +1202,20 @@ def main():
         launches.update(slice_launches)
     if "dense" in phases:
         launches["K4"], dense_pose = phase_dense(kernels, data)
+    if "phong" in phases:
+        phase_phong(data, smi)
     if "cpu" in phases:
         phase_cpu(kernels, data, window_poses, full_poses, dense_pose)
-    if "profile" in phases or ("kernels" in phases and not {"slice", "dense"} & set(phases)):
-        phase_profile(torch, jobs, "dense" in phases, data)
+    if "profile" in phases or ("kernels" in phases
+                               and not {"slice", "dense", "phong"} & set(phases)):
+        phase_profile(torch, jobs, "dense" in phases, "phong" in phases, data)
     nan = {"max_abs_err": math.nan, "ms": math.nan, "plain_ms": math.nan, "bound_ms": math.nan,
            "bound_by": None, "library_ms": None}
     log(json.dumps({"kernels": [{
         "name": fn, "route": "cuda", "source": f"ceres_slam_tpu_torch/csrc/{src}",
-        "replaces": f"ceres_slam_tpu/ops/pallas_kernels.py{line}", "launches": launches[name],
-        **k.get((name, shape, "f64"), nan), "design": design}
-        for name, fn, src, line, shape, design in KERNELS]}))
+        "replaces": replaces, "launches": launches[name],
+        **k.get((name, shape, tag), nan), "design": design}
+        for name, fn, src, replaces, shape, tag, design in KERNELS]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

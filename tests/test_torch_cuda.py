@@ -1,4 +1,5 @@
-"""The CUDA kernels (K1-K4) against their plain PyTorch versions, on the card.
+"""The CUDA kernels (K1-K4, P) against their plain PyTorch versions, on the card,
+and the solvers' sums in a fixed order (two runs give the same bits).
 
 Needs an NVIDIA GPU with nvcc; skips elsewhere. This file imports no JAX,
 so it also runs where JAX is absent; there the repository's conftest (which
@@ -16,9 +17,10 @@ the full-batch plan (``ops/full_batch_plan.py``).
 import pytest
 import torch
 
-from ceres_slam_tpu_torch.ops import (bilinear_kernel, full_batch_plan, full_batch_trace,
-                                      schur_kernel, stereo_factor_kernel, window_kernel)
-from ceres_slam_tpu_torch.solver import dense, pcg, window
+from ceres_slam_tpu_torch.ops import (bilinear_kernel, double_kernel, full_batch_plan,
+                                      full_batch_trace, schur_kernel, stereo_factor_kernel,
+                                      window_kernel)
+from ceres_slam_tpu_torch.solver import dense, lm, pcg, phong_schur, window
 
 torch.set_num_threads(1)
 
@@ -178,9 +180,9 @@ def test_k3_refuses_a_landmark_group_beyond_its_block():
 
 def _problem_of(plan, poses) -> dense.StereoBAProblem:
     """The full-batch problem of a random plan, with no valid sun
-    observation and the pose prior off. Masked rows get a zero measurement:
-    a random plan's rows that see landmark 0 from pose 0 project at depth
-    0, and the CPU's segment path masks by product."""
+    observation and the pose prior off. Masked rows get a zero measurement
+    (a random plan's rows that see landmark 0 from pose 0 project at depth
+    0)."""
     K, dt, dev = plan.K, poses.dtype, poses.device
     up = torch.zeros((K, 3), dtype=dt, device=dev)
     up[:, 2] = 1.0
@@ -256,3 +258,140 @@ def test_k4_matches_plain(shape, dtype):
     ref = bilinear_kernel.bilinear_sample_packed_plain(packed, proj[:, 0], proj[:, 1])
     torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True)
     assert _device_kernels(lambda: bilinear_kernel.bilinear_sample_packed(packed, u, v)) == 1
+
+
+# P (double_kernel): 2 x is exact in float32, so each form equals x * 2 bit
+# for bit, eagerly and replayed from a CUDA graph.
+
+def test_p_wrapper_on_the_cpu():
+    """On the CPU the wrapper runs the plain version (no launch) and checks
+    its input."""
+    x = torch.arange(1024, dtype=torch.float32).reshape(2, 512)
+    before = double_kernel.double_kernel.launches
+    assert torch.equal(double_kernel.double_kernel(x), x * 2)
+    buf = x.clone()
+    double_kernel.double_kernel(buf, out=buf)
+    assert torch.equal(buf, x * 2) and double_kernel.double_kernel.launches == before
+    with pytest.raises(ValueError, match="float32"):
+        double_kernel.double_kernel(x.double())
+    with pytest.raises(ValueError, match="out"):
+        double_kernel.double_kernel(x, out=torch.empty(3))
+
+
+def test_probe_needs_a_card():
+    """The graph probe's cases run on the card only: without one, a case
+    exits instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from ceres_slam_tpu_torch.apps import probe_graph_loop
+
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        probe_graph_loop.main(["eager_loop"])
+    with pytest.raises(SystemExit, match="unknown case"):
+        probe_graph_loop.main(["grid_in_scan"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("one_block", [False, True], ids=["grid4", "grid1"])
+def test_p_matches_plain_eager_and_in_a_graph(one_block):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    P = double_kernel.double_kernel
+    x = torch.arange(1024, dtype=torch.float32, device="cuda").reshape(2, 512)
+    before = P.launches
+    assert torch.equal(P(x, one_block=one_block), double_kernel.double_kernel_plain(x))
+    assert P.launches == before + 1
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        y = x
+        for _ in range(3):
+            y = P(y, one_block=one_block)
+    assert P.launches == before + 4  # captured launches count once, replays not
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, x * 8) and float(y.sum()) == 4190208.0
+    buf = x.clone()
+    h = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(h):
+        P(buf, one_block=one_block, out=buf)
+    for _ in range(3):
+        h.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(buf, x * 8)
+    assert _device_kernels(lambda: P(x, one_block=one_block)) == 1
+
+
+# ROADMAP F14: every float sum on the card runs in a fixed order, so two
+# runs of a solve give the same bits.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["dogleg", "lm"])
+def test_window_solve_is_bit_reproducible(strategy):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    plan, poses, points = stereo_factor_kernel.random_inputs(1001, 77, 13, device="cuda", seed=17)
+    problem, state = _problem_of(plan, poses), dense.BAState(poses, points)
+    cfg = lm.SolveConfig(max_iters=30, nonmonotonic=True, ftol=1e-9, xtol=1e-12)
+    runs = [window.solve_ba_window_with_covariance(problem, state, 1, cfg, strategy=strategy)
+            for _ in range(2)]
+    (s1, sum1, c1), (s2, sum2, c2) = runs
+    assert sum1 == sum2 and sum1.iterations > 1
+    assert torch.equal(s1.poses, s2.poses) and torch.equal(s1.points, s2.points)
+    assert torch.equal(c1, c2)
+
+
+@pytest.mark.cuda
+def test_tableless_pcg_step_is_bit_reproducible():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    plan, poses, points = stereo_factor_kernel.random_inputs(1001, 77, 13, device="cuda", seed=18)
+    problem, state = _problem_of(plan, poses), dense.BAState(poses, points)
+    a = pcg.pcg_step(problem, state, 1e-2, 200, 1e-12)
+    b = pcg.pcg_step(problem, state, 1e-2, 200, 1e-12)
+    assert a[3] == b[3] >= 1
+    for x, y in zip(a[:3], b[:3]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_dense_ba_is_bit_reproducible():
+    """The dense LM's block sums by pose, landmark and pair (``dense.segment_sum``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    plan, poses, points = stereo_factor_kernel.random_inputs(1001, 77, 13, device="cuda", seed=19)
+    problem, state = _problem_of(plan, poses), dense.BAState(poses, points)
+    H1, g1 = dense.ba_normal_equations(problem, state)
+    H2, g2 = dense.ba_normal_equations(problem, state)
+    assert torch.equal(H1, H2) and torch.equal(g1, g2)
+
+
+def _phong_problem(tmp_path, device):
+    """The 12-state Phong sim's full-batch problem, from the VO initial guess."""
+    from ceres_slam_tpu_torch.problems.dataset_phong import DatasetProblemPhong
+    from ceres_slam_tpu_torch.utils import sim
+
+    path = str(tmp_path / "phong12.csv")
+    sim.write_phong_track_csv(sim.generate_phong(num_states=12, num_points=200, seed=7), path)
+    ds = DatasetProblemPhong.read_csv(path)
+    ds.device = device
+    ds.compute_initial_guess()
+    return ds.build_window_problem(0, ds.num_states, *ds._window_budget(ds.num_states))[:2]
+
+
+@pytest.mark.cuda
+def test_phong_schur_step_is_bit_reproducible(tmp_path):
+    """Two vertex-Schur steps on the card give the same bits, and the CPU's
+    step to 1e-9 x max|dx| (float64: sums in another order, two Cholesky
+    factorizations)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    problem, state = _phong_problem(tmp_path, "cuda")
+    step = phong_schur.phong_schur_step(problem, True, False, False)
+    a, b = step(state, 1e-3), step(state, 1e-3)
+    for x, y in zip(a, b):
+        assert torch.isfinite(x).all() and torch.equal(x, y)
+    cpu_problem, cpu_state = _phong_problem(tmp_path, "cpu")
+    dx = phong_schur.phong_schur_step(cpu_problem, True, False, False)(cpu_state, 1e-3)[0]
+    assert (a[0].cpu() - dx).abs().max() <= 1e-9 * dx.abs().max()

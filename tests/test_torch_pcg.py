@@ -487,3 +487,31 @@ def test_banded_pcg_with_ineligible_landmarks():
     _, sum_b = pcg.solve_ba_pcg(p, s, cfg, precond="banded")
     np.testing.assert_allclose(sum_b.final_cost, sum_j.final_cost, rtol=1e-6)
     assert sum_b.final_cost < sum_b.initial_cost
+
+
+@pytest.mark.parametrize("path", ["segment", "tables", "plan"])
+def test_fixed_pose_with_non_finite_aux_stays_finite(path):
+    """F15: non-finite sun and prior terms on the gauge-fixed pose 0 leave
+    every block finite and equal to those of the clean problem (masks are
+    ``torch.where``, not products), on the CPU paths with and without
+    tables and on the plan path; F14: all three agree to rounding."""
+    problem, state = _poisoned(*ge._build_example(K=K, J=J, n_obs=N_OBS, dtype=jnp.float64,
+                                                  seed=3))
+    tables = jpcg.build_obs_tables(problem.stereo.pose_idx, problem.stereo.point_idx, K, J)
+    p, s, tt = _ported(problem, state, tables if path == "tables" else None)
+    sun = p.sun
+    dir_c = sun.dir_c.clone()
+    dir_c[0] = float("nan")
+    bad = p._replace(sun=sun._replace(dir_c=dir_c, valid=torch.ones_like(sun.valid)),
+                     prior=p.prior._replace(pose_idx=0, valid=True,
+                                            T_ref=torch.full_like(p.prior.T_ref, float("inf"))))
+    plan = full_batch_plan.plan_for_problem(bad) if path == "plan" else None
+    got = pcg.build_obs_blocks(bad, s, LAM, tables=tt, plan=plan)
+    clean = pcg.build_obs_blocks(bad._replace(sun=sun._replace(valid=torch.ones_like(sun.valid)),
+                                              prior=p.prior), s, LAM)
+    for f in ("U18", "Hpp", "Cinv", "gp", "gl", "Hll", "Hpp_undamped"):
+        g, r = getattr(got, f), getattr(clean, f)
+        assert torch.isfinite(g).all(), f
+        _close(g, r.numpy(), 1e-12)
+    dx, gn, pred, _ = pcg.pcg_step(bad, s, LAM, 100, 1e-10, tables=tt, plan=plan)
+    assert torch.isfinite(dx).all() and torch.isfinite(pred)

@@ -210,18 +210,25 @@ def test_float32_tolerance_counts_windows():
     assert jcommon.solver_tolerance("float32", 257) == 1e-7  # the JAX divergence
 
 
-@pytest.mark.parametrize("kind", ["triangle", "kitti"])
+@pytest.mark.parametrize("kind", ["triangle", "kitti", "phong", "phong_directional"])
 def test_copied_sim_writes_identical_csvs(tmp_path, kind):
-    """The port's copies of sim/csvio write byte-identical files."""
+    """The port's copies of sim/csvio write byte-identical files (the Phong
+    generator with a point light and with a directional one)."""
     def gen(mod, noise):
         if kind == "kitti":
             return mod.generate_kitti(num_states=60, num_points=900, seed=2, sun_noise_deg=noise)
         return mod.generate(kind=kind, num_states=30, num_points=200, seed=2, sun_noise_deg=noise)
 
     for name, mod, io in (("jax", jsim, jcsvio), ("port", sim, csvio)):
-        ds, dn = gen(mod, 0.0), gen(mod, 10.0)
         d = tmp_path / name
         d.mkdir()
+        if kind.startswith("phong"):
+            ds = mod.generate_phong(num_states=30, num_points=200, num_materials=4, seed=2,
+                                    directional=kind == "phong_directional")
+            mod.write_phong_track_csv(ds, str(d / "phong.csv"))
+            mod.write_gt_poses_csv(ds, str(d / "gt.csv"))
+            continue
+        ds, dn = gen(mod, 0.0), gen(mod, 10.0)
         mod.write_track_csv(ds, str(d / "t.csv"), with_covar=True)
         mod.write_track_csv(ds, str(d / "t_vo.csv"), with_covar=False)
         mod.write_ref_sun_csv(ds, str(d / "sun_ref.csv"))
@@ -230,8 +237,9 @@ def test_copied_sim_writes_identical_csvs(tmp_path, kind):
         io.write_poses_csv(str(d / "poses.csv"), ds.poses_gt[::-1])
     for fname in os.listdir(tmp_path / "jax"):
         assert (tmp_path / "jax" / fname).read_bytes() == (tmp_path / "port" / fname).read_bytes(), fname
-    rows = csvio.read_numeric_csv(str(tmp_path / "port" / "t.csv"))
-    ref = jcsvio.read_numeric_csv(str(tmp_path / "jax" / "t.csv"))
+    track = "phong.csv" if kind.startswith("phong") else "t.csv"
+    rows = csvio.read_numeric_csv(str(tmp_path / "port" / track))
+    ref = jcsvio.read_numeric_csv(str(tmp_path / "jax" / track))
     assert len(rows) == len(ref) and all(np.array_equal(a, b) for a, b in zip(rows, ref))
 
 

@@ -20,7 +20,7 @@ from ceres_slam_tpu.solver import lm as jlm
 from ceres_slam_tpu.solver import window as jwindow
 from ceres_slam_tpu_torch import convert
 from ceres_slam_tpu_torch.ops import window_kernel
-from ceres_slam_tpu_torch.solver import lm, window
+from ceres_slam_tpu_torch.solver import dense, dogleg, lm, window
 
 torch.set_num_threads(1)
 
@@ -273,3 +273,81 @@ def test_solve_with_covariance_matches_jax(strategy, nonmonotonic):
     np.testing.assert_allclose(sol_t.points.numpy(), np.asarray(sol_j.points), rtol=0, atol=1e-7)
     _close(cov_t, cov_j, 1e-6)
     assert sum_t.final_cost < sum_t.initial_cost
+
+
+# -- ROADMAP F14 and F15 ------------------------------------------------------
+
+def _poison_aux(problem):
+    """Non-finite sun and prior terms on the gauge-fixed pose 0."""
+    sun = problem.sun
+    dir_c = sun.dir_c.clone()
+    dir_c[0] = float("nan")
+    prior = problem.prior._replace(pose_idx=0, valid=True,
+                                   T_ref=torch.full_like(problem.prior.T_ref, float("inf")))
+    return problem._replace(sun=sun._replace(dir_c=dir_c, valid=sun.valid.clone().fill_(True)),
+                            prior=prior)
+
+
+def test_masked_aux_blocks_of_a_fixed_pose_are_zero(case):
+    """F15: a gauge-fixed pose whose sun and prior blocks are not finite
+    gets exact zeros (the masks are ``torch.where``, not products: 0 * NaN
+    is NaN); the free poses keep their blocks."""
+    problem, state = case
+    p = convert.problem_from_numpy(_np(_masked(problem)))
+    st = convert.state_from_numpy(_np(state))
+    bad = _poison_aux(p)
+    Hpp, gp = window._masked_aux_blocks(bad, st, torch.float64)
+    assert torch.isfinite(Hpp).all() and torch.isfinite(gp).all()
+    assert not Hpp[0].any() and not gp[0].any()
+    ref_H, ref_g = window._masked_aux_blocks(bad._replace(prior=p.prior), st, torch.float64)
+    assert torch.equal(Hpp[1:], ref_H[1:]) and torch.equal(gp[1:], ref_g[1:])
+    lt = window.build_window_layout(bad, K, J)
+    b = window.factor_blocks(lt, st)
+    dx, _, pred = window.schur_solve(b.Hpp + Hpp, b.Hll, b.U_jo, b.gp + gp, b.gl, lt.w_idx, 1e-4)
+    assert torch.isfinite(dx).all() and torch.isfinite(pred)
+
+
+def test_fixed_order_sums_match_index_add(case):
+    """F14: the layout's gather-table sums (by pose for the dogleg
+    Hessian-vector product, by (pose, landmark) pair for W, with repeated
+    pairs summed) equal ``index_add_`` sums to rounding (1e-13 x the
+    largest entry), and the Hessian-vector product equals the dense
+    ``H v``."""
+    problem, state = case
+    lt, st = _ported(problem, state)
+    b = window.factor_blocks(lt, st)
+    M = lt.slot_pose.shape[0]
+    rows = torch.as_tensor(np.random.default_rng(8).normal(size=(M, 18)))
+    by_pose = torch.zeros(K + 1, 18, dtype=rows.dtype).index_add_(0, lt.slot_pose, rows)[:K]
+    _close(dense.gather_sum(lt.pose_slots, rows), by_pose.numpy(), 1e-13)
+    pair = lt.slot_pose * J + torch.arange(J).repeat_interleave(lt.O)
+    by_pair = torch.zeros((K + 1) * J, 18, dtype=rows.dtype).index_add_(0, pair, rows)[:K * J]
+    _close(dense.gather_sum(lt.w_idx, rows), by_pair.numpy(), 1e-13)
+    Hpp_p, Hll_p = window._pin(b.Hpp), window._pin(b.Hll)
+    v = torch.as_tensor(np.random.default_rng(9).normal(size=6 * K + 3 * J))
+    Hv = dogleg.block_hvp(Hpp_p, Hll_p, b.U_jo, lt.slot_pose, lt.pose_slots, v)
+    Wf = window._contract(b.U_jo.reshape(J, -1, 6, 3), lt.w_idx, K, J)
+    H = torch.zeros(6 * K + 3 * J, 6 * K + 3 * J, dtype=v.dtype)
+    H[:6 * K, :6 * K] = torch.block_diag(*Hpp_p)
+    H[6 * K:, 6 * K:] = torch.block_diag(*Hll_p)
+    H[:6 * K, 6 * K:], H[6 * K:, :6 * K] = Wf, Wf.T
+    _close(Hv, (H @ v).numpy(), 1e-13)
+
+
+def test_segment_sum_is_fixed_order():
+    """F14: ``dense.segment_sum`` (a gather table built on the tensor's
+    device, then a sum over a fixed axis) equals ``index_add_`` to rounding,
+    gives the same bits on every call, and its table lists each bin's rows
+    in increasing order."""
+    rng = np.random.default_rng(10)
+    idx = torch.as_tensor(rng.integers(0, 17, 500))
+    x = torch.as_tensor(rng.normal(size=(500, 4, 3)))
+    ref = torch.zeros(20, 4, 3, dtype=x.dtype).index_add_(0, idx, x)
+    got = dense.segment_sum(x, idx, 20)
+    _close(got, ref.numpy(), 1e-14)
+    assert torch.equal(got, dense.segment_sum(x, idx, 20)) and not got[17:].any()
+    t = dense.segment_table(idx, 20)
+    assert t.shape == (20, int(torch.bincount(idx).max()))
+    for k, row in enumerate(t.tolist()):
+        row = [i for i in row if i < 500]
+        assert row == sorted(row) and all(int(idx[i]) == k for i in row)
