@@ -2,14 +2,18 @@
 
   python -m ceres_slam_tpu_torch.apps.dataset_vo_sun <track> <ref_sun> <obs_sun>
       [--window 2] [--huber-param 0] [--az-err-thresh 1000] [--zen-err-thresh 1000]
-      [--sun-only] [--dtype float64|float32] [--strategy dogleg|lm] [--device cuda]
+      [--sun-only] [--dtype float64|float32] [--strategy dogleg|lm]
+      [--checkpoint PATH] [--checkpoint-every 25] [--device cuda]
 
 Port of ``ceres_slam_tpu/apps/dataset_vo_sun.py``: a VO-only pass (unless
 ``--sun-only``) writing ``<track>_poses.csv``, then a VO+sun pass writing
 ``<track>_<sunmethod>_poses.csv``, the sun method being the last
 '_'-token of the obs-sun file stem. Thresholds are given in degrees. The
 passes run one after the other on one dataset object, as the JAX app's
-sequential branch does; ``--checkpoint`` is not ported yet.
+sequential branch does. ``--checkpoint PATH`` saves each pass's state every
+``--checkpoint-every`` windows to ``PATH.vo`` / ``PATH.sun``; a run that
+was interrupted resumes from them, and a pass that completes deletes its
+file.
 
 Two settings differ from the JAX app on purpose: ``--ftol 0`` is a
 tolerance of 0 (the JAX app reads it as unset), and the float32 tolerance
@@ -41,6 +45,12 @@ def build_parser():
                    help="state and factor-pass dtype (the Schur solve is float64 in both)")
     p.add_argument("--strategy", default="dogleg", choices=["dogleg", "lm"],
                    help="trust-region strategy (reference: SUBSPACE_DOGLEG)")
+    p.add_argument("--checkpoint", default=None, metavar="PATH",
+                   help="checkpoint-restart: save the pass state every --checkpoint-every "
+                        "windows (per-pass files PATH.vo / PATH.sun); an interrupted run "
+                        "resumes from the last checkpoint")
+    p.add_argument("--checkpoint-every", type=int, default=25, metavar="N",
+                   help="windows between checkpoints")
     return p
 
 
@@ -93,8 +103,10 @@ def main(argv=None) -> dict:
         print(f"Computing VO {'with' if kwargs['use_sun'] else 'without'} sun measurements",
               file=sys.stderr)
         ts = time.perf_counter()
-        summaries = dataset.solve_sliding_window(window=args.window, config=config,
-                                                 strategy=args.strategy, progress=True, **kwargs)
+        summaries = dataset.solve_sliding_window(
+            window=args.window, config=config, strategy=args.strategy, progress=True,
+            checkpoint=f"{args.checkpoint}.{name}" if args.checkpoint else None,
+            checkpoint_every=args.checkpoint_every, **kwargs)
         wall = time.perf_counter() - ts
         common.print_reports(summaries, args.report)
         csvio.write_poses_csv(out, dataset.poses)

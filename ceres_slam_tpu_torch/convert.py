@@ -2,7 +2,8 @@
 
 The JAX package's ``StereoBAProblem``, ``BAState``, ``WindowLayout``,
 ``ObsTables``, ``ObsBlocks``, ``TrackInfo``, ``PhotometricProblem``,
-``PhotometricState``, ``PhongBAProblem`` and ``PhongState`` are NamedTuples; given with
+``PhotometricState``, ``PhongBAProblem``, ``PhongState``,
+``PoseGraphProblem`` and ``StereoFrame`` are NamedTuples; given with
 numpy leaves (``jax.tree.map(np.asarray, x)``) these functions build the
 port's containers on ``device``, so that a test can hand both packages the
 same inputs. Nothing here imports JAX.
@@ -13,9 +14,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ceres_slam_tpu_torch.frontend import stereo_vo
 from ceres_slam_tpu_torch.models.stereo_camera import StereoCamera
 from ceres_slam_tpu_torch.ops import window_kernel
-from ceres_slam_tpu_torch.solver import banded, dense, pcg, phong, photometric, window
+from ceres_slam_tpu_torch.solver import (banded, dense, pcg, phong, photometric, pose_graph,
+                                         window)
 
 
 def _t(x, device, dtype=None) -> torch.Tensor:
@@ -140,3 +143,23 @@ def phong_problem_from_numpy(problem, device="cpu") -> phong.PhongBAProblem:
 
 def phong_state_from_numpy(state, device="cpu") -> phong.PhongState:
     return phong.PhongState(*(_t(x, device) for x in state))
+
+
+def pose_graph_problem_from_numpy(problem, device="cpu") -> pose_graph.PoseGraphProblem:
+    """A JAX ``pose_graph.PoseGraphProblem``; indices become int64."""
+    r, p = problem.rel, problem.priors
+    return pose_graph.PoseGraphProblem(
+        rel=pose_graph.RelPoseFactors(
+            idx1=_t(r.idx1, device, torch.int64), idx2=_t(r.idx2, device, torch.int64),
+            T_ref=_t(r.T_ref, device), stiffness=_t(r.stiffness, device),
+            valid=_t(r.valid, device)),
+        priors=pose_graph.PriorFactors(idx=_t(p.idx, device, torch.int64),
+                                       T_ref=_t(p.T_ref, device),
+                                       stiffness=_t(p.stiffness, device),
+                                       valid=_t(p.valid, device)),
+        fixed_pose_mask=_t(problem.fixed_pose_mask, device))
+
+
+def stereo_frame_from_numpy(frame, device="cpu") -> stereo_vo.StereoFrame:
+    """A JAX ``stereo_vo.StereoFrame`` (no corner count)."""
+    return stereo_vo.StereoFrame(*(_t(x, device) for x in frame))

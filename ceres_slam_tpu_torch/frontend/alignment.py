@@ -68,16 +68,20 @@ def draw_hypotheses(valid: torch.Tensor, num_iters: int,
     return _top3(keys, valid.to(generator.device)).to(valid.device)
 
 
-def draw_jax_hypotheses(valid: torch.Tensor, num_iters: int, seeds: torch.Tensor) -> torch.Tensor:
-    """``[B, P]`` validity, ``[B]`` integer seeds -> ``[B, num_iters, 3]``
-    indices: the very ones the JAX package's ``ransac_align`` draws under
-    ``PRNGKey(seed)``, on any device.
+def draw_jax_hypotheses(valid: torch.Tensor, num_iters: int, seeds: torch.Tensor | None = None,
+                        keys: torch.Tensor | None = None) -> torch.Tensor:
+    """``[B, P]`` validity and ``[B]`` integer seeds, or ``[B, 2]`` keys
+    (``ops/prng.py``), -> ``[B, num_iters, 3]`` indices: the very ones the
+    JAX package's ``ransac_align`` draws under ``PRNGKey(seed)`` or under
+    the key, on any device.
 
     JAX takes the top three of ``gumbel(key, (H, P))`` over the valid
     entries; the Gumbel transform is increasing in the uniform draw, whose
     order is that of the high 23 bits of each random word, so the top
     three of those bits are the same picks."""
-    bits = prng.random_bits32(seeds.to(valid.device), (num_iters, valid.shape[-1])) >> 9
+    if keys is None:
+        keys = prng.prng_key(seeds.reshape(-1))
+    bits = prng.key_bits32(keys.to(valid.device), (num_iters, valid.shape[-1])) >> 9
     return _top3(bits, valid)
 
 

@@ -1,8 +1,7 @@
 """Batched residual/Jacobian factors of the sliding-window problem.
 
-Port of ``ceres_slam_tpu/ops/factors.py`` (all but ``relative_pose``,
-which the pose-graph slice brings). Each factor is one batched evaluation
-over all observations of its type:
+Port of ``ceres_slam_tpu/ops/factors.py``. Each factor is one batched
+evaluation over all observations of its type:
 gathered states in, whitened residuals ``r = S (predicted - observed)`` and
 analytic tangent-space Jacobians out, ``S`` being the stiffness (inverse
 matrix square root of the measurement covariance).
@@ -62,6 +61,31 @@ def pose_prior(
         dim=-2,
     )
     return _whiten(stiffness, r, J)
+
+
+def relative_pose(
+    T_1_0: torch.Tensor,  # [..., 12]
+    T_2_0: torch.Tensor,  # [..., 12]
+    T_2_1_ref: torch.Tensor,  # [..., 12] measured T_2_1
+    stiffness: torch.Tensor,  # [..., 6, 6]
+):
+    """``r = S log(T_2_1_ref T_1_0 T_2_0^-1)``; returns (r, J_1[..., 6, 6],
+    J_2[..., 6, 6]), the tangent Jacobians (left perturbations, decoupled
+    log): with respect to T_1_0 ``[[R_ref, -R_ref t_est^], [0, J_r^-1(psi)
+    R_est^T]]``, with respect to T_2_0 ``[[-R_res, 0], [0, -J_r^-1(psi)]]``."""
+    T_est = lie.se3_compose(T_1_0, lie.se3_inverse(T_2_0))
+    T_res = lie.se3_compose(T_2_1_ref, T_est)
+    r = lie.se3_log(T_res)
+    R_ref, R_est, R_res = lie.se3_rot(T_2_1_ref), lie.se3_rot(T_est), lie.se3_rot(T_res)
+    Jr_inv = lie.so3_inv_right_jacobian(r[..., 3:])
+    Z = torch.zeros_like(R_res)
+    R_ref = R_ref.expand_as(R_res)
+    J1 = torch.cat([
+        torch.cat([R_ref, -R_ref @ lie.so3_wedge(lie.se3_trans(T_est))], dim=-1),
+        torch.cat([Z, Jr_inv @ R_est.transpose(-1, -2)], dim=-1),
+    ], dim=-2)
+    J2 = torch.cat([torch.cat([-R_res, Z], dim=-1), torch.cat([Z, -Jr_inv], dim=-1)], dim=-2)
+    return _whiten(stiffness, r, J1, J2)
 
 
 def sun_sensor(

@@ -13,7 +13,8 @@ Port of ``ceres_slam_tpu/ops/lie.py`` (same conventions, same names):
 
 The JAX package's Jacobi eigensolvers and closed-form nearest rotation are
 not ported: they exist because batched SVD is unusable on the TPU, and
-``torch.linalg.svd``/``eigh`` serve here.
+``torch.linalg.svd``/``eigh`` serve here (``so3_normalize`` is the SVD
+projection with the determinant's sign fixed).
 """
 
 from __future__ import annotations
@@ -102,6 +103,20 @@ def so3_log(C: torch.Tensor) -> torch.Tensor:
     return scale[..., None] * axis
 
 
+def so3_left_jacobian(phi: torch.Tensor) -> torch.Tensor:
+    """SO(3) left Jacobian ``I + B w + C w^2`` with ``B = (1 - cos t)/t^2``,
+    ``C = (t - sin t)/t^3`` (series near zero)."""
+    theta2 = torch.sum(phi * phi, dim=-1)
+    small = theta2 <= _eps(phi.dtype)
+    safe_theta2 = torch.where(small, torch.ones_like(theta2), theta2)
+    safe_theta = torch.sqrt(safe_theta2)
+    B = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(safe_theta)) / safe_theta2)
+    C = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
+                    (safe_theta - torch.sin(safe_theta)) / (safe_theta2 * safe_theta))
+    W = so3_wedge(phi)
+    return _eye_like(W) + B[..., None, None] * W + C[..., None, None] * (W @ W)
+
+
 def so3_inv_left_jacobian(phi: torch.Tensor) -> torch.Tensor:
     """Inverse SO(3) left Jacobian ``I - 0.5 w + c w^2`` (singular at pi)."""
     eps = _eps(phi.dtype)
@@ -129,6 +144,40 @@ def so3_inverse(C: torch.Tensor) -> torch.Tensor:
     return C.transpose(-1, -2)
 
 
+def so3_adjoint(C: torch.Tensor) -> torch.Tensor:
+    """The SO(3) adjoint is the rotation matrix itself."""
+    return C
+
+
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion ``[..., 4] = (w, x, y, z)``, normalized first, -> rotation
+    matrix; the norm's floor is the dtype's smallest normal number, so a
+    zero quaternion gives a finite matrix in float32 too."""
+    n = torch.sum(q * q, dim=-1, keepdim=True)
+    q = q / torch.sqrt(torch.clamp(n, min=torch.finfo(q.dtype).tiny))
+    w, x, y, z = q.unbind(-1)
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)], -1),
+        torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)], -1),
+        torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)], -1),
+    ], dim=-2)
+
+
+def so3_normalize(C: torch.Tensor) -> torch.Tensor:
+    """The proper rotation nearest to ``C`` (Frobenius): ``U diag(1, 1, d)
+    V^T`` from the SVD, ``d = det(U V^T)``. For use between solves, to curb
+    the drift of the over-parameterized rotation."""
+    U, _, Vh = torch.linalg.svd(C)
+    d = torch.sign(torch.linalg.det(U @ Vh))
+    D = torch.cat([torch.ones_like(U[..., 0, :2]), d[..., None]], dim=-1)
+    return (U * D[..., None, :]) @ Vh
+
+
+def so3_retract(C: torch.Tensor, psi: torch.Tensor) -> torch.Tensor:
+    """Left-perturbation retraction ``C <- exp(psi) C``."""
+    return so3_exp(psi) @ C
+
+
 # ---------------------------------------------------------------------------
 # SE(3) — flat [t(3) | R row-major(9)] parameterization
 # ---------------------------------------------------------------------------
@@ -144,6 +193,12 @@ def se3_rot(T: torch.Tensor) -> torch.Tensor:
 
 def se3_make(t: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     return torch.cat([t, C.reshape(*C.shape[:-2], 9)], dim=-1)
+
+
+def se3_identity(batch_shape=(), dtype=torch.float64, device=None) -> torch.Tensor:
+    eye = torch.cat([torch.zeros(3, dtype=dtype, device=device),
+                     torch.eye(3, dtype=dtype, device=device).reshape(9)])
+    return eye.expand(*batch_shape, 12)
 
 
 def se3_exp(xi: torch.Tensor) -> torch.Tensor:
@@ -180,6 +235,24 @@ def se3_adjoint(T: torch.Tensor) -> torch.Tensor:
     top = torch.cat([R, so3_wedge(se3_trans(T)) @ R], dim=-1)
     bottom = torch.cat([torch.zeros_like(R), R], dim=-1)
     return torch.cat([top, bottom], dim=-2)
+
+
+def se3_matrix(T: torch.Tensor) -> torch.Tensor:
+    """Flat pose -> homogeneous ``[..., 4, 4]``."""
+    top = torch.cat([se3_rot(T), se3_trans(T)[..., :, None]], dim=-1)
+    bottom = torch.zeros((*T.shape[:-1], 1, 4), dtype=T.dtype, device=T.device)
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)
+
+
+def se3_from_matrix(M: torch.Tensor) -> torch.Tensor:
+    """Homogeneous ``[..., 4, 4]`` -> flat pose ``[..., 12]``."""
+    return se3_make(M[..., :3, 3], M[..., :3, :3])
+
+
+def se3_normalize(T: torch.Tensor) -> torch.Tensor:
+    """Project the rotation block onto SO(3) (``so3_normalize``)."""
+    return se3_make(se3_trans(T), so3_normalize(se3_rot(T)))
 
 
 def se3_wedge(xi: torch.Tensor) -> torch.Tensor:

@@ -11,10 +11,10 @@ pose at the origin (z = 0), whose residual is not finite, and eagerly
 ``NaN * 0`` is NaN (ROADMAP F9, F15). Sums by pose, landmark or pair go
 through a gather table and a reduction over a fixed axis
 (``segment_sum``), so they are bit-reproducible on the card too (F14).
-The dense solve (``solve_ba``) is for windows and small batches;
-``solver/pcg.py`` covers full-batch BA.
-``dogleg_solve`` (``strategy="dogleg"``) and the covariance helpers of the
-JAX module are not ported yet.
+The dense solve (``solve_ba``, LM or Powell's dogleg) is for windows and
+small batches; ``solver/schur.py`` eliminates the landmarks and
+``solver/pcg.py`` covers full-batch BA. The tangent covariance of a pose is
+a Cholesky solve against unit columns (``_marginal_block``).
 """
 
 from __future__ import annotations
@@ -258,8 +258,41 @@ def lm_minimize(problem: StereoBAProblem, state0: BAState, config: lm.SolveConfi
 
 
 def solve_ba(problem: StereoBAProblem, state0: BAState,
-             config: lm.SolveConfig = lm.SolveConfig()):
-    """Minimize the BA cost with Levenberg-Marquardt on the dense system
-    (``ceres::Solve`` with DENSE_SCHUR's role at window scale). Returns
-    ``(state, SolveSummary)``."""
+             config: lm.SolveConfig = lm.SolveConfig(), strategy: str = "lm"):
+    """Minimize the BA cost on the dense system (``ceres::Solve`` with
+    DENSE_SCHUR's role at window scale): ``strategy`` ``'lm'``
+    (Levenberg-Marquardt) or ``'dogleg'`` (Powell's dogleg, the reference's
+    ceres::DOGLEG). Returns ``(state, SolveSummary)``."""
+    if strategy == "dogleg":
+        return lm.dogleg_solve(state0, config, lambda s: ba_cost(problem, s),
+                               lambda s: ba_normal_equations(problem, s),
+                               lambda s, dx: _retract_state(problem, s, dx))
+    if strategy != "lm":
+        raise ValueError(f"unknown strategy: {strategy!r}")
     return lm_minimize(problem, state0, config)
+
+
+def _marginal_block(H: torch.Tensor, base: int, d: int = 6) -> torch.Tensor:
+    """``(H^-1)[base:base+d, base:base+d]`` by a Cholesky solve against the
+    ``d`` unit columns ``base..base+d-1``; all NaN when ``H`` is not
+    positive definite."""
+    E = torch.zeros((H.shape[0], d), dtype=H.dtype, device=H.device)
+    E[base:base + d] = torch.eye(d, dtype=H.dtype, device=H.device)
+    return torch.cholesky_solve(E, lm._cholesky_or_nan(H))[base:base + d]
+
+
+def solve_ba_with_covariance(problem: StereoBAProblem, state0: BAState, pose_idx: int,
+                             config: lm.SolveConfig = lm.SolveConfig()):
+    """The LM solve, then the tangent covariance of pose ``pose_idx`` at the
+    solution: ``(state, SolveSummary, cov [6, 6])``."""
+    sol, summary = lm_minimize(problem, state0, config)
+    return sol, summary, pose_tangent_covariance(problem, sol, pose_idx)
+
+
+def pose_tangent_covariance(problem: StereoBAProblem, state: BAState,
+                            pose_idx: int) -> torch.Tensor:
+    """6x6 tangent marginal covariance of one pose (Ceres'
+    ``GetCovarianceBlockInTangentSpace``): its diagonal block of ``H^-1``,
+    ``H`` the gauge-masked Gauss-Newton Hessian at ``state``."""
+    H, _ = ba_normal_equations(problem, state)
+    return _marginal_block(H, 6 * int(pose_idx))

@@ -1,7 +1,7 @@
 """Levenberg-Marquardt trust-region loop, its configuration and report.
 
 Port of ``ceres_slam_tpu/solver/lm.py`` (``SolveConfig``, ``SolveSummary``,
-``lm_solve``, ``dense_cholesky_step``). The JAX loop is a
+``lm_solve``, ``dogleg_solve``, ``dense_cholesky_step``). The JAX loops are a
 ``lax.while_loop`` on the device; here it is a Python loop whose
 trust-region control (accept test, damping, termination) runs on the host
 in float64 on a few scalars read from the device: one read per iteration,
@@ -9,8 +9,6 @@ plus one for the initial cost. The window solver's block-carrying loops
 (``solver/window.py``, ``solver/dogleg.py``) follow the same rules.
 ``record_history`` keeps the per-iteration cost, damping, gradient norm
 and accept decision on the host (``utils/telemetry.full_report``).
-
-Not ported yet: ``dogleg_solve``.
 """
 
 from __future__ import annotations
@@ -146,6 +144,61 @@ def _cholesky_or_nan(A: torch.Tensor) -> torch.Tensor:
     factorization becomes a rejected step without a host synchronization."""
     L, info = torch.linalg.cholesky_ex(A)
     return torch.where((info == 0)[..., None, None], L, torch.full_like(L, math.nan))
+
+
+def dogleg_solve(state0, config: SolveConfig, cost_fn: Callable, normal_eq_fn: Callable,
+                 retract_fn: Callable, init_radius: float = 1e4):
+    """Powell's dogleg trust-region minimizer over a dense system (Ceres'
+    DOGLEG): the Gauss-Newton step of ``(H + 1e-10 I) dx = -g`` (``-g``
+    where that step is not finite), the Cauchy step ``-(g.g / g.H g) g``,
+    and their blend on the trust radius, which grows past rho 0.75 and
+    shrinks below 0.25 or on a rejected step, clipped to [1e-12, 1e12].
+    ``normal_eq_fn(state)`` returns the dense ``(H, g)``. Returns ``(state,
+    SolveSummary)`` with the final radius in ``final_lambda``; the step is
+    chosen on the device and the control reads four scalars per
+    iteration."""
+    cost0 = cost = float(cost_fn(state0))
+    state, radius, grad_norm, it = state0, float(init_radius), math.inf, 0
+    f64 = torch.float64
+    while it < config.max_iters:
+        H, g = normal_eq_fn(state)
+        eye = torch.eye(H.shape[0], dtype=H.dtype, device=H.device)
+        dx_gn = torch.cholesky_solve(-g[:, None], _cholesky_or_nan(H + 1e-10 * eye))[:, 0]
+        dx_gn = torch.where(torch.all(torch.isfinite(dx_gn)), dx_gn, -g)
+        alpha = (g @ g) / torch.clamp(g @ (H @ g), min=1e-30)
+        dx_sd = -alpha * g
+        n_gn, n_sd = torch.linalg.norm(dx_gn), torch.linalg.norm(dx_sd)
+        d = dx_gn - dx_sd
+        a, b = d @ d, 2.0 * (dx_sd @ d)
+        cc = dx_sd @ dx_sd - radius ** 2
+        beta = (-b + torch.sqrt(torch.clamp(b * b - 4 * a * cc, min=0.0))) / torch.clamp(
+            2 * a, min=1e-30)
+        blend = dx_sd + torch.clamp(beta, 0.0, 1.0) * d
+        dx = torch.where(n_gn <= radius, dx_gn, torch.where(
+            n_sd >= radius, dx_sd * (radius / torch.clamp(n_sd, min=1e-30)), blend))
+        new_state = retract_fn(state, dx)
+        pred_t = -(g @ dx + 0.5 * dx @ (H @ dx))
+        grad_norm, new_cost, pred, n_dx = torch.stack(
+            [x.to(f64) for x in (g.abs().max(), cost_fn(new_state), pred_t,
+                                 torch.linalg.norm(dx))]).tolist()
+
+        actual = cost - new_cost
+        rho = actual / max(pred, 1e-30)
+        accept = math.isfinite(new_cost) and actual > 0.0
+        if not accept:
+            radius *= 0.25
+        elif rho > 0.75:
+            radius = max(radius, 3.0 * n_dx)
+        elif rho < 0.25:
+            radius *= 0.5
+        radius = min(max(radius, 1e-12), 1e12)
+        small = accept and actual <= config.ftol * max(cost, 1e-30)
+        if accept:
+            state, cost = new_state, new_cost
+        it += 1
+        if small or grad_norm <= config.gtol or radius <= 1e-11:
+            break
+    return state, SolveSummary(it, cost0, cost, grad_norm, radius)
 
 
 def dense_cholesky_step(normal_eq_fn: Callable):

@@ -1,13 +1,13 @@
-"""Solver reports and a wall-clock section timer.
+"""Solver reports, a device trace and a wall-clock section timer.
 
-A copy of ``ceres_slam_tpu/utils/telemetry.py`` (``brief_report``,
-``full_report``, ``Stopwatch``), kept in the port because importing
-anything under ``ceres_slam_tpu`` imports JAX. The reference's only
-performance signal is Ceres' BriefReport per window; the LM loops record
-the per-iteration history when ``SolveConfig.record_history`` is set, and
-``full_report`` prints it. The JAX module's ``trace`` (a ``jax.profiler``
-context) is not copied: its port, a ``torch.profiler`` context, is ROADMAP
-item 16.
+Port of ``ceres_slam_tpu/utils/telemetry.py`` (``brief_report``,
+``full_report``, ``trace``, ``Stopwatch``), kept in the port because
+importing anything under ``ceres_slam_tpu`` imports JAX. The reference's
+only performance signal is Ceres' BriefReport per window; the LM loops
+record the per-iteration history when ``SolveConfig.record_history`` is
+set, and ``full_report`` prints it. ``trace`` records a ``torch.profiler``
+trace (the host and, where there is a card, the device) in place of the
+JAX module's ``jax.profiler`` one.
 """
 
 from __future__ import annotations
@@ -45,6 +45,28 @@ def full_report(summary) -> str:
                 f"{'yes' if ah[i] else 'no'}"
             )
     return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None = None):
+    """Record a ``torch.profiler`` trace around a code block and write it
+    as a Chrome trace (``trace.json``, viewable in Perfetto) into
+    ``log_dir``, by default ``ceres_slam_tpu_torch_trace`` in the temporary
+    directory. Yields ``log_dir``."""
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    log_dir = log_dir or os.path.join(tempfile.gettempdir(), "ceres_slam_tpu_torch_trace")
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield log_dir
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 class Stopwatch:

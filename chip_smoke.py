@@ -34,12 +34,16 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            runs both CLIs on CUDA: the flagship sliding window (dataset_vo_sun,
            triangle200 float64 and float32, kitti1100 float64; K1 launch
            counts and ATE against the JAX figures; triangle200 float64 twice,
-           which must write byte-identical *_poses.csv, and kitti1100's sun
-           pass alone twice, whose bytes are reported, not gated) and
+           which must write byte-identical *_poses.csv) and
            full-batch BA
            (dataset_vo --window 0, the same three runs; K2 and K3 launch
            counts, final cost and ATE against the JAX figures), plus one
-           banded-preconditioner solve of the triangle200 full problem
+           banded-preconditioner solve of the triangle200 full problem, and
+           a checkpoint resume: the triangle200 float64 sun pass
+           (--sun-only --checkpoint PATH --checkpoint-every 25) killed in a
+           child process once its checkpoint holds window 100 or later,
+           then run again, resuming, which must write the uninterrupted
+           run's *_poses.csv byte for byte (K1 launches in the resumed part)
   dense    dense photometric alignment through the dense_stereo CLI at
            240x320 (68,096 aligned pixels), float64: rendered disparities
            (--gt-disparity) against the JAX figures, the full chain (SGM,
@@ -55,10 +59,30 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            solver), phong60 --dirlight (directional light) and phong30
            --window 5, each stage's final cost and the ATE against the JAX
            figures; LM iterations/s with the card's name and power limit
+  graph    the FactorGraph API (solver/graph.py) in float64: triangle200
+           built from the VO initial guess (every state a pose, pose 0
+           fixed; every initialized landmark a point; every observation a
+           factor with the sim's covariance, added landmark by landmark),
+           solved with dense, schur, pcg (K2 and K3 through the full-batch
+           plan of that row order) and dense + dogleg, the final costs
+           against each other and the JAX figures, covariance(1) against
+           the CPU's; kitti1100 (N 124,480, J 16,640) with pcg against the
+           JAX figure, K2's and K3's launches printed
+  blowup   the covariance blow-up experiment (apps/blowup.py) at the
+           reference's 1,000 poses on the card: the max relative deviation
+           from the closed form against the JAX figure, the wall, solves/s
+  live_vo  live stereo VO (apps/stereo_vo.py): 100 frames rendered by the
+           port at 319x1056 with KITTI's sequence-00 camera scaled by 0.85
+           (the JAX package does not track at 375x1242: its Harris
+           response threshold finds ~10-20 corners on the rendered wall),
+           written as .npy files and run through the CLI's glob mode; ATE
+           against the JAX figure, frames/s, median corners and matches;
+           then 10 frames at 375x1242 with the camera unscaled, counts only
   cpu      triangle200 float64 once more on the CPU, through both BA CLIs
            (poses must equal the CUDA runs' to 1e-6; all runs draw the same
            RANSAC hypotheses: seed 42 + pair, the threefry draw is integer
-           arithmetic, the same bits on either device), and the dense
+           arithmetic, the same bits on either device), FactorGraph(pcg)
+           at triangle200 (poses equal the card's to 1e-6), and the dense
            --gt-disparity run (pose equal to the CUDA run's to 1e-8)
   profile  torch.profiler, last, so that no profiler session precedes a
            timed run: the device time per call (the sum of its kernels) of
@@ -66,14 +90,16 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            with the share of its bound, failing unless K1 runs one device
            kernel per call and K2 and K3 two; for K2 and K3 each kernel's
            (phase's) time and the device time per call of calls back to
-           back, the gaps between kernels included; K4's device time on the path's own
+           back, the gaps between kernels included; torch.mul(x, 2)'s device time
+           beside P's; K4's device time on the path's own
            coordinates (the 240x320 problem's projections, float64 and
            float32); kitti1100's full problem (float64): one
            build_obs_blocks and one CG iteration (device time, kernels,
            launches, syncs, copies); a trace of one photometric rate
            solve (device busy share, launches per LM iteration); and, after
            the phong phase, a trace of 5 LM iterations of phong200's joint
-           stage (float64, vertex-Schur). It runs whenever the kernels phase
+           stage (float64, vertex-Schur), and after the blowup phase a trace
+           of 10 blow-up solves. It runs whenever the kernels phase
            runs with no main-path phase (slice, dense, phong) after it.
 
 Any failure exits non-zero before the result line. The last line of
@@ -102,7 +128,8 @@ sys.modules["jax"] = None
 sys.modules["ceres_slam_tpu"] = None
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "slice", "dense", "phong", "cpu", "profile")
+PHASES = ("device", "build", "kernels", "slice", "dense", "phong", "graph", "blowup", "live_vo",
+          "cpu", "profile")
 
 # JAX package reference ATEs [m] (f64, --window 2, gtsun10 obs file), and
 # the relative bound each run is held to: the 1,100-window chain gets a
@@ -193,6 +220,40 @@ JAX_PHONG = {
 PHONG_BOUNDS = {"phong200 float64": (1e-6, 1e-4), "phong200 float32": (1e-4, 1e-3),
                 "phong60 dirlight": (1e-6, 1e-4), "phong30 window5": (1e-5, 1e-3)}
 PHONG_WINDOWS = 26
+
+# JAX package reference figures of the FactorGraph API (solver/graph.py,
+# float64, on a CPU; tests/test_torch_graph.py's __main__ records them):
+# LM (or dogleg) iterations and final cost per (linear solver, strategy),
+# on the graph of DatasetProblem.factor_graph over the sims' VO initial
+# guess. The bounds: the four triangle200 solves reach one minimum (the
+# port on the CPU lands within 2e-15 of these costs), so rtol 1e-6 among
+# them and against JAX; kitti1100's pcg (113,724 factors) stops at the
+# graph's 100-iteration budget short of its minimum, where the order of
+# the sums moves the path: 2%, as the full-batch run's bound.
+JAX_GRAPH = {
+    "triangle200": {("dense", "lm"): (6, 18365.436329814453), ("schur", "lm"): (6, 18365.43632981447),
+                    ("pcg", "lm"): (7, 18365.436329814194),
+                    ("dense", "dogleg"): (6, 18365.436329814238)},
+    "kitti1100": {("pcg", "lm"): (100, 2234982.291090859)},
+}
+GRAPH_RTOL = {"triangle200": 1e-6, "kitti1100": 0.02}
+GRAPH_COV_RTOL = 1e-9
+
+# The JAX app's max relative deviation of the solver's covariance from the
+# closed form over the 1,000-pose blow-up chain (float64, on a CPU;
+# tests/test_torch_pose_graph.py's __main__); the port's is held to it
+# within 1e-6 absolute.
+JAX_BLOWUP_DEV, BLOWUP_ATOL = 1.1907235439453968e-09, 1e-6
+
+# Live VO: the size and camera of the run, and the JAX app's ATE [m] on the
+# same 100 rendered frames (float64, on a CPU; tests/test_torch_stereo_vo.py's
+# __main__), held to 10%. KITTI's sequence-00 camera is scaled by 0.85 with
+# the image: at 375x1242 the JAX package finds too few corners on the
+# rendered wall to track, at 0.85 every frame keeps more than 30 matches.
+LIVE_VO_SHAPE = (319, 1056)
+LIVE_VO_CAMERA = (611.0276, 611.0276, 516.11388, 157.433345, 0.5372)
+KITTI_CAMERA = (718.856, 718.856, 607.1928, 185.2157, 0.5372)
+JAX_LIVE_VO_ATE, LIVE_VO_RTOL = 0.9849833301897621, 0.10
 
 
 def fail(msg: str):
@@ -609,6 +670,7 @@ def _kernel_p(torch, P, results, jobs):
                                       "library_ms": library_ms}
     jobs.append(("P 2x512 f32 (4 blocks)", lambda: P.double_kernel(x), results[("P", "2x512", "f32")]))
     jobs.append(("P 2x512 f32 (1 block)", lambda: P.double_kernel(x, one_block=True), None))
+    jobs.append(("P 2x512 f32 torch.mul(x, 2)", lambda: torch.mul(x, 2), None))
     log(f"[kernels] P [2, 512] f32: kernel {ms * 1e3:.1f} us (1 block {one_ms * 1e3:.1f} us), "
         f"plain {plain_ms * 1e3:.1f} us, torch.mul {library_ms * 1e3:.1f} us, "
         f"{_bound_str(results[('P', '2x512', 'f32')])}; host {eager_us:.2f} us per launch eager, "
@@ -665,7 +727,7 @@ def phase_kernels(torch, kernels):
     return results, jobs, _p_path(torch, kernels["P"])
 
 
-def phase_profile(torch, jobs, dense: bool, phong: bool, data):
+def phase_profile(torch, jobs, dense: bool, phong: bool, data, blowup: bool = False):
     """torch.profiler measurements, run last so that no profiler session
     precedes the timed main-path runs: each kernel call's device time and
     kernels per call (K1 must run one, K2 and K3 two), K4 on the path's own
@@ -711,6 +773,14 @@ def phase_profile(torch, jobs, dense: bool, phong: bool, data):
         _profile_solve(torch, lambda: photometric.solve_photometric(problem, state0, cfg))
     if phong:
         _profile_phong(torch, data)
+    if blowup:
+        from ceres_slam_tpu_torch.apps import blowup as blowup_app
+
+        t = _trace(torch, lambda: blowup_app.run(11, verbose=False, device="cuda"))
+        log(f"[profile] blowup, 10 solves, per solve: wall {t['wall_us'] / 1e4:.2f} ms (profiled), "
+            f"device busy {t['device_us'] / 1e4:.3f} ms ({100 * t['device_us'] / t['wall_us']:.2f}%), "
+            f"{t['kernels'] / 10:g} device kernels, {t['launches'] / 10:g} launches, "
+            f"{t['syncs'] / 10:g} syncs, {t['copies'] / 10:g} copies")
 
 
 def _profile_phong(torch, data):
@@ -740,8 +810,11 @@ def _profile_phong(torch, data):
 
 
 def _make_sims(data):
+    """triangle200 and kitti1100 (once per run of the script)."""
     from ceres_slam_tpu_torch.apps import make_sim
 
+    if os.path.exists(os.path.join(data, "kitti1100.csv")):
+        return
     t0 = time.perf_counter()
     make_sim.main([data, "--kind", "triangle", "--num-states", "200", "--sun-noise", "10"])
     make_sim.main([data, "--kind", "kitti", "--num-states", "1100", "--sun-noise", "10"])
@@ -799,18 +872,17 @@ def _run_full(data, seq, dtype, device, kernels):
     return stats, launches, poses, metrics.ate_translation(poses, gt)
 
 
-def _repeat_bytes(data, seq, dtype, kernels, stats, gate: bool, extra=()):
+def _repeat_bytes(data, seq, dtype, kernels, stats):
     """Run the flagship CLI again (ROADMAP F14: every sum on the card in a
-    fixed order) and compare its *_poses.csv with the first run's bytes;
-    fails on a difference when ``gate``. Returns the rerun's K1 launches."""
+    fixed order) and fail unless its *_poses.csv equal the first run's
+    bytes. Returns the rerun's K1 launches."""
     first = {name: open(p["output"], "rb").read() for name, p in stats["passes"].items()}
-    again, launches, _, _ = _run_cli(data, seq, dtype, "cuda", kernels["K1"], extra)
+    again, launches, _, _ = _run_cli(data, seq, dtype, "cuda", kernels["K1"])
     for name, p in again["passes"].items():
         same = open(p["output"], "rb").read() == first[name]
         log(f"[slice] {seq} {dtype} {name}: a second run writes "
-            f"{'byte-identical' if same else 'DIFFERENT'} {os.path.basename(p['output'])}"
-            f"{'' if gate else ' (reported, not gated)'}")
-        if gate and not same:
+            f"{'byte-identical' if same else 'DIFFERENT'} {os.path.basename(p['output'])}")
+        if not same:
             fail(f"{seq} {dtype} {name}: two runs wrote different poses")
     return launches
 
@@ -839,14 +911,7 @@ def _slice_window(data, kernels):
                 f"({p['windows_per_s']:.1f} windows/s), {p['mean_iters']:.2f} iterations/window")
         if (seq, dtype) == ("triangle200", "float64"):
             keep = poses
-            total_launches += _repeat_bytes(data, seq, dtype, kernels, stats, gate=True)
-        if seq == "kitti1100":
-            # the sun pass alone, twice (after a VO pass it starts from
-            # that pass's state, so it is compared with itself)
-            sun_only = ("--sun-only",)
-            stats, launches, _, _ = _run_cli(data, seq, dtype, "cuda", kernels["K1"], sun_only)
-            total_launches += launches + _repeat_bytes(data, seq, dtype, kernels, stats,
-                                                       gate=False, extra=sun_only)
+            total_launches += _repeat_bytes(data, seq, dtype, kernels, stats)
     return total_launches, keep
 
 
@@ -916,12 +981,201 @@ def _banded_full(data, kernels, jacobi_cost):
         fail("the banded-preconditioner solve disagrees with the block-Jacobi one")
 
 
+def _checkpoint_resume(data, window_kernel):
+    """The triangle200 float64 sun pass with --checkpoint: uninterrupted
+    once, then killed in a child process once its checkpoint holds window
+    100 or later, and run again, resuming; the resumed run must write the
+    uninterrupted run's *_poses.csv byte for byte. Returns K1's launches
+    in the two runs of this process."""
+    from ceres_slam_tpu_torch.utils import checkpoint
+
+    base = os.path.join(data, "triangle200")
+    path = os.path.join(data, "ckpt", "triangle200")
+    argv = [base + ".csv", base + "_sun_ref.csv", base + "_sun_dir_gtsun10.csv", "--window", "2",
+            "--dtype", "float64", "--device", "cuda", "--sun-only"]
+    stats, launches, _, _ = _run_cli(data, "triangle200", "float64", "cuda", window_kernel,
+                                     ("--sun-only",))
+    out = stats["passes"]["sun"]["output"]
+    first = open(out, "rb").read()
+    os.unlink(out)
+    cmd = [sys.executable, "-m", "ceres_slam_tpu_torch.apps.dataset_vo_sun", *argv,
+           "--checkpoint", path, "--checkpoint-every", "25"]
+    t0 = time.perf_counter()
+    child = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    step = None
+    try:
+        while child.poll() is None and time.perf_counter() - t0 < 300:
+            restored = checkpoint.load(path + ".sun")
+            if restored is not None and restored[0] >= 100:
+                step = restored[0]
+                break
+            time.sleep(0.05)
+    finally:
+        child.kill()
+        child.wait()
+    if step is None:
+        fail(f"checkpoint resume: the child exited ({child.returncode}) or timed out before its "
+             "checkpoint held window 100")
+    from ceres_slam_tpu_torch.apps import dataset_vo_sun
+
+    window_kernel.window_factor_blocks.launches = 0
+    resumed = dataset_vo_sun.main(argv + ["--checkpoint", path, "--checkpoint-every", "25"])
+    k1 = window_kernel.window_factor_blocks.launches
+    windows = resumed["passes"]["sun"]["windows"]
+    same = open(out, "rb").read() == first
+    log(f"[slice] checkpoint resume (triangle200 float64 sun pass): killed at checkpoint "
+        f"{step} after {time.perf_counter() - t0:.2f} s, resumed {windows} windows (K1 "
+        f"launches {k1}) in {resumed['passes']['sun']['wall_s']:.2f} s; "
+        f"{'byte-identical' if same else 'DIFFERENT'} {os.path.basename(out)}")
+    if not same or not 0 < windows <= 199 - step or not k1 or os.path.exists(path + ".sun"):
+        fail("the resumed pass differs from the uninterrupted one, or did not resume")
+    return launches + k1
+
+
 def phase_slice(kernels, data):
     _make_sims(data)
     k1_launches, window_poses = _slice_window(data, kernels)
+    k1_launches += _checkpoint_resume(data, kernels["K1"])
     full_launches, (full_poses, jacobi_cost) = _slice_full(data, kernels)
     _banded_full(data, kernels, jacobi_cost)
     return {"K1": k1_launches, **full_launches}, window_poses, full_poses
+
+
+def _graph_dataset(data, seq, device):
+    """The sim's dataset after the VO initial guess (the graph's inputs)."""
+    from ceres_slam_tpu_torch.problems.dataset import DatasetProblemSun
+
+    base = os.path.join(data, seq)
+    ds = DatasetProblemSun.read_csv(base + ".csv", base + "_sun_ref.csv",
+                                    base + "_sun_dir_gtsun10.csv")
+    ds.device = device
+    ds.compute_initial_guess()
+    return ds
+
+
+def _graph_solve(ds, linear_solver, strategy, device, kernels):
+    """One FactorGraph solve with K2's and K3's launches counted from 0."""
+    import torch
+
+    k2, k3 = kernels["K2"].stereo_factor_sums, kernels["K3"].schur_uy
+    g = ds.factor_graph(device)
+    k2.launches = k3.launches = 0
+    t0 = time.perf_counter()
+    _, summ = g.solve(linear_solver=linear_solver, strategy=strategy)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return g, summ, time.perf_counter() - t0, {"K2": k2.launches, "K3": k3.launches}
+
+
+def phase_graph(kernels, data):
+    """FactorGraph on the card; returns K2's and K3's launches, and the
+    triangle200 pcg solve's poses."""
+    import numpy as np
+
+    _make_sims(data)
+    total, keep = {"K2": 0, "K3": 0}, None
+    for seq in JAX_GRAPH:
+        t0 = time.perf_counter()
+        ds = _graph_dataset(data, seq, "cuda")
+        log(f"[graph] {seq}: VO initial guess {time.perf_counter() - t0:.2f} s")
+        costs = []
+        for (linear_solver, strategy), (ref_it, ref_cost) in JAX_GRAPH[seq].items():
+            g, summ, wall, launches = _graph_solve(ds, linear_solver, strategy, "cuda", kernels)
+            for name in total:
+                total[name] += launches[name]
+            dev = abs(summ.final_cost - ref_cost) / ref_cost
+            costs.append(summ.final_cost)
+            log(f"[graph] {seq} {linear_solver} {strategy}: {len(g._stereo)} factors, "
+                f"{summ.iterations} iterations (JAX {ref_it}), {summ.linear_iterations} CG "
+                f"iterations, cost {summ.initial_cost:.9e} -> {summ.final_cost:.9e} (JAX "
+                f"{ref_cost:.9e}, {dev:.2e} relative, bound {GRAPH_RTOL[seq]:g}), solve "
+                f"{wall:.3f} s; launches K2 {launches['K2']}, K3 {launches['K3']}")
+            poses = np.stack(g._poses)
+            if not np.all(np.isfinite(poses)) or dev > GRAPH_RTOL[seq]:
+                fail(f"{seq} {linear_solver} {strategy}: cost {summ.final_cost:.9e} vs JAX "
+                     f"{ref_cost:.9e}")
+            if linear_solver == "pcg":
+                if not (launches["K2"] >= summ.iterations > 0
+                        and launches["K3"] >= summ.linear_iterations > 0):
+                    fail(f"{seq} FactorGraph(pcg): {launches} launches for {summ.iterations} LM "
+                         f"and {summ.linear_iterations} CG iterations")
+                if seq == "triangle200":
+                    keep = poses
+            if (seq, linear_solver, strategy) == ("triangle200", "dense", "lm"):
+                cov = g.covariance(1)
+                cpu, _, cpu_wall, _ = _graph_solve(_graph_dataset(data, seq, "cpu"), "dense", "lm",
+                                                   "cpu", kernels)
+                ref = cpu.covariance(1)
+                d = float(np.abs(cov - ref).max() / np.abs(ref).max())
+                log(f"[graph] triangle200 covariance(1): {d:.2e} relative from the CPU's "
+                    f"(bound {GRAPH_COV_RTOL:g}; the CPU solve {cpu_wall:.2f} s)")
+                if not d <= GRAPH_COV_RTOL:
+                    fail(f"triangle200 covariance(1) differs from the CPU's by {d:.2e}")
+        spread = (max(costs) - min(costs)) / min(costs)
+        if spread > GRAPH_RTOL[seq]:
+            fail(f"{seq}: the solvers' final costs spread {spread:.2e}")
+    return total, keep
+
+
+def phase_blowup(smi):
+    """apps/blowup.py at the reference's 1,000 poses on the card."""
+    import numpy as np
+    import torch
+
+    from ceres_slam_tpu_torch.apps import blowup
+
+    t0 = time.perf_counter()
+    covs, _, rel_err = blowup.run(1000, verbose=False, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dev = float(rel_err.max())
+    log(f"[blowup] 1000 poses on {smi}: max relative deviation from the closed form {dev:.3e} "
+        f"(JAX {JAX_BLOWUP_DEV:.3e}, bound +-{BLOWUP_ATOL:g}); {len(covs)} solves in {wall:.3f} s "
+        f"= {len(covs) / wall:.1f} solves/s; trace of the last covariance "
+        f"{np.trace(covs[-1]):.6e}")
+    if not (np.all(np.isfinite(covs)) and abs(dev - JAX_BLOWUP_DEV) <= BLOWUP_ATOL):
+        fail(f"blowup: max relative deviation {dev:.3e} vs JAX {JAX_BLOWUP_DEV:.3e}")
+
+
+
+def phase_live_vo(data, smi):
+    """100 rendered frames through the stereo_vo CLI's glob mode on the
+    card; then 10 frames at KITTI's full size, counts only."""
+    import numpy as np
+
+    from ceres_slam_tpu_torch.apps import stereo_vo
+    from ceres_slam_tpu_torch.models.stereo_camera import StereoCamera
+    from ceres_slam_tpu_torch.utils import csvio, metrics
+
+    for shape, cam, n in ((LIVE_VO_SHAPE, LIVE_VO_CAMERA, 100), ((375, 1242), KITTI_CAMERA, 10)):
+        t0 = time.perf_counter()
+        frames, gt = stereo_vo._render_synthetic(StereoCamera.create(*cam), n, shape=shape,
+                                                 device="cuda")
+        d = os.path.join(data, f"live_vo_{shape[0]}x{shape[1]}")
+        os.makedirs(d)
+        for i, (left, right) in enumerate(frames):
+            np.save(os.path.join(d, f"{i:03d}_left.npy"), left.cpu().numpy())
+            np.save(os.path.join(d, f"{i:03d}_right.npy"), right.cpu().numpy())
+        render_s = time.perf_counter() - t0
+        intrinsics = [f"--{k}={v!r}" for k, v in zip(("fu", "fv", "cu", "cv", "baseline"), cam)]
+        stats = stereo_vo.main(["--left-glob", os.path.join(d, "*_left.npy"), "--right-glob",
+                                os.path.join(d, "*_right.npy"), "--out", os.path.join(d, "vo"),
+                                *intrinsics, "--device", "cuda"])
+        poses = csvio.read_poses_csv(stats["poses"])
+        ate = metrics.ate_translation(poses, gt)
+        log(f"[live_vo] {shape[0]}x{shape[1]} on {smi}: {stats['frames']} frames in "
+            f"{stats['wall_s']:.3f} s = {stats['frames_per_s']:.2f} frames/s (files read "
+            f"included; render and write {render_s:.2f} s); median per frame: "
+            f"{stats['median_corners']:g} valid corners, {stats['median_stereo_matches']:g} "
+            f"stereo matches, {stats['median_temporal_matches']:g} temporal matches; ATE "
+            f"{ate:.6f} m")
+        if shape != LIVE_VO_SHAPE:
+            continue
+        dev = abs(ate - JAX_LIVE_VO_ATE) / JAX_LIVE_VO_ATE
+        log(f"[live_vo] ATE {ate:.6f} m against JAX's {JAX_LIVE_VO_ATE:.6f} m: {100 * dev:.3f}% "
+            f"off (bound {100 * LIVE_VO_RTOL:g}%)")
+        if poses.shape != (n, 12) or not np.all(np.isfinite(poses)) or dev > LIVE_VO_RTOL:
+            fail(f"live VO: ATE {ate:.6f} vs JAX {JAX_LIVE_VO_ATE:.6f}")
 
 
 def _make_phong_sims(data):
@@ -1112,8 +1366,18 @@ def phase_dense(kernels, data):
     return total, gt["T"]
 
 
-def phase_cpu(kernels, data, window_poses, full_poses, dense_pose):
+def phase_cpu(kernels, data, window_poses, full_poses, dense_pose, graph_poses):
     import numpy as np
+
+    if graph_poses is not None:
+        g, summ, wall, launches = _graph_solve(_graph_dataset(data, "triangle200", "cpu"), "pcg",
+                                               "lm", "cpu", kernels)
+        d = float(np.max(np.abs(np.stack(g._poses) - graph_poses)))
+        log(f"[cpu] triangle200 FactorGraph(pcg): max |pose(cpu) - pose(cuda)| = {d:.3e} "
+            f"({summ.iterations} LM, {summ.linear_iterations} CG iterations, {wall:.2f} s on the "
+            "CPU)")
+        if any(launches.values()) or not d <= 1e-6:
+            fail(f"CPU FactorGraph(pcg): launches {launches}, poses differ by {d:.3e}")
 
     if dense_pose is not None:
         stats = _run_dense("--gt-disparity", DENSE_ARGS + ["--gt-disparity"], "cpu",
@@ -1170,7 +1434,8 @@ def main():
                     help="comma-separated subset of " + ",".join(PHASES))
     cli = ap.parse_args()
     phases = cli.phases.split(",")
-    if not set(phases) <= set(PHASES) or ("cpu" in phases and not {"slice", "dense"} & set(phases)):
+    if not set(phases) <= set(PHASES) or ("cpu" in phases
+                                          and not {"slice", "dense", "graph"} & set(phases)):
         fail(f"bad --phases {phases}")
 
     import torch
@@ -1193,7 +1458,7 @@ def main():
     k, jobs = {}, []
     if "kernels" in phases:
         k, jobs, launches["P"] = phase_kernels(torch, kernels)
-    window_poses = full_poses = dense_pose = None
+    window_poses = full_poses = dense_pose = graph_poses = None
     data = os.path.join(ROOT, "build", "chip_smoke_data")
     shutil.rmtree(data, ignore_errors=True)
     os.makedirs(data)
@@ -1204,11 +1469,20 @@ def main():
         launches["K4"], dense_pose = phase_dense(kernels, data)
     if "phong" in phases:
         phase_phong(data, smi)
+    if "graph" in phases:
+        graph_launches, graph_poses = phase_graph(kernels, data)
+        for name, n in graph_launches.items():
+            launches[name] += n
+    if "blowup" in phases:
+        phase_blowup(smi)
+    if "live_vo" in phases:
+        phase_live_vo(data, smi)
     if "cpu" in phases:
-        phase_cpu(kernels, data, window_poses, full_poses, dense_pose)
+        phase_cpu(kernels, data, window_poses, full_poses, dense_pose, graph_poses)
     if "profile" in phases or ("kernels" in phases
                                and not {"slice", "dense", "phong"} & set(phases)):
-        phase_profile(torch, jobs, "dense" in phases, "phong" in phases, data)
+        phase_profile(torch, jobs, "dense" in phases, "phong" in phases, data,
+                      "blowup" in phases)
     nan = {"max_abs_err": math.nan, "ms": math.nan, "plain_ms": math.nan, "bound_ms": math.nan,
            "bound_by": None, "library_ms": None}
     log(json.dumps({"kernels": [{

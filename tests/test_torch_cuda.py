@@ -14,6 +14,7 @@ cost. K2's, K3's and K4's are stated above their tests. K2 and K3 run on
 the full-batch plan (``ops/full_batch_plan.py``).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -395,3 +396,149 @@ def test_phong_schur_step_is_bit_reproducible(tmp_path):
     cpu_problem, cpu_state = _phong_problem(tmp_path, "cpu")
     dx = phong_schur.phong_schur_step(cpu_problem, True, False, False)(cpu_state, 1e-3)[0]
     assert (a[0].cpu() - dx).abs().max() <= 1e-9 * dx.abs().max()
+
+
+# The pose-graph, FactorGraph and checkpoint slice on the card.
+
+
+def _stereo_graph(device, seed=4):
+    """A FactorGraph on ``device``: 4 poses (pose 0 fixed), 24 landmarks,
+    landmark 0 seen 40 times from every pose (160 slots, beyond K3's
+    128-slot groups), rows shuffled; numpy from a seeded generator."""
+    from ceres_slam_tpu_torch.models.stereo_camera import StereoCamera
+    from ceres_slam_tpu_torch.ops import lie
+    from ceres_slam_tpu_torch.solver.graph import FactorGraph
+
+    rng = np.random.default_rng(seed)
+    cam = StereoCamera.create(500.0, 500.0, 320.0, 240.0, 0.5)
+    xi = np.zeros((4, 6))
+    xi[1:] = rng.normal(0, 0.1, (3, 6)) + np.array([0.1, 0.0, -0.4, 0.0, 0.0, 0.0])
+    T = lie.se3_exp(torch.as_tensor(xi))
+    pts = rng.uniform([-4, -3, 5], [4, 3, 14], (24, 3))
+    obs = []
+    for k in range(4):
+        uvd = cam.project(lie.se3_transform_point(T[k], torch.as_tensor(pts))).numpy()
+        for j in range(24):
+            obs += [(k, j, uvd[j] + rng.normal(0, 0.2, 3)) for _ in range(40 if j == 0 else 1)]
+    g = FactorGraph(cam, default_stereo_var=(0.04,) * 3, device=device)
+    T0 = lie.se3_retract(T, torch.as_tensor(np.where(np.arange(4)[:, None] == 0, 0.0, 0.03)
+                                            * np.ones((4, 6)))).numpy()
+    for k in range(4):
+        g.add_pose(T0[k], fixed=k == 0)
+    for p in pts + rng.normal(0, 0.2, pts.shape):
+        g.add_point(p)
+    for i in rng.permutation(len(obs)):
+        g.add_stereo_obs(*obs[i])
+    return g
+
+
+@pytest.mark.cuda
+def test_factor_graph_pcg_on_the_card_runs_k2_and_k3():
+    """FactorGraph(pcg) on CUDA builds the full-batch plan of rows in
+    insertion order and launches K2 once per LM iteration and K3 once per
+    CG iteration; the solution equals the CPU's (cost rtol 1e-9, poses
+    1e-8: float64, sums in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    k2, k3 = stereo_factor_kernel.stereo_factor_sums, schur_kernel.schur_uy
+    g = _stereo_graph("cuda")
+    n2, n3 = k2.launches, k3.launches
+    _, summ = g.solve(linear_solver="pcg")
+    assert k2.launches - n2 >= summ.iterations > 0
+    assert k3.launches - n3 >= summ.linear_iterations > 0
+    c = _stereo_graph("cpu")
+    _, csumm = c.solve(linear_solver="pcg")
+    assert summ.iterations == csumm.iterations
+    assert abs(summ.final_cost - csumm.final_cost) <= 1e-9 * csumm.final_cost
+    for k in range(4):
+        assert np.abs(g.pose(k) - c.pose(k)).max() <= 1e-8
+
+
+@pytest.mark.cuda
+def test_pose_graph_and_schur_steps_are_bit_reproducible():
+    """Two pose-graph normal-equation builds (a repeated edge, a reversed
+    pair) and two Schur steps give the same bits on the card (F14)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ceres_slam_tpu_torch.ops import lie
+    from ceres_slam_tpu_torch.solver import pose_graph, schur
+
+    rng = np.random.default_rng(5)
+    K = 8
+    poses = lie.se3_exp(torch.as_tensor(rng.normal(0, 0.3, (K, 6)))).cuda()
+    edges = [(k, k + 1) for k in range(K - 1)] + [(1, 2), (2, 1), (3, 5), (3, 5)]
+    i1 = torch.tensor([e[0] for e in edges]).cuda()
+    i2 = torch.tensor([e[1] for e in edges]).cuda()
+    n = len(edges)
+    meas = lie.se3_retract(lie.se3_compose(poses[i2], lie.se3_inverse(poses[i1])),
+                           torch.as_tensor(rng.normal(0, 0.02, (n, 6))).cuda())
+    eye6 = torch.eye(6, dtype=torch.float64, device="cuda")
+    problem = pose_graph.PoseGraphProblem(
+        rel=pose_graph.RelPoseFactors(i1, i2, meas, 5.0 * eye6.expand(n, 6, 6),
+                                      torch.ones(n, dtype=torch.bool, device="cuda")),
+        priors=pose_graph.PriorFactors(torch.zeros(1, dtype=torch.int64, device="cuda"),
+                                       poses[:1], 100.0 * eye6[None],
+                                       torch.ones(1, dtype=torch.bool, device="cuda")),
+        fixed_pose_mask=torch.zeros(K, dtype=torch.bool, device="cuda"))
+    x = lie.se3_retract(poses, torch.as_tensor(rng.normal(0, 0.05, (K, 6))).cuda())
+    a, b = (pose_graph.pose_graph_normal_equations(problem, x) for _ in range(2))
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    plan, pts, points = stereo_factor_kernel.random_inputs(1001, 77, 13, device="cuda", seed=20)
+    ba_problem, state = _problem_of(plan, pts), dense.BAState(pts, points)
+    blocks = dense.ba_block_normal_equations(ba_problem, state)
+    s1, s2 = (schur.schur_step(ba_problem, blocks, 1e-3) for _ in range(2))
+    for u, v in zip(s1, s2):
+        assert torch.isfinite(u).all() and torch.equal(u, v)
+
+
+@pytest.mark.cuda
+def test_resumed_pass_is_bit_equal(tmp_path, monkeypatch):
+    """The flagship pass on the card, interrupted after its checkpoint at
+    window 10 and resumed by a fresh dataset object, gives the
+    uninterrupted pass's poses and covariances bit for bit (F14), with K1
+    launching in the resumed part."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ceres_slam_tpu_torch.problems.dataset import DatasetProblemSun
+    from ceres_slam_tpu_torch.utils import checkpoint, sim
+
+    ds = sim.generate(kind="triangle", num_states=24, num_points=200, seed=3,
+                      stereo_noise=(0.3, 0.3, 0.3), sun_noise_deg=5.0)
+    files = [str(tmp_path / n) for n in ("t.csv", "t_sun_ref.csv", "t_sun_dir_gtsun5.csv")]
+    sim.write_track_csv(ds, files[0], with_covar=True)
+    sim.write_ref_sun_csv(ds, files[1])
+    sim.write_obs_sun_csv(ds, files[2])
+    cfg = lm.SolveConfig(max_iters=1000, nonmonotonic=True, ftol=1e-6, xtol=1e-6)
+    path = str(tmp_path / "ck.npz")
+
+    def dataset():
+        d = DatasetProblemSun.read_csv(*files)
+        d.device = "cuda"
+        return d
+
+    full = dataset()
+    full.solve_sliding_window(window=2, use_sun=True, config=cfg)
+    solve, calls = window.solve_ba_window_with_covariance, []
+
+    class Interrupt(Exception):
+        pass
+
+    def interrupted(*args, **kwargs):
+        calls.append(1)
+        if len(calls) == 14:
+            raise Interrupt
+        return solve(*args, **kwargs)
+
+    monkeypatch.setattr(window, "solve_ba_window_with_covariance", interrupted)
+    with pytest.raises(Interrupt):
+        dataset().solve_sliding_window(window=2, use_sun=True, config=cfg, checkpoint=path,
+                                       checkpoint_every=5)
+    monkeypatch.setattr(window, "solve_ba_window_with_covariance", solve)
+    assert checkpoint.load(path)[0] == 10
+    launches = window_kernel.window_factor_blocks.launches
+    resumed = dataset()
+    resumed.solve_sliding_window(window=2, use_sun=True, config=cfg, checkpoint=path,
+                                 checkpoint_every=5)
+    assert window_kernel.window_factor_blocks.launches > launches
+    assert np.array_equal(resumed.poses, full.poses)
+    assert np.array_equal(resumed.pose_covars, full.pose_covars)

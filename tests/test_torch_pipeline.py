@@ -243,6 +243,15 @@ def test_copied_sim_writes_identical_csvs(tmp_path, kind):
     assert len(rows) == len(ref) and all(np.array_equal(a, b) for a, b in zip(rows, ref))
 
 
+def test_copied_checkpoint_module_is_byte_identical():
+    """utils/checkpoint.py is numpy-only and copied from the JAX package byte for byte."""
+    from ceres_slam_tpu.utils import checkpoint as jcheckpoint
+    from ceres_slam_tpu_torch.utils import checkpoint
+
+    with open(checkpoint.__file__, "rb") as a, open(jcheckpoint.__file__, "rb") as b:
+        assert a.read() == b.read()
+
+
 def test_csv_reader_rejects_non_numeric(tmp_path):
     path = tmp_path / "bad.csv"
     path.write_text("1,2\n3,x4\n")
