@@ -60,9 +60,18 @@ def kernel_ms(fn, reps: int = 20) -> tuple[dict, float]:
             break
     out = {}
     for e in events:
-        name = e.name.split("<")[0].rsplit("::", 1)[-1]
+        name = _short_name(e.name)
         out[name] = out.get(name, 0.0) + e.device_time_total / reps / 1e3
     return out, len(events) / reps
+
+
+def _short_name(name: str) -> str:
+    """A kernel's name without template arguments or namespaces; a name that
+    begins with its return type (cuBLAS's ``std::enable_if<...>::type
+    ns::kernel<...>``) keeps its innermost namespace."""
+    if name.startswith("std::enable_if"):
+        return "::".join(name.split(">::type ", 1)[-1].split("<")[0].split("::")[-2:])
+    return name.split("<")[0].rsplit("::", 1)[-1]
 
 
 def main(argv=None):

@@ -16,8 +16,9 @@ the difference; with every landmark eligible the preconditioner is the
 exact inverse and CG converges in one iteration. The factorization is
 plain torch (plain XLA in the JAX package); a factor that is not positive
 definite comes out NaN, as ``jnp.linalg.cholesky`` does, and the LM loop
-rejects the step. ``slot_scatter_index`` (for the distributed layer) is not
-ported yet.
+rejects the step. ``slot_scatter_index`` routes each observation to its
+slot for the distributed layer (``parallel/sharded_pcg.py``), which
+builds the slot rows from every rank's shard.
 """
 
 from __future__ import annotations
@@ -138,6 +139,22 @@ def build_track_info(pose_idx, point_idx, K: int, J: int, L: int | None = None,
     return TrackInfo(L, n_super, *(torch.as_tensor(x).to(device) for x in tensors), frac)
 
 
+def slot_scatter_index(t: TrackInfo, N: int) -> np.ndarray:
+    """Host: each observation's flat slot ``j*L + o``, or the dump row ``J*L``
+    for an observation outside every eligible track: the scatter-side dual
+    of the ``slots`` gather table, which the distributed preconditioner
+    reads (each shard writes its whitened rows to their slots, and one
+    all-reduce builds V). Every eligible slot has one observation, so no
+    two observations share a slot."""
+    slots = t.slots.cpu().numpy()
+    w = t.slot_w.cpu().numpy()
+    J, L = slots.shape
+    out = np.full(N, J * L, np.int32)
+    jj, oo = np.nonzero(w > 0)
+    out[slots[jj, oo]] = (jj * L + oo).astype(np.int32)
+    return out
+
+
 def build_super_tridiag(b, t: TrackInfo):
     """The super-block tridiagonal of the banded part of S from a
     ``pcg.ObsBlocks``: ``D [n_super, m, m]``, ``E [n_super - 1, m, m]``, m = 6L."""
@@ -255,7 +272,13 @@ def ctridiag_solve(levels, b):
 
 def make_banded_precond(b, t: TrackInfo, K: int):
     """Factor the banded part of S; returns ``apply(r) -> M^{-1} r`` for ``r [K, 6]``."""
-    levels = ctridiag_factor(*build_super_tridiag(b, t))
+    return precond_from_tridiag(*build_super_tridiag(b, t), t, K)
+
+
+def precond_from_tridiag(D, E, t: TrackInfo, K: int):
+    """``apply(r) -> M^{-1} r`` for ``r [K, 6]`` from the super-block
+    tridiagonal ``D``, ``E`` of ``build_super_tridiag``/``super_tridiag_from_V``."""
+    levels = ctridiag_factor(D, E)
     m = 6 * t.L
     n_pad = t.n_super * t.L
 

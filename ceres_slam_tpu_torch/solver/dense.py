@@ -166,14 +166,18 @@ def stereo_valid(problem: StereoBAProblem) -> torch.Tensor:
     return problem.stereo.valid & problem.point_valid[problem.stereo.point_idx]
 
 
-def ba_cost(problem: StereoBAProblem, state: BAState) -> torch.Tensor:
-    """Total cost ``1/2 sum rho(|r|^2)`` (stereo + sun + prior), Ceres's objective."""
+def stereo_sq_sum(problem: StereoBAProblem, state: BAState) -> torch.Tensor:
+    """``sum |r|^2`` over the valid stereo rows (whitened residuals)."""
     st = problem.stereo
     p_c = lie.se3_transform_point(state.poses[st.pose_idx], state.points[st.point_idx])
     r = lie._mv(st.stiffness, problem.camera.project(p_c) - st.uvd)
     sq = torch.sum(r * r, dim=-1)
-    c_st = torch.sum(torch.where(stereo_valid(problem), sq, torch.zeros_like(sq)))
-    return 0.5 * c_st + ba_cost_aux(problem, state)
+    return torch.sum(torch.where(stereo_valid(problem), sq, torch.zeros_like(sq)))
+
+
+def ba_cost(problem: StereoBAProblem, state: BAState) -> torch.Tensor:
+    """Total cost ``1/2 sum rho(|r|^2)`` (stereo + sun + prior), Ceres's objective."""
+    return 0.5 * stereo_sq_sum(problem, state) + ba_cost_aux(problem, state)
 
 
 class BlockNormalEq(NamedTuple):

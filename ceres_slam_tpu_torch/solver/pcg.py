@@ -312,6 +312,14 @@ def pcg_solve(b: ObsBlocks, rhs: torch.Tensor, max_iters: int, tol: float,
             return schur_matvec_gather(b, tables, v)
         return schur_matvec(b, v)
 
+    return cg(matvec, precond, rhs, max_iters, tol)
+
+
+def cg(matvec, precond, rhs: torch.Tensor, max_iters: int, tol: float):
+    """Preconditioned conjugate gradients for ``matvec(x) = rhs`` from x = 0,
+    ``precond(r) -> M^{-1} r``; stops after ``max_iters`` iterations or when
+    ``|r| <= tol |rhs|`` (read on the host every iteration). Returns ``(x,
+    iterations)``."""
     x = torch.zeros_like(rhs)
     r = rhs
     z = precond(r)
@@ -365,14 +373,20 @@ def pcg_step(problem, state, lam: float, max_cg_iters: int = 100, cg_tol: float 
     # back-substitute landmarks: dl = -C^{-1}(gl + U^T dp)
     Utdp = _sum_by_point(b, tables, u18_t_vec(b.U18, dp[b.pose_idx]))
     dl = -lie._mv(b.Cinv, b.gl + Utdp)
+    Udl = _sum_by_pose(b, tables, u18_vec(b.U18, dl[b.point_idx]))
+    return (*step_result(b, dp, dl, Udl), iters)
+
+
+def step_result(b: ObsBlocks, dp: torch.Tensor, dl: torch.Tensor, Udl: torch.Tensor):
+    """The LM core's step contract ``(dx, grad_norm, pred_decrease)`` from the
+    pose and landmark steps and ``Udl = U dl`` summed by pose; the predicted
+    decrease is the undamped blocks'."""
     dx = torch.cat([dp.reshape(-1), dl.reshape(-1)])
     grad_norm = torch.maximum(b.gp.abs().max(), b.gl.abs().max())
-    # predicted decrease with the undamped blocks
-    Udl = _sum_by_pose(b, tables, u18_vec(b.U18, dl[b.point_idx]))
     g_dot_dx = torch.sum(b.gp * dp) + torch.sum(b.gl * dl)
     dxHdx = (torch.einsum("ka,kab,kb->", dp, b.Hpp_undamped, dp) + 2.0 * torch.sum(dp * Udl)
              + torch.einsum("ja,jab,jb->", dl, b.Hll, dl))
-    return dx, grad_norm, -(g_dot_dx + 0.5 * dxHdx), iters
+    return dx, grad_norm, -(g_dot_dx + 0.5 * dxHdx)
 
 
 def solve_ba_pcg(problem: dense.StereoBAProblem, state0: dense.BAState,

@@ -78,6 +78,26 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            written as .npy files and run through the CLI's glob mode; ATE
            against the JAX figure, frames/s, median corners and matches;
            then 10 frames at 375x1242 with the camera unscaled, counts only
+  dist     the distributed layer (parallel/*) with its ranks as child
+           processes of this script, each joined through
+           multihost.initialize and the CERES_* environment: (a) kitti1100's
+           full batch (N 124,480, J 16,640, f64) on one NCCL rank,
+           solve_ba_pcg_sharded (block-Jacobi, solve_full's configuration)
+           against the JAX full-batch cost and ATE, K2 once per LM iteration
+           on the rank's shard plan, ms per CG iteration beside the
+           single-card solve_ba_pcg's in this process; (b) triangle200 on two
+           gloo ranks sharing the card: the sharded normal equations against
+           the single-card ones, gn_step_sharded, solve_ba_sharded and
+           solve_ba_pcg_sharded (jacobi, banded) against the JAX sharded
+           costs and the port's single-card solves, both ranks the same
+           bits; (c) a 2x2 hybrid mesh of four gloo ranks: its normal
+           equations against the single-card ones; (d) reported:
+           gn_step_sharded at scripts/bench_scaling.py's default shape (64
+           poses, 2,048 landmarks, 65,536 observations, f32) on the ranks of
+           (a) and (b), with the collectives and bytes per step; where more
+           than one card is visible (a machine of several cards), (e) (a) on
+           every card, one NCCL rank a card, and (f) (c) as a 2 x n/2 mesh
+           of NCCL ranks
   cpu      triangle200 float64 once more on the CPU, through both BA CLIs
            (poses must equal the CUDA runs' to 1e-6; all runs draw the same
            RANSAC hypotheses: seed 42 + pair, the threefry draw is integer
@@ -129,7 +149,7 @@ sys.modules["ceres_slam_tpu"] = None
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "slice", "dense", "phong", "graph", "blowup", "live_vo",
-          "cpu", "profile")
+          "dist", "cpu", "profile")
 
 # JAX package reference ATEs [m] (f64, --window 2, gtsun10 obs file), and
 # the relative bound each run is held to: the 1,100-window chain gets a
@@ -254,6 +274,24 @@ LIVE_VO_SHAPE = (319, 1056)
 LIVE_VO_CAMERA = (611.0276, 611.0276, 516.11388, 157.433345, 0.5372)
 KITTI_CAMERA = (718.856, 718.856, 607.1928, 185.2157, 0.5372)
 JAX_LIVE_VO_ATE, LIVE_VO_RTOL = 0.9849833301897621, 0.10
+
+# The distributed layer: solve_full's float64 configuration, and the JAX
+# package's sharded functions on the triangle200 full-batch problem
+# (float64, on a CPU, 8 virtual devices: the dataset layer's VO initial
+# guess, dataset_vo --window 0's problem), recorded by
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_sharded.py DIR
+# each run's final cost (gn_step: the cost after the one step from the
+# initial guess; the solves take 6 LM iterations). The bounds: the card's
+# sums run in another order than JAX's on 8 devices, which moves a converged
+# cost by ~1e-15 and one GN step's by rounding; 1e-6 relative on the costs,
+# 1e-6 on the poses against the port's single-card solves, and the sharded
+# normal equations within 1e-9 of the single-card ones, relative to the
+# largest entry (H reaches 1.5e8 here, where an absolute 1e-9 is below one
+# ulp).
+DIST_CONFIG = dict(max_iters=1000, nonmonotonic=True, ftol=1e-6, xtol=1e-6)
+JAX_DIST = {"gn_step": 604221.8305333192, "solve_ba": 18365.436329814467,
+            "jacobi": 18365.43632981848, "banded": 18365.436329814467}
+DIST_COST_RTOL, DIST_POSE_ATOL, DIST_NORMAL_EQ_RTOL = 1e-6, 1e-6, 1e-9
 
 
 def fail(msg: str):
@@ -1366,6 +1404,397 @@ def phase_dense(kernels, data):
     return total, gt["T"]
 
 
+def _tree(fn, x):
+    """``fn`` on every array leaf (torch or numpy) of a port container."""
+    import numpy as np
+    import torch
+
+    if isinstance(x, (torch.Tensor, np.ndarray)):
+        return fn(x)
+    if isinstance(x, tuple):
+        items = [_tree(fn, v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+def _dist_problem(data, seq):
+    """The full-batch problem of dataset_vo --window 0 (its VO initial guess,
+    the first pose fixed) on the card, also pickled as numpy for the ranks."""
+    import pickle
+
+    from ceres_slam_tpu_torch.problems.dataset import DatasetProblem
+    from ceres_slam_tpu_torch.solver import dense
+
+    ds = DatasetProblem.read_csv(os.path.join(data, f"{seq}_vo.csv"))
+    ds.device = "cuda"
+    ds.compute_initial_guess()
+    n_obs_pad, n_pts_pad, _ = ds._window_budget(ds.num_states)
+    problem, state, _ = ds.build_window_problem(0, ds.num_states, n_obs_pad, n_pts_pad)
+    with open(os.path.join(data, f"dist_{seq}.pkl"), "wb") as f:
+        pickle.dump(_tree(lambda t: t.cpu().numpy(), (problem, state)), f)
+    return dense.to_device(problem, "cuda"), state
+
+
+def _bench_problem():
+    """scripts/bench_scaling.py's default shape (64 poses, 2,048 landmarks,
+    65,536 observations, float32), seeded: poses stepping 0.3 m along the
+    optical axis, each landmark seen by 32 consecutive poses (the track
+    structure of the JAX script's example), 0.5 px of noise, pose 0 fixed,
+    no sun or prior term."""
+    import numpy as np
+    import torch
+
+    from ceres_slam_tpu_torch.models.stereo_camera import StereoCamera
+    from ceres_slam_tpu_torch.ops import lie
+    from ceres_slam_tpu_torch.solver import dense
+
+    K, J, d = 64, 2048, 32
+    rng = np.random.default_rng(3)
+    xi = np.zeros((K, 6))
+    xi[:, 2] = -0.3 * np.arange(K)
+    xi[:, 3:] = rng.normal(0, 0.01, (K, 3))
+    T = lie.se3_exp(torch.as_tensor(xi))
+    start = rng.integers(0, K - d + 1, J)
+    pts = rng.uniform([-4, -3, 4], [4, 3, 30], (J, 3))
+    pts[:, 2] += 0.3 * (start + d)
+    pose_idx = torch.as_tensor((start[:, None] + np.arange(d)).reshape(-1))
+    point_idx = torch.as_tensor(np.repeat(np.arange(J), d))
+    camera = StereoCamera.create(500.0, 500.0, 320.0, 240.0, 0.5)
+    uvd = camera.project(lie.se3_transform_point(T[pose_idx], torch.as_tensor(pts)[point_idx]))
+    uvd = uvd + torch.as_tensor(rng.normal(0, 0.5, tuple(uvd.shape)))
+    device = "cuda"
+    f32 = dict(dtype=torch.float32, device=device)
+    N = pose_idx.shape[0]
+    up = torch.zeros((K, 3), **f32)
+    up[:, 2] = 1.0
+    problem = dense.StereoBAProblem(
+        camera, dense.StereoObs(uvd.to(**f32), torch.eye(3, **f32).expand(N, 3, 3).contiguous(),
+                                pose_idx.to(device), point_idx.to(device),
+                                torch.ones(N, dtype=torch.bool, device=device)),
+        dense.SunObs(up, up.clone(), torch.eye(2, **f32).expand(K, 2, 2).contiguous(),
+                     torch.zeros(K, dtype=torch.bool, device=device)),
+        dense.PosePrior(0, T[0].to(**f32), torch.eye(6, **f32), False),
+        torch.arange(K, device=device) == 0, torch.ones(J, dtype=torch.bool, device=device),
+        0.0, 1.0, 1.0)
+    return problem, dense.BAState(T.to(**f32), torch.as_tensor(pts).to(**f32))
+
+
+def _time_gn_step(mesh, reps=5):
+    """Median and least wall of ``gn_step_sharded`` at the bench shape (after
+    a warm-up), with its collectives and bytes per step."""
+    import torch
+
+    from ceres_slam_tpu_torch.parallel import sharded_ba
+
+    problem, state = _bench_problem()
+    shard = sharded_ba.shard_problem(problem, mesh)
+    out = sharded_ba.gn_step_sharded(shard, state, mesh)
+    torch.cuda.synchronize()
+    c0, b0 = sharded_ba.psum.collectives, sharded_ba.psum.bytes
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = sharded_ba.gn_step_sharded(shard, state, mesh)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"ms": statistics.median(times), "ms_min": min(times),
+            "collectives": (sharded_ba.psum.collectives - c0) / reps,
+            "bytes": (sharded_ba.psum.bytes - b0) / reps,
+            "finite": bool(torch.isfinite(out.poses).all())}
+
+
+def _profile_sharded_cg(problem, state, mesh):
+    """One CG iteration of the sharded step (block-Jacobi, tol 0) under the
+    profiler: a step of 21 iterations less one of 1, over 20, each step's
+    layout built beforehand; with the five kernels of most device time."""
+    import torch
+
+    from ceres_slam_tpu_torch.ops.full_batch_trace import kernel_ms
+    from ceres_slam_tpu_torch.parallel import sharded_ba, sharded_pcg
+
+    shard = sharded_ba.shard_problem(problem, mesh)
+    steps = {n: sharded_pcg.make_sharded_pcg_step(mesh, n, 0.0) for n in (1, 21)}
+    for step in steps.values():
+        step(shard, state, 1e-4)
+    one, many = (_trace(torch, lambda n=n: steps[n](shard, state, 1e-4)) for n in (1, 21))
+    out = {k: (many[k] - one[k]) / 20 for k in one}
+    one, many = (kernel_ms(lambda n=n: steps[n](shard, state, 1e-4), reps=5)[0] for n in (1, 21))
+    us = {k: (many[k] - one.get(k, 0.0)) / 20 * 1e3 for k in many}
+    out["top_us"] = sorted(us.items(), key=lambda kv: -kv[1])[:5]
+    return out
+
+
+def _dist_child(group, data):
+    """One rank of the dist phase (``--dist-child``): joins its group through
+    multihost.initialize and the CERES_* environment, runs the group's
+    sharded functions, pickles its arrays and prints its figures as the last
+    line of its output. Groups: kitti1100 (NCCL, one rank a card),
+    triangle200 (two gloo ranks on the card), hybrid (four, a 2x2 mesh) and
+    hybrid_nccl (a 2 x n/2 mesh of NCCL ranks, one a card)."""
+    import pickle
+
+    import torch
+
+    from ceres_slam_tpu_torch.ops import stereo_factor_kernel
+    from ceres_slam_tpu_torch.parallel import multihost, sharded_ba, sharded_pcg
+    from ceres_slam_tpu_torch.solver import dense, lm
+
+    k2 = stereo_factor_kernel.stereo_factor_sums
+    # NCCL refuses two ranks on one card: the groups that share it ask for gloo
+    backend = "nccl" if group in ("kitti1100", "hybrid_nccl") else "gloo"
+    if not multihost.initialize(device="cuda", backend=backend, timeout_s=300):
+        fail(f"dist {group}: no process group started")
+    rank, backend = torch.distributed.get_rank(), torch.distributed.get_backend()
+    seq = "kitti1100" if group == "kitti1100" else "triangle200"
+    with open(os.path.join(data, f"dist_{seq}.pkl"), "rb") as f:
+        problem, state = _tree(lambda a: torch.as_tensor(a).cuda(), pickle.load(f))
+    config = lm.SolveConfig(**DIST_CONFIG)
+    runs, times, arrays = {}, {}, {}
+    try:
+        if group.startswith("hybrid"):
+            mesh = multihost.make_hybrid_mesh(
+                ranks_per_node=torch.distributed.get_world_size() // 2)
+            shard = multihost.shard_problem_global(problem, mesh)
+        else:
+            mesh = sharded_ba.make_mesh()
+            shard = sharded_ba.shard_problem(problem, mesh)
+        if group != "kitti1100":
+            H, g = sharded_ba.make_sharded_normal_eq(mesh)(shard, state)
+            arrays["H"], arrays["g"] = H.cpu().numpy(), g.cpu().numpy()
+        if group == "triangle200":
+            gn = sharded_ba.gn_step_sharded(shard, state, mesh)
+            arrays["gn_step"] = gn.poses.cpu().numpy()
+            runs["gn_step"] = {"cost": float(dense.ba_cost(problem, gn))}
+        solves = {"kitti1100": [("jacobi", "jacobi")],
+                  "triangle200": [("solve_ba", None), ("jacobi", "jacobi"), ("banded", "banded")]}
+        for name, precond in solves.get(group, []):
+            k2.launches = 0
+            c0, b0 = sharded_ba.psum.collectives, sharded_ba.psum.bytes
+            t0 = time.perf_counter()
+            if precond is None:
+                sol, summ = sharded_ba.solve_ba_sharded(problem, state, mesh, config)
+            else:
+                sol, summ = sharded_pcg.solve_ba_pcg_sharded(problem, state, mesh, config,
+                                                             precond=precond)
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter() - t0
+            arrays[name] = sol.poses.cpu().numpy()
+            runs[name] = {"cost": summ.final_cost, "initial_cost": summ.initial_cost,
+                          "lm": summ.iterations, "cg": summ.linear_iterations, "k2": k2.launches,
+                          "collectives": sharded_ba.psum.collectives - c0,
+                          "bytes": sharded_ba.psum.bytes - b0}
+        if not group.startswith("hybrid"):
+            times["gn_step_bench"] = _time_gn_step(mesh)
+        if group == "kitti1100":
+            times["cg_profile"] = _profile_sharded_cg(problem, state, mesh)
+    finally:
+        multihost.shutdown()
+    with open(os.path.join(data, f"dist_{group}_rank{rank}.pkl"), "wb") as f:
+        pickle.dump(arrays, f)
+    print(json.dumps({"rank": rank, "backend": backend, "mesh": list(mesh.shape), "runs": runs,
+                      "times": times}), flush=True)
+
+
+def _run_ranks(group, world, data, timeout):
+    """``world`` ranks of ``group`` as child processes of this script on a
+    free local port; fails if a rank fails or the ranks outlive ``timeout``
+    seconds, and unless every rank returned the same bits. Returns rank 0's
+    figures and arrays, and every rank's figures."""
+    import pickle
+    import socket
+
+    import numpy as np
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs, logs = [], []
+    for r in range(world):
+        env = dict(os.environ, CERES_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   CERES_NUM_PROCESSES=str(world), CERES_PROCESS_ID=str(r))
+        logs.append(open(os.path.join(data, f"dist_{group}_rank{r}.log"), "w+"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-child", group, "--dist-data", data],
+            env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, t0 + timeout - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        fail(f"dist {group}: the ranks did not finish in {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    figures, arrays = [], []
+    for r, (p, f) in enumerate(zip(procs, logs)):
+        f.seek(0)
+        text = f.read()
+        f.close()
+        if p.returncode != 0:
+            fail(f"dist {group}: rank {r} exited with {p.returncode}:\n{text[-4000:]}")
+        figures.append(json.loads(text.strip().splitlines()[-1]))
+        with open(os.path.join(data, f"dist_{group}_rank{r}.pkl"), "rb") as g:
+            arrays.append(pickle.load(g))
+    for fig, arr in zip(figures[1:], arrays[1:]):
+        if fig["runs"] != figures[0]["runs"] or any(
+                not np.array_equal(arr[k], arrays[0][k]) for k in arrays[0]):
+            fail(f"dist {group}: rank {fig['rank']} returned other bits than rank 0")
+    log(f"[dist] {group}: {world} rank(s), {figures[0]['backend']}, mesh {figures[0]['mesh']}, "
+        f"in {time.perf_counter() - t0:.2f} s, every rank the same bits")
+    return figures[0], arrays[0], figures
+
+
+def _normal_eq_gate(label, H, g, H_ref, g_ref):
+    """Sharded against single-card normal equations: max |difference| within
+    DIST_NORMAL_EQ_RTOL of the largest entry."""
+    import numpy as np
+
+    H_ref, g_ref = H_ref.cpu().numpy(), g_ref.cpu().numpy()
+    eH = float(np.abs(H - H_ref).max() / np.abs(H_ref).max())
+    eg = float(np.abs(g - g_ref).max() / np.abs(g_ref).max())
+    log(f"[dist] {label} normal equations ({H.shape[0]} x {H.shape[0]}, max |H| "
+        f"{np.abs(H_ref).max():.3e}): max |H - H_single| {eH:.2e}, max |g - g_single| {eg:.2e} "
+        f"of the largest entry (bound {DIST_NORMAL_EQ_RTOL:g})")
+    if not (eH <= DIST_NORMAL_EQ_RTOL and eg <= DIST_NORMAL_EQ_RTOL):
+        fail(f"dist {label}: sharded normal equations differ from the single-card ones")
+
+
+def _bench_line(fig):
+    b = fig["times"]["gn_step_bench"]
+    return (f"[dist] gn_step_sharded at scripts/bench_scaling.py's default shape (64 poses, "
+            f"2,048 landmarks, 65,536 observations, f32), rank {fig['rank']} of "
+            f"{fig['mesh']} ({fig['backend']}): median {b['ms']:.2f} ms (least "
+            f"{b['ms_min']:.2f}) per step, {b['collectives']:g} collective(s) of "
+            f"{b['bytes'] / 1e6:.3f} MB per step, finite {b['finite']}")
+
+
+def phase_dist(kernels, data, smi):
+    """The distributed layer (parallel/*): its ranks are child processes of
+    this script (no process group here), jax and ceres_slam_tpu blocked as
+    here. Returns K2's and K3's launches: the ranks' and this process's
+    single-card solves."""
+    import numpy as np
+    import torch
+
+    from ceres_slam_tpu_torch.parallel import sharded_ba
+    from ceres_slam_tpu_torch.solver import dense, lm, pcg
+    from ceres_slam_tpu_torch.utils import csvio
+
+    k2, k3 = kernels["K2"].stereo_factor_sums, kernels["K3"].schur_uy
+    kernels["K2"].build()
+    kernels["K3"].build()
+    _make_sims(data)
+    config = lm.SolveConfig(**DIST_CONFIG)
+    total = {"K2": 0, "K3": 0}
+
+    # (a) kitti1100 full batch, one NCCL rank, block-Jacobi
+    t0 = time.perf_counter()
+    problem, state = _dist_problem(data, "kitti1100")
+    log(f"[dist] kitti1100 full-batch problem, VO initial guess: {time.perf_counter() - t0:.2f} s")
+    gt = csvio.read_poses_csv(os.path.join(data, "kitti1100_gt_poses.csv"))
+    kitti_state = state
+    fig, arr, _ = _run_ranks("kitti1100", 1, data, 900)
+    total["K2"] += _gate_kitti1100(fig, arr, gt, kitti_state, smi)
+    k2.launches = k3.launches = 0
+    t0 = time.perf_counter()
+    ref, rsumm = pcg.solve_ba_pcg(problem, state, config, precond="jacobi")
+    torch.cuda.synchronize()
+    ref_wall = time.perf_counter() - t0
+    total["K2"] += k2.launches
+    total["K3"] += k3.launches
+    d = float(np.abs(arr["jacobi"] - ref.poses.cpu().numpy()).max())
+    log(f"[dist] kitti1100 solve_ba_pcg single card, jacobi (K2 + K3): cost "
+        f"{rsumm.final_cost:.6e}, {rsumm.iterations} LM and {rsumm.linear_iterations} CG "
+        f"iterations, solve {ref_wall:.2f} s = "
+        f"{1e3 * ref_wall / max(rsumm.linear_iterations, 1):.3f} ms per CG iteration; launches "
+        f"K2 {k2.launches}, K3 {k3.launches}; max |pose(sharded) - pose(single)| {d:.3e}")
+
+    # (b) triangle200, two gloo ranks on the card
+    problem, state = _dist_problem(data, "triangle200")
+    fig, arr, figures = _run_ranks("triangle200", 2, data, 600)
+    H, g = dense.ba_normal_equations(problem, state)
+    _normal_eq_gate("triangle200, 2 ranks", arr["H"], arr["g"], H, g)
+    k2.launches = k3.launches = 0
+    singles = {"gn_step": sharded_ba.gn_step(problem, state, H, g),
+               "solve_ba": dense.solve_ba(problem, state, config)[0],
+               "jacobi": pcg.solve_ba_pcg(problem, state, config, precond="jacobi")[0],
+               "banded": pcg.solve_ba_pcg(problem, state, config, precond="banded")[0]}
+    total["K2"] += k2.launches + len(figures) * (fig["runs"]["jacobi"]["k2"]
+                                                 + fig["runs"]["banded"]["k2"])
+    total["K3"] += k3.launches
+    for name, ref_cost in JAX_DIST.items():
+        r = fig["runs"][name]
+        dev = abs(r["cost"] - ref_cost) / ref_cost
+        d = float(np.abs(arr[name] - singles[name].poses.cpu().numpy()).max())
+        its = "" if name == "gn_step" else (
+            f"; {r['lm']} LM and {r['cg']} CG iterations, K2 launches {r['k2']} a rank, "
+            f"{r['collectives']} collectives of {r['bytes'] / 1e6:.2f} MB in all, "
+            f"{fig['times'][name]:.2f} s")
+        log(f"[dist] triangle200 {name}, 2 ranks ({fig['backend']}): cost {r['cost']:.9e} (JAX "
+            f"sharded {ref_cost:.9e}, {dev:.2e} relative, bound {DIST_COST_RTOL:g}); max |pose - "
+            f"single card| {d:.2e} (bound {DIST_POSE_ATOL:g}){its}")
+        if not (dev <= DIST_COST_RTOL and d <= DIST_POSE_ATOL):
+            fail(f"dist triangle200 {name}: cost {r['cost']:.9e} vs JAX {ref_cost:.9e}, poses "
+                 f"{d:.2e} from the single-card solve")
+        if name in ("jacobi", "banded") and not r["k2"] == r["lm"] > 0:
+            fail(f"dist triangle200 {name}: {r['k2']} K2 launches for {r['lm']} LM iterations")
+    for f in figures:
+        log(_bench_line(f))
+
+    # (c) the 2x2 hybrid mesh: four gloo ranks on the card
+    fig, arr, _ = _run_ranks("hybrid", 4, data, 600)
+    _normal_eq_gate("triangle200, 2x2 hybrid mesh", arr["H"], arr["g"], H, g)
+
+    # (e), (f) where more than one card is visible: (a) on every card, one
+    # NCCL rank a card; and (c) as a 2 x n/2 mesh of NCCL ranks
+    n = torch.cuda.device_count()
+    if n > 1:
+        fig, arr, _ = _run_ranks("kitti1100", n, data, 900)
+        total["K2"] += n * _gate_kitti1100(fig, arr, gt, kitti_state, smi)
+    if n >= 4 and n % 2 == 0:
+        fig, arr, _ = _run_ranks("hybrid_nccl", n, data, 600)
+        _normal_eq_gate(f"triangle200, 2x{n // 2} hybrid mesh of NCCL ranks", arr["H"], arr["g"],
+                        H, g)
+    return total
+
+
+def _gate_kitti1100(fig, arr, gt, state, smi):
+    """Log the sharded kitti1100 solve and its profile, and fail unless its
+    cost and ATE are within the full-batch bounds of JAX's and K2 ran once
+    per LM iteration on each rank. Returns a rank's K2 launches."""
+    from ceres_slam_tpu_torch.utils import metrics
+
+    r, wall = fig["runs"]["jacobi"], fig["times"]["jacobi"]
+    ate = metrics.ate_translation(arr["jacobi"], gt)
+    cost_ref, ate_ref = JAX_FULL["kitti1100"]
+    dev = abs(r["cost"] - cost_ref) / cost_ref
+    utv_kb, uy_kb = 24 * state.points.shape[0] / 1e3, 48 * state.poses.shape[0] / 1e3
+    ranks = f"{fig['mesh'][0]} rank(s) ({fig['backend']})"
+    log(f"[dist] kitti1100 solve_ba_pcg_sharded, jacobi, {ranks}: cost {r['initial_cost']:.6e} "
+        f"-> {r['cost']:.6e} (JAX full batch {cost_ref:.6e}, {100 * dev:.4f}% off, bound "
+        f"{100 * FULL_COST_RTOL['kitti1100']:g}%), ATE {ate:.6f} m (JAX {ate_ref:.4f}, bound "
+        f"+-{FULL_ATE_ATOL['kitti1100']:.4g} m); {r['lm']} LM and {r['cg']} CG iterations, "
+        f"solve {wall:.2f} s = {1e3 * wall / max(r['cg'], 1):.3f} ms per CG iteration; K2 "
+        f"launches {r['k2']} a rank; {r['collectives']} collectives, {r['bytes'] / 1e6:.2f} MB "
+        f"in all (a CG iteration: 2, of {utv_kb:.1f} KB and {uy_kb:.1f} KB); on {smi}")
+    p = fig["times"]["cg_profile"]
+    log(f"[dist] kitti1100 sharded, one CG iteration ({ranks}, profiled, rank 0): "
+        f"{p['device_us']:.2f} us of device time, {p['kernels']:g} device kernels, "
+        f"{p['launches']:g} launches, {p['syncs']:g} syncs, {p['copies']:g} copies, wall "
+        f"{p['wall_us']:.1f} us; most device time: "
+        + ", ".join(f"{name} {us:.2f} us" for name, us in p["top_us"]))
+    log(_bench_line(fig))
+    if not (dev <= FULL_COST_RTOL["kitti1100"]
+            and abs(ate - ate_ref) <= FULL_ATE_ATOL["kitti1100"]):
+        fail(f"dist kitti1100, {ranks}: cost {r['cost']:.6e} / ATE {ate:.6f} vs JAX "
+             f"{cost_ref:.6e} / {ate_ref:.4f}")
+    if not r["k2"] == r["lm"] > 0:
+        fail(f"dist kitti1100, {ranks}: {r['k2']} K2 launches for {r['lm']} LM iterations")
+    return r["k2"]
+
+
 def phase_cpu(kernels, data, window_poses, full_poses, dense_pose, graph_poses):
     import numpy as np
 
@@ -1432,7 +1861,14 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
+    # one rank of the dist phase (the phase starts these itself)
+    ap.add_argument("--dist-child", help=argparse.SUPPRESS)
+    ap.add_argument("--dist-data", help=argparse.SUPPRESS)
     cli = ap.parse_args()
+    if cli.dist_child:
+        sys.path.insert(0, ROOT)
+        _dist_child(cli.dist_child, cli.dist_data)
+        return
     phases = cli.phases.split(",")
     if not set(phases) <= set(PHASES) or ("cpu" in phases
                                           and not {"slice", "dense", "graph"} & set(phases)):
@@ -1477,6 +1913,9 @@ def main():
         phase_blowup(smi)
     if "live_vo" in phases:
         phase_live_vo(data, smi)
+    if "dist" in phases:
+        for name, n in phase_dist(kernels, data, smi).items():
+            launches[name] += n
     if "cpu" in phases:
         phase_cpu(kernels, data, window_poses, full_poses, dense_pose, graph_poses)
     if "profile" in phases or ("kernels" in phases

@@ -21,6 +21,7 @@ import torch
 from ceres_slam_tpu_torch.ops import (bilinear_kernel, double_kernel, full_batch_plan,
                                       full_batch_trace, schur_kernel, stereo_factor_kernel,
                                       window_kernel)
+from ceres_slam_tpu_torch.parallel import multihost, sharded_ba, sharded_pcg
 from ceres_slam_tpu_torch.solver import dense, lm, pcg, phong_schur, window
 
 torch.set_num_threads(1)
@@ -225,6 +226,65 @@ def test_pcg_step_on_the_card_runs_k2_and_k3(with_tables):
     b = pcg.build_obs_blocks(problem, state, 1e-2, tables=tables)
     with pytest.raises(ValueError, match="K3"):
         pcg.pcg_solve(b._replace(uy=None), -b.gp, 10, 1e-6, tables=tables)
+
+
+def _sharded_pcg_one_rank(rendezvous, problem, state, config):
+    """``solve_ba_pcg_sharded`` on a one-rank NCCL group (a ``file://``
+    rendezvous) that is shut down after the solve; returns ``(state,
+    summary, K2 launches)``."""
+    k2 = stereo_factor_kernel.stereo_factor_sums
+    assert multihost.initialize(f"file://{rendezvous}", 1, 0, device="cuda", timeout_s=60)
+    try:
+        before = k2.launches
+        sol, summ = sharded_pcg.solve_ba_pcg_sharded(problem, state, sharded_ba.make_mesh(),
+                                                     config, 200, 1e-10)
+        torch.cuda.synchronize()
+        return sol, summ, k2.launches - before
+    finally:
+        multihost.shutdown()
+
+
+def _sharded_case():
+    plan, poses, points = stereo_factor_kernel.random_inputs(1001, 77, 13, device="cuda", seed=16)
+    return _problem_of(plan, poses), dense.BAState(poses, points), lm.SolveConfig(max_iters=8)
+
+
+@pytest.mark.cuda
+def test_sharded_pcg_on_one_nccl_rank_runs_k2(tmp_path):
+    """The distributed Schur-PCG solve on one NCCL rank runs K2 once per LM
+    iteration on its shard's plan, and lands on the single-card solve's cost
+    (rtol 1e-6: the matvec sums through tables there, through K3 here)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    problem, state, config = _sharded_case()
+    _, summ, launches = _sharded_pcg_one_rank(tmp_path / "rendezvous", problem, state, config)
+    assert launches == summ.iterations > 0
+    _, ref = pcg.solve_ba_pcg(problem, state, config, 200, 1e-10, precond="jacobi")
+    assert abs(summ.final_cost - ref.final_cost) <= 1e-6 * ref.final_cost
+
+
+@pytest.mark.cuda
+def test_sharded_pcg_is_bit_reproducible(tmp_path):
+    """Two distributed solves give the same bits (ROADMAP F14: no float
+    atomics in a rank's sums)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    problem, state, config = _sharded_case()
+    a, sa, _ = _sharded_pcg_one_rank(tmp_path / "first", problem, state, config)
+    b, sb, _ = _sharded_pcg_one_rank(tmp_path / "second", problem, state, config)
+    assert torch.equal(a.poses, b.poses) and torch.equal(a.points, b.points)
+    assert (sa.iterations, sa.linear_iterations, sa.final_cost) == (
+        sb.iterations, sb.linear_iterations, sb.final_cost)
+
+
+def test_distributed_cuda_without_a_card_raises(monkeypatch):
+    """``device="cuda"`` without a card raises before any process group
+    starts; nothing falls back to gloo or the CPU (the card is hidden here,
+    so this runs everywhere)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multihost.initialize("localhost:1", 1, 0, device="cuda")
+    assert not torch.distributed.is_initialized()
 
 
 # K4 against its plain versions at the photometric path's 240x320 (N 68,096
