@@ -9,8 +9,14 @@ Port of ``ceres_slam_tpu/apps/dataset_vo_sun.py``: a VO-only pass (unless
 ``--sun-only``) writing ``<track>_poses.csv``, then a VO+sun pass writing
 ``<track>_<sunmethod>_poses.csv``, the sun method being the last
 '_'-token of the obs-sun file stem. Thresholds are given in degrees. The
-passes run one after the other on one dataset object, as the JAX app's
-sequential branch does. ``--checkpoint PATH`` saves each pass's state every
+two passes are independent (each chains from pose 0 and restarts the
+covariance chain), so by default they run together as one batch of two
+(``problems/batch_scan.py``: one K1 launch a trust-region iteration serves
+both passes' windows), as the JAX app does; the files equal the sequential
+passes' to the bit. ``--sun-only`` and ``--checkpoint`` run the passes one
+after the other, as the JAX app's sequential branch does, each from the
+loaded dataset's state (``pass_copy``): the sun pass does not start from
+the VO pass's solved first pose. ``--checkpoint PATH`` saves each pass's state every
 ``--checkpoint-every`` windows to ``PATH.vo`` / ``PATH.sun``; a run that
 was interrupted resumes from them, and a pass that completes deletes its
 file.
@@ -96,29 +102,50 @@ def main(argv=None) -> dict:
                                zen_err_thresh=args.zen_err_thresh * math.pi / 180.0),
                    f"{track_base}_{sun_method}_poses.csv"))
     stats = {"device": str(device), "dtype": args.dtype, "states": dataset.num_states,
-             "load_s": t1 - t0, "ransac_s": t2 - t1, "passes": {}}
+             "load_s": t1 - t0, "ransac_s": t2 - t1, "passes": {},
+             "batched": not args.sun_only and not args.checkpoint}
     from ceres_slam_tpu_torch.utils import csvio
 
-    for name, kwargs, out in passes:
-        print(f"Computing VO {'with' if kwargs['use_sun'] else 'without'} sun measurements",
-              file=sys.stderr)
-        ts = time.perf_counter()
-        summaries = dataset.solve_sliding_window(
-            window=args.window, config=config, strategy=args.strategy, progress=True,
-            checkpoint=f"{args.checkpoint}.{name}" if args.checkpoint else None,
-            checkpoint_every=args.checkpoint_every, **kwargs)
-        wall = time.perf_counter() - ts
+    def record(name, out, summaries, wall):
         common.print_reports(summaries, args.report)
-        csvio.write_poses_csv(out, dataset.poses)
         iters = sum(s.iterations for s in summaries)
-        stats["passes"][name] = {
+        stats["passes"][name] = p = {
             "output": out, "windows": len(summaries), "iterations": iters, "wall_s": wall,
             "windows_per_s": len(summaries) / wall if wall > 0 else math.nan,
             "mean_iters": iters / max(len(summaries), 1),
         }
-        print(f"  pass {name}: {len(summaries)} windows in {wall:.2f} s "
-              f"({stats['passes'][name]['windows_per_s']:.1f} windows/s, "
-              f"{stats['passes'][name]['mean_iters']:.2f} iterations/window)", file=sys.stderr)
+        print(f"  pass {name}: {p['windows']} windows in {wall:.2f} s "
+              f"({p['windows_per_s']:.1f} windows/s, {p['mean_iters']:.2f} iterations/window)",
+              file=sys.stderr)
+
+    if stats["batched"]:
+        from ceres_slam_tpu_torch.problems import batch_scan
+
+        print("Computing VO without / with sun measurements (one batch of two passes)",
+              file=sys.stderr)
+        ts = time.perf_counter()
+        results = batch_scan.solve_batch(
+            [batch_scan.RunSpec(dataset, **kwargs) for _, kwargs, _ in passes],
+            window=args.window or dataset.num_states, config=config, strategy=args.strategy,
+            progress=True)
+        # the passes share the batch's wall
+        stats["batch_wall_s"] = wall = time.perf_counter() - ts
+        for (name, _, out), res in zip(passes, results):
+            csvio.write_poses_csv(out, res.poses)
+            record(name, out, res.summaries, wall)
+    else:
+        for name, kwargs, out in passes:
+            print(f"Computing VO {'with' if kwargs['use_sun'] else 'without'} sun measurements",
+                  file=sys.stderr)
+            ts = time.perf_counter()
+            ds = dataset.pass_copy()
+            summaries = ds.solve_sliding_window(
+                window=args.window, config=config, strategy=args.strategy, progress=True,
+                checkpoint=f"{args.checkpoint}.{name}" if args.checkpoint else None,
+                checkpoint_every=args.checkpoint_every, **kwargs)
+            wall = time.perf_counter() - ts
+            csvio.write_poses_csv(out, ds.poses)
+            record(name, out, summaries, wall)
     stats["total_s"] = time.perf_counter() - t0
     print(f"  load {stats['load_s']:.2f} s, RANSAC {stats['ransac_s']:.2f} s, "
           f"total {stats['total_s']:.2f} s", file=sys.stderr)

@@ -64,6 +64,18 @@
 // 2,752 values at the S scale, slower than the two-pass design it replaces.
 // The ticket makes concurrent calls with one plan on two streams unsafe;
 // the solver issues them in order on one stream.
+//
+// Batched entry point (window_factor_blocks_batch_*): B windows of one
+// shape (K, J, O) in one launch, for the independent chains that
+// problems/batch_scan.py solves in lockstep. The grid is B * K pose blocks
+// then B runs of landmark blocks; block i of window b runs the single-window
+// code on window b's slice of the inputs and outputs, so window b's results
+// equal a single-window launch on the same window bit for bit. What changes:
+// the pose offsets come from a device array (pose_start [B, K + 1], into the
+// concatenated by-pose records), each window has its own ticket and its own
+// camera (cams [B, 5], double: fu, fv, cu, cv, fu * b), and the outputs are
+// stacked by kind: u [B, M, 18], hll [B, J, 9], gl [B, J, 3],
+// hppgp [B, K, 43], cost [B].
 
 #include <cuda/atomic>
 #include <cuda_runtime.h>
@@ -83,6 +95,19 @@ struct Args {
   int K, J, O, device;
   int multi_device;  // more than one device visible: launch on `device`
   int pose_start[kWindowMaxPoses + 1];
+};
+
+// The plan of B windows (mirrors ops/window_kernel.py::_BatchArgs).
+struct BatchArgs {
+  const void* obs;            // [B * M, 16]
+  const void* obs_by_pose;    // [S, 16], every window's by-pose records in turn
+  const int* pose_idx;        // [B * M]
+  const int* point_by_pose;   // [S]: the slot's landmark within its window
+  const int* pose_start;      // [B, K + 1]: offsets into obs_by_pose
+  unsigned int* ticket;       // [B]
+  const double* cams;         // [B, 5]
+  int B, K, J, O, device;
+  int multi_device;
 };
 
 namespace {
@@ -196,26 +221,46 @@ __device__ __forceinline__ void accumulate(const T Jp[3][6], const T rw[3], T ac
   acc[27] += T(0.5) * (rw[0] * rw[0] + rw[1] * rw[1] + rw[2] * rw[2]);
 }
 
+// One window of a launch: its inputs and outputs (every pointer at the
+// window's own slice; obs_by_pose and point_by_pose are indexed by the
+// pose offsets the caller passes).
 template <typename T>
-__device__ __forceinline__ void pose_block(const Args& g, const Cam<T>& cam, int k,
-                                           const T* __restrict__ poses,
-                                           const T* __restrict__ points, T* __restrict__ hppgp,
-                                           T* __restrict__ cost, T* red, T* part) {
+struct Window {
+  const T* obs;            // [M, 16]
+  const T* obs_by_pose;    // [S, 16]
+  const int* pose_idx;     // [M]
+  const int* point_by_pose;  // [S]
+  unsigned int* ticket;
+  const T* poses;          // [K, 12]
+  const T* points;         // [J, 3]
+  T* u;                    // [M, 18]
+  T* hll;                  // [J, 9]
+  T* gl;                   // [J, 3]
+  T* hppgp;                // [K, 43]
+  T* cost;                 // []
+  int K, J, O;
+};
+
+// pose k of window w, whose slots are obs_by_pose[s0 .. s1)
+template <typename T>
+__device__ __forceinline__ void pose_block(const Window<T>& w, const Cam<T>& cam, int k, int s0,
+                                           int s1, T* red, T* part) {
   const int tid = threadIdx.x;
-  const T* obs = static_cast<const T*>(g.obs_by_pose);
-  const T* P = poses + 12 * k;
+  const T* obs = w.obs_by_pose;
+  const T* __restrict__ points = w.points;
+  T* __restrict__ hppgp = w.hppgp;
+  const T* P = w.poses + 12 * k;
   T acc[kRed];
 #pragma unroll
   for (int r = 0; r < kRed; ++r) acc[r] = T(0);
-  const int s1 = g.pose_start[k + 1];
   // two slots per thread per pass, both loaded before either is computed
-  for (int s = g.pose_start[k] + tid; s < s1; s += 2 * kThreads) {
+  for (int s = s0 + tid; s < s1; s += 2 * kThreads) {
     const int s2 = s + kThreads;
     const bool two = s2 < s1;
     T va[16], vb[16], rw[3], Jp[3][6], Jl[3][3];
     load_obs(obs + static_cast<size_t>(s) * kRec, va);
-    const T* pa = points + 3 * g.point_by_pose[s];
-    const T* pb = points + 3 * g.point_by_pose[two ? s2 : s];
+    const T* pa = points + 3 * w.point_by_pose[s];
+    const T* pb = points + 3 * w.point_by_pose[two ? s2 : s];
     if (two) load_obs(obs + static_cast<size_t>(s2) * kRec, vb);
     const T a3[3] = {__ldg(pa), __ldg(pa + 1), __ldg(pa + 2)};
     const T b3[3] = {__ldg(pb), __ldg(pb + 1), __ldg(pb + 2)};
@@ -248,17 +293,17 @@ __device__ __forceinline__ void pose_block(const Args& g, const Cam<T>& cam, int
     unsigned prev = 0u;
     if (lane == 0) {
       hppgp[k * kRows + kRows - 1] = x;
-      cuda::atomic_ref<unsigned int, cuda::thread_scope_device> ticket(*g.ticket);
+      cuda::atomic_ref<unsigned int, cuda::thread_scope_device> ticket(*w.ticket);
       prev = ticket.fetch_add(1u, cuda::memory_order_acq_rel);
     }
-    const bool last = __shfl_sync(kFull, prev, 0) == static_cast<unsigned>(g.K - 1);
+    const bool last = __shfl_sync(kFull, prev, 0) == static_cast<unsigned>(w.K - 1);
     __syncwarp();
     if (last) {
       T c[kWindowMaxPoses / 32];
 #pragma unroll
       for (int i = 0; i < kWindowMaxPoses / 32; ++i) {
         const int kk = lane + 32 * i;
-        c[i] = kk < g.K ? __ldcg(hppgp + kk * kRows + kRows - 1) : T(0);
+        c[i] = kk < w.K ? __ldcg(hppgp + kk * kRows + kRows - 1) : T(0);
       }
       T y = c[0];
 #pragma unroll
@@ -266,8 +311,8 @@ __device__ __forceinline__ void pose_block(const Args& g, const Cam<T>& cam, int
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) y += __shfl_down_sync(kFull, y, off);
       if (lane == 0) {
-        *cost = y;
-        *g.ticket = 0u;
+        *w.cost = y;
+        *w.ticket = 0u;
       }
     }
     return;
@@ -296,27 +341,30 @@ __device__ __forceinline__ void pose_block(const Args& g, const Cam<T>& cam, int
   }
 }
 
+// landmark block b of window w
 template <typename T>
-__device__ __forceinline__ void landmark_block(const Args& g, const Cam<T>& cam, int b,
-                                               const T* __restrict__ poses,
-                                               const T* __restrict__ points, T* __restrict__ u,
-                                               T* __restrict__ hll, T* __restrict__ gl,
+__device__ __forceinline__ void landmark_block(const Window<T>& w, const Cam<T>& cam, int b,
                                                T* stage, T* pose_s) {
-  const int tid = threadIdx.x, O = g.O, L = O <= kLmSlots ? kLmSlots / O : 1;
+  const T* __restrict__ poses = w.poses;
+  const T* __restrict__ points = w.points;
+  T* __restrict__ u = w.u;
+  T* __restrict__ hll = w.hll;
+  T* __restrict__ gl = w.gl;
+  const int tid = threadIdx.x, O = w.O, L = O <= kLmSlots ? kLmSlots / O : 1;
   const int j0 = b * L;
-  const int nl = min(L, g.J - j0);
+  const int nl = min(L, w.J - j0);
   const int m = j0 * O + tid;
   const bool on = tid < nl * O;
   // the slot's loads first, then the poses into shared memory, one barrier
   int k = -1;
   T v[16], p[3];
   if (on) {
-    k = g.pose_idx[m];
-    load_obs(static_cast<const T*>(g.obs) + static_cast<size_t>(m) * kRec, v);
+    k = w.pose_idx[m];
+    load_obs(w.obs + static_cast<size_t>(m) * kRec, v);
     const T* pt = points + 3 * (j0 + tid / O);
     p[0] = __ldg(pt); p[1] = __ldg(pt + 1); p[2] = __ldg(pt + 2);
   }
-  for (int i = tid; i < 12 * g.K; i += kThreads) pose_s[i] = __ldg(poses + i);
+  for (int i = tid; i < 12 * w.K; i += kThreads) pose_s[i] = __ldg(poses + i);
   __syncthreads();
 
   T h[kLmRows];
@@ -362,6 +410,12 @@ __device__ __forceinline__ void landmark_block(const Args& g, const Cam<T>& cam,
   }
 }
 
+// landmark blocks of a window: runs of whole landmarks of at most kLmSlots slots
+__host__ __device__ inline int landmark_blocks(int J, int O) {
+  const int L = O <= kLmSlots ? kLmSlots / O : 1;
+  return (J + L - 1) / L;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 3) window_factor_kernel(
     const Args g, const T* __restrict__ poses, const T* __restrict__ points,
@@ -374,12 +428,48 @@ __global__ void __launch_bounds__(kThreads, 3) window_factor_kernel(
   T* hll = u + M * 18;
   T* gl = hll + static_cast<size_t>(g.J) * 9;
   T* hppgp = gl + static_cast<size_t>(g.J) * 3;
-  T* cost = hppgp + static_cast<size_t>(g.K) * kRows;
-  if (static_cast<int>(blockIdx.x) < g.K) {
-    pose_block<T>(g, cam, blockIdx.x, poses, points, hppgp, cost, smem, part);
+  const Window<T> w{static_cast<const T*>(g.obs), static_cast<const T*>(g.obs_by_pose),
+                    g.pose_idx, g.point_by_pose, g.ticket, poses, points, u, hll, gl, hppgp,
+                    hppgp + static_cast<size_t>(g.K) * kRows, g.K, g.J, g.O};
+  const int k = blockIdx.x;
+  if (k < g.K) {
+    pose_block<T>(w, cam, k, g.pose_start[k], g.pose_start[k + 1], smem, part);
   } else {
-    landmark_block<T>(g, cam, blockIdx.x - g.K, poses, points, u, hll, gl, smem,
-                      smem + kLmRows * kPitch);
+    landmark_block<T>(w, cam, k - g.K, smem, smem + kLmRows * kPitch);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 3) window_factor_batch_kernel(
+    const BatchArgs g, const T* __restrict__ poses, const T* __restrict__ points,
+    T* __restrict__ out) {
+  __shared__ __align__(16) T smem[kSmem];
+  __shared__ T part[(kRed - 1) * kParts];
+  const int K = g.K, J = g.J, O = g.O;
+  const int nlb = landmark_blocks(J, O);
+  const int i = blockIdx.x;
+  const bool pose = i < g.B * K;
+  const int b = pose ? i / K : (i - g.B * K) / nlb;
+  const size_t M = static_cast<size_t>(J) * O, B = g.B;
+  T* u = out;
+  T* hll = u + B * M * 18;
+  T* gl = hll + B * J * 9;
+  T* hppgp = gl + B * J * 3;
+  T* cost = hppgp + B * K * kRows;
+  const double* c = g.cams + 5 * b;
+  const Cam<T> cam{T(c[0]), T(c[1]), T(c[2]), T(c[3]), T(c[4])};
+  const Window<T> w{static_cast<const T*>(g.obs) + b * M * kRec,
+                    static_cast<const T*>(g.obs_by_pose), g.pose_idx + b * M, g.point_by_pose,
+                    g.ticket + b, poses + static_cast<size_t>(b) * K * 12,
+                    points + static_cast<size_t>(b) * J * 3, u + b * M * 18,
+                    hll + static_cast<size_t>(b) * J * 9, gl + static_cast<size_t>(b) * J * 3,
+                    hppgp + static_cast<size_t>(b) * K * kRows, cost + b, K, J, O};
+  if (pose) {
+    const int k = i - b * K;
+    const int* start = g.pose_start + b * (K + 1) + k;
+    pose_block<T>(w, cam, k, __ldg(start), __ldg(start + 1), smem, part);
+  } else {
+    landmark_block<T>(w, cam, i - g.B * K - b * nlb, smem, smem + kLmRows * kPitch);
   }
 }
 
@@ -390,10 +480,26 @@ int launch(const Args* g, const T* poses, const T* points, T* out, void* stream)
   int current = g->device;
   if (g->multi_device) cudaGetDevice(&current);
   if (current != g->device) cudaSetDevice(g->device);
-  const int L = g->O <= kLmSlots ? kLmSlots / g->O : 1;
-  const int n_landmark_blocks = (g->J + L - 1) / L;
-  window_factor_kernel<T><<<g->K + n_landmark_blocks, kThreads, 0,
+  window_factor_kernel<T><<<g->K + landmark_blocks(g->J, g->O), kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(*g, poses, points, out);
+  const cudaError_t err = cudaGetLastError();
+  if (current != g->device) cudaSetDevice(current);
+  return static_cast<int>(err);
+}
+
+template <typename T>
+int launch_batch(const BatchArgs* g, const T* poses, const T* points, T* out, void* stream) {
+  if (g->B < 1 || g->K < 1 || g->K > kWindowMaxPoses || g->J < 1 || g->O < 1 ||
+      g->O > kThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks =
+      static_cast<long long>(g->B) * (g->K + landmark_blocks(g->J, g->O));
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  int current = g->device;
+  if (g->multi_device) cudaGetDevice(&current);
+  if (current != g->device) cudaSetDevice(g->device);
+  window_factor_batch_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(*g, poses, points, out);
   const cudaError_t err = cudaGetLastError();
   if (current != g->device) cudaSetDevice(current);
   return static_cast<int>(err);
@@ -411,6 +517,16 @@ int window_factor_blocks_f32(const Args* g, const float* poses, const float* poi
 int window_factor_blocks_f64(const Args* g, const double* poses, const double* points,
                              double* out, void* stream) {
   return launch<double>(g, poses, points, out, stream);
+}
+
+int window_factor_blocks_batch_f32(const BatchArgs* g, const float* poses, const float* points,
+                                   float* out, void* stream) {
+  return launch_batch<float>(g, poses, points, out, stream);
+}
+
+int window_factor_blocks_batch_f64(const BatchArgs* g, const double* poses,
+                                   const double* points, double* out, void* stream) {
+  return launch_batch<double>(g, poses, points, out, stream);
 }
 
 }  // extern "C"

@@ -19,6 +19,13 @@ the landmark side summed over each landmark's O slots, the coupling per
 slot, the pose side per pose (36 Hpp, 6 gp, the pose's stereo cost
 0.5 sum r^2) and the total stereo cost. On the card the five are views of
 one buffer that one launch fills.
+
+``window_factor_blocks_batch`` is the same pass over B windows of one
+shape in one launch (``BatchPlan``, ``make_batch_plan``): the windows'
+plans side by side, each window's pose offsets and ticket its own. It takes
+``poses [B, K, 12]``, ``points [B, J, 3]`` and gives the five outputs with a
+leading B axis (a cost per window); window b's outputs equal a
+single-window call on window b's plan bit for bit.
 """
 
 from __future__ import annotations
@@ -50,6 +57,14 @@ class _Args(ctypes.Structure):
                 + [("pose_start", ctypes.c_int * (MAX_POSES + 1))])
 
 
+class _BatchArgs(ctypes.Structure):
+    """The C side's copy of a batch plan (``BatchArgs`` in the CUDA source)."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("obs", "obs_by_pose", "pose_idx", "point_by_pose",
+                                                 "pose_start", "ticket", "cams")]
+                + [(n, ctypes.c_int) for n in ("B", "K", "J", "O", "device", "multi_device")])
+
+
 class WindowPlan(NamedTuple):
     """K1's launch plan for one window: the inputs fixed over its solve,
     checked once by ``make_plan``. ``args`` is its C-side copy (None on the
@@ -69,28 +84,20 @@ class WindowPlan(NamedTuple):
     args: _Args | None
 
 
-def make_plan(camera: StereoCamera, K: int, J: int, pose_idx, uvd, stiffness, weight, pose_free,
-              dtype=torch.float64, device="cpu") -> WindowPlan:
-    """Check and pack a window's fixed K1 inputs, given on the host (numpy
-    arrays or CPU tensors) per slot: ``pose_idx [M]`` (negative = padding),
-    ``uvd [M, 3]``, ``stiffness [M, 3, 3]``, ``weight [M]`` (valid & point
-    valid), ``pose_free [M]`` (0 for a fixed pose). The plan lives on
-    ``device`` (two host-to-device copies); the kernel reads the pose side's
-    records in pose order (``obs_by_pose``)."""
-    device = torch.device(device)
-    if dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"window_factor_blocks takes float32 or float64, got {dtype}")
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"window_factor_blocks runs on cpu or cuda, not {device}")
+def plan_arrays(K: int, J: int, pose_idx, uvd, stiffness, weight, pose_free) -> dict:
+    """Check a window's fixed K1 inputs, given on the host (numpy arrays or
+    CPU tensors) per slot: ``pose_idx [M]`` (negative = padding), ``uvd
+    [M, 3]``, ``stiffness [M, 3, 3]``, ``weight [M]`` (valid & point valid),
+    ``pose_free [M]`` (0 for a fixed pose). Returns the plan's host arrays:
+    ``rec [M, 16]`` (float64 records), ``pose_idx [M]`` (-1 for padding),
+    ``order [S]`` (the non-padding slots sorted by pose) and ``start
+    [K + 1]`` (pose k's run in ``order``)."""
     if not 1 <= K <= MAX_POSES:
         raise ValueError(f"window_factor_blocks takes 1..{MAX_POSES} poses, got {K}")
     pose_idx = np.asarray(pose_idx).reshape(-1).astype(np.int64)
     M = pose_idx.size
     if J < 1 or M < 1 or M % J != 0:
         raise ValueError(f"slot count {M} is not a positive multiple of the landmark count {J}")
-    O = M // J
-    if device.type == "cuda" and O > MAX_SLOTS_PER_LANDMARK:
-        raise ValueError(f"{O} slots per landmark; the kernel takes at most {MAX_SLOTS_PER_LANDMARK}")
     if pose_idx.max() >= K:
         raise ValueError(f"pose_idx holds {pose_idx.max()}, past the last of {K} poses")
     rec = np.zeros((M, _REC))
@@ -100,12 +107,42 @@ def make_plan(camera: StereoCamera, K: int, J: int, pose_idx, uvd, stiffness, we
         if x.shape[:1] != (M,) or x.size != M * width:
             raise ValueError(f"{name}: shape {x.shape}, expected {M} slots of {width}")
         rec[:, lo:lo + width] = x.reshape(M, width)
-
     on = np.nonzero(pose_idx >= 0)[0]
     order = on[np.argsort(pose_idx[on], kind="stable")]
     start = np.concatenate([[0], np.cumsum(np.bincount(pose_idx[on], minlength=K))])
-    ints = torch.as_tensor(np.concatenate([np.maximum(pose_idx, -1), order, start, order // O,
-                                           [0]]), dtype=torch.int32).to(device)
+    return {"rec": rec, "pose_idx": np.maximum(pose_idx, -1), "order": order, "start": start}
+
+
+def _check_target(dtype, device, O: int) -> torch.device:
+    device = torch.device(device)
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"window_factor_blocks takes float32 or float64, got {dtype}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"window_factor_blocks runs on cpu or cuda, not {device}")
+    if device.type == "cuda" and O > MAX_SLOTS_PER_LANDMARK:
+        raise ValueError(f"{O} slots per landmark; the kernel takes at most {MAX_SLOTS_PER_LANDMARK}")
+    return device
+
+
+def make_plan(camera: StereoCamera, K: int, J: int, pose_idx, uvd, stiffness, weight, pose_free,
+              dtype=torch.float64, device="cpu") -> WindowPlan:
+    """Check and pack a window's fixed K1 inputs (``plan_arrays``) into its
+    plan on ``device``."""
+    return plan_from_arrays(camera, K, J, plan_arrays(K, J, pose_idx, uvd, stiffness, weight,
+                                                      pose_free), dtype, device)
+
+
+def plan_from_arrays(camera: StereoCamera, K: int, J: int, a: dict, dtype=torch.float64,
+                     device="cpu") -> WindowPlan:
+    """The plan of ``plan_arrays``'s arrays on ``device`` (two host-to-device
+    copies); the kernel reads the pose side's records in pose order
+    (``obs_by_pose``)."""
+    rec, order, start = a["rec"], a["order"], a["start"]
+    M = rec.shape[0]
+    O = M // J
+    device = _check_target(dtype, device, O)
+    ints = torch.as_tensor(np.concatenate([a["pose_idx"], order, start, order // O, [0]]),
+                           dtype=torch.int32).to(device)
     S = order.size
     obs, obs_by_pose = torch.as_tensor(np.concatenate([rec, rec[order]]), dtype=dtype).to(
         device).split([M, S])
@@ -119,6 +156,80 @@ def make_plan(camera: StereoCamera, K: int, J: int, pose_idx, uvd, stiffness, we
                      (ctypes.c_int * (MAX_POSES + 1))(*start.tolist()))
     return WindowPlan(camera, K, J, O, obs, pidx, porder, pstart, obs_by_pose, point_by_pose,
                       ticket, args)
+
+
+class BatchPlan(NamedTuple):
+    """K1's launch plan for B windows of one shape ``(K, J, O)``: window b's
+    slots are ``b * M .. b * M + M - 1`` of ``obs``/``pose_idx``, its pose k's
+    records ``obs_by_pose[pose_start[b, k] : pose_start[b, k + 1]]``; a
+    ticket and a camera per window. ``args`` is its C-side copy (None on the
+    CPU)."""
+
+    cameras: tuple  # B StereoCameras
+    B: int
+    K: int
+    J: int
+    O: int
+    obs: torch.Tensor  # [B * M, 16]
+    pose_idx: torch.Tensor  # [B * M] int32, -1 for padding slots
+    pose_start: torch.Tensor  # [B, K + 1] int32, offsets into obs_by_pose
+    obs_by_pose: torch.Tensor  # [S, 16]: every window's records sorted by pose, in turn
+    point_by_pose: torch.Tensor  # [S] int32: the slots' landmarks within their window
+    ticket: torch.Tensor  # [B] int32, 0 between calls
+    cams: torch.Tensor  # [B, 5] float64: fu, fv, cu, cv, fu * b
+    args: _BatchArgs | None
+
+
+def batch_plan_arrays(windows: list, J: int, cameras, dtype) -> dict:
+    """The host arrays of a batch plan from the windows' ``plan_arrays`` (one
+    shape, ``J`` landmarks): records in ``dtype``, the kernel's integers in
+    int32, the cameras in float64."""
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    M, K1 = windows[0]["rec"].shape[0], windows[0]["start"].size
+    if any(w["rec"].shape[0] != M or w["start"].size != K1 for w in windows):
+        raise ValueError("the windows of a batch plan must share one shape (K, J, O)")
+    O = M // J
+    base = np.cumsum([0] + [w["order"].size for w in windows[:-1]])
+    return {
+        "obs": np.concatenate([w["rec"] for w in windows]).astype(np_dt),
+        "obs_by_pose": np.concatenate([w["rec"][w["order"]] for w in windows]).astype(np_dt),
+        "pose_idx": np.concatenate([w["pose_idx"] for w in windows]).astype(np.int32),
+        "pose_start": np.stack([w["start"] + b0 for w, b0 in zip(windows, base)]).astype(np.int32),
+        "point_by_pose": np.concatenate([w["order"] // O for w in windows]).astype(np.int32),
+        "ticket": np.zeros(len(windows), np.int32),
+        "cams": np.asarray([[c.fu, c.fv, c.cu, c.cv, c.fu * c.b] for c in cameras], np.float64),
+    }
+
+
+def bind_batch_plan(cameras, K: int, J: int, t: dict) -> BatchPlan:
+    """The batch plan over ``batch_plan_arrays``'s arrays once they are on
+    their device (``t``, the same names)."""
+    obs = t["obs"]
+    B = len(cameras)
+    O = obs.shape[0] // (B * J)
+    _check_target(obs.dtype, obs.device, O)
+    if t["pose_start"].shape != (B, K + 1) or obs.shape[0] != B * J * O:
+        raise ValueError(f"batch plan arrays of {obs.shape[0]} slots and pose offsets "
+                         f"{tuple(t['pose_start'].shape)} do not fit {B} windows of {K} poses "
+                         f"and {J} landmarks")
+    args = None
+    if obs.device.type == "cuda":
+        args = _BatchArgs(*(t[n].data_ptr() for n in ("obs", "obs_by_pose", "pose_idx",
+                                                       "point_by_pose", "pose_start", "ticket",
+                                                       "cams")),
+                          B, K, J, O, obs.device.index, torch.cuda.device_count() > 1)
+    return BatchPlan(tuple(cameras), B, K, J, O, obs, t["pose_idx"], t["pose_start"],
+                     t["obs_by_pose"], t["point_by_pose"], t["ticket"], t["cams"], args)
+
+
+def make_batch_plan(cameras, K: int, J: int, windows: list, dtype=torch.float64,
+                    device="cpu") -> BatchPlan:
+    """The batch plan of windows given by their ``plan_arrays`` (one shape),
+    placed on ``device`` in one host-to-device copy."""
+    from ceres_slam_tpu_torch.utils import device as device_mod
+
+    return bind_batch_plan(cameras, K, J, device_mod.upload(
+        batch_plan_arrays(windows, J, cameras, dtype), device))
 
 
 def window_factor_blocks_plain(plan: WindowPlan, poses, points):
@@ -157,11 +268,15 @@ def window_factor_blocks_plain(plan: WindowPlan, poses, points):
 def _library() -> ctypes.CDLL:
     p = ctypes.c_void_p
     sig = [ctypes.POINTER(_Args), p, p, p, p]  # plan, poses, points, out, stream
+    batch = [ctypes.POINTER(_BatchArgs), p, p, p, p]
     return cuda_build.load("window_factor_blocks", _SOURCES,
-                           {"window_factor_blocks_f32": sig, "window_factor_blocks_f64": sig})
+                           {"window_factor_blocks_f32": sig, "window_factor_blocks_f64": sig,
+                            "window_factor_blocks_batch_f32": batch,
+                            "window_factor_blocks_batch_f64": batch})
 
 
 _fns: dict = {}
+_batch_fns: dict = {}
 
 
 def build() -> str:
@@ -169,6 +284,8 @@ def build() -> str:
     lib = _library()
     _fns.update({torch.float32: lib.window_factor_blocks_f32,
                  torch.float64: lib.window_factor_blocks_f64})
+    _batch_fns.update({torch.float32: lib.window_factor_blocks_batch_f32,
+                       torch.float64: lib.window_factor_blocks_batch_f64})
     return str(cuda_build.library_path("window_factor_blocks", _SOURCES))
 
 
@@ -216,13 +333,63 @@ def window_factor_blocks(plan: WindowPlan, poses: torch.Tensor, points: torch.Te
 window_factor_blocks.launches = 0
 
 
-def random_inputs(K: int, J: int, O: int, dtype=torch.float64, device="cpu", seed: int = 0):
-    """Seeded K1 arguments ``(plan, poses, points)`` at a given shape, for
-    checking the kernel against its plain version: poses stepping forward
-    along z, landmarks 4-30 m ahead of the last pose, noisy observations,
-    random slot poses with ~20% padding slots, ~5% invalid slots and pose 0
-    fixed."""
-    rng = np.random.default_rng(seed)
+def _window_of(plan: BatchPlan, b: int) -> WindowPlan:
+    """Window b of a batch plan, as the plain single-window version reads it."""
+    M = plan.J * plan.O
+    return WindowPlan(plan.cameras[b], plan.K, plan.J, plan.O, plan.obs[b * M:(b + 1) * M],
+                      plan.pose_idx[b * M:(b + 1) * M], None, None, None, None, None, None)
+
+
+def window_factor_blocks_batch_plain(plan: BatchPlan, poses, points):
+    """Plain PyTorch version of the batched kernel (same arguments and
+    outputs): the plain single-window version on each window in turn."""
+    outs = [window_factor_blocks_plain(_window_of(plan, b), poses[b], points[b])
+            for b in range(plan.B)]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+def window_factor_blocks_batch(plan: BatchPlan, poses: torch.Tensor, points: torch.Tensor):
+    """The fused factor pass of B windows: ``poses [B, K, 12]``, ``points
+    [B, J, 3]`` -> ``(hll [B, J, 9], u [B, M, 18], gl [B, J, 3], hppgp
+    [B, K, 43], cost [B])``. CPU plans take the plain version; CUDA plans
+    launch the kernel once (counted in ``.launches``, the windows it served
+    in ``.windows``)."""
+    obs, args = plan.obs, plan.args
+    B, K, J = plan.B, plan.K, plan.J
+    shapes = (("poses", poses, (B, K, 12)), ("points", points, (B, J, 3)))
+    if args is None:
+        for name, t, shape in shapes:
+            if (t.shape != shape or t.dtype != obs.dtype or t.device != obs.device
+                    or not t.is_contiguous()):
+                _bad_input(name, t, shape, obs)
+        return window_factor_blocks_batch_plain(plan, poses, points)
+    dev = args.device
+    for name, t, shape in shapes:
+        if (t.shape != shape or t.dtype is not obs.dtype or t.get_device() != dev
+                or not t.is_contiguous()):
+            _bad_input(name, t, shape, obs)
+    if not _batch_fns:
+        build()
+    M = J * plan.O
+    out = obs.new_empty(B * (M * 18 + J * 12 + K * _ROWS + 1))
+    err = _batch_fns[obs.dtype](args, poses.data_ptr(), points.data_ptr(), out.data_ptr(),
+                                cuda_build.current_stream(dev))
+    if err:
+        raise cuda_build.launch_error(err, "window_factor_blocks_batch")
+    window_factor_blocks_batch.launches += 1
+    window_factor_blocks_batch.windows += B
+    u, hll, gl, hppgp, cost = out.split_with_sizes(
+        [B * M * 18, B * J * 9, B * J * 3, B * K * _ROWS, B])
+    return (hll.view(B, J, 9), u.view(B, M, 18), gl.view(B, J, 3), hppgp.view(B, K, _ROWS),
+            cost)
+
+
+window_factor_blocks_batch.launches = 0
+window_factor_blocks_batch.windows = 0
+
+
+def _random_window(K: int, J: int, O: int, rng):
+    """Seeded host inputs of one window (see ``random_inputs``)."""
     M = J * O
     xi = np.concatenate([rng.normal(0, 0.1, (K, 3)), rng.normal(0, 0.02, (K, 3))], axis=1)
     xi[:, 2] -= 0.5 * np.arange(K)
@@ -238,6 +405,17 @@ def random_inputs(K: int, J: int, O: int, dtype=torch.float64, device="cpu", see
     stiffness = 2.0 * np.eye(3) + A + A.transpose(0, 2, 1)
     weight = ((pose_idx >= 0) & (rng.random(M) > 0.05)).astype(np.float64)
     pose_free = (pose_idx != 0).astype(np.float64)
+    return camera, poses, points, (pose_idx, uvd, stiffness, weight, pose_free)
+
+
+def random_inputs(K: int, J: int, O: int, dtype=torch.float64, device="cpu", seed: int = 0):
+    """Seeded K1 arguments ``(plan, poses, points)`` at a given shape, for
+    checking the kernel against its plain version: poses stepping forward
+    along z, landmarks 4-30 m ahead of the last pose, noisy observations,
+    random slot poses with ~20% padding slots, ~5% invalid slots and pose 0
+    fixed."""
+    camera, poses, points, slots = _random_window(K, J, O, np.random.default_rng(seed))
+    pose_idx, uvd, stiffness, weight, pose_free = slots
     plan = make_plan(camera, K, J, pose_idx, uvd.to(dtype), stiffness, weight, pose_free, dtype,
                      device)
 
@@ -245,3 +423,25 @@ def random_inputs(K: int, J: int, O: int, dtype=torch.float64, device="cpu", see
         return x.to(device=device, dtype=dtype).contiguous()
 
     return plan, put(poses), put(points)
+
+
+def random_batch_inputs(B: int, K: int, J: int, O: int, dtype=torch.float64, device="cpu",
+                        seed: int = 0):
+    """Seeded arguments of the batched kernel, ``(batch_plan, poses [B, K,
+    12], points [B, J, 3])``, and of the single-window kernel on the same
+    windows, ``[(plan, poses, points)] * B``: window b as ``random_inputs``
+    draws one, from seed ``seed + b``."""
+    windows, cameras, single = [], [], []
+    for b in range(B):
+        camera, poses, points, slots = _random_window(K, J, O, np.random.default_rng(seed + b))
+        pose_idx, uvd, stiffness, weight, pose_free = slots
+        uvd = uvd.to(dtype)
+        windows.append(plan_arrays(K, J, pose_idx, uvd, stiffness, weight, pose_free))
+        cameras.append(camera)
+        single.append((make_plan(camera, K, J, pose_idx, uvd, stiffness, weight, pose_free, dtype,
+                                 device),
+                       poses.to(device=device, dtype=dtype).contiguous(),
+                       points.to(device=device, dtype=dtype).contiguous()))
+    plan = make_batch_plan(cameras, K, J, windows, dtype, device)
+    return (plan, torch.stack([s[1] for s in single]), torch.stack([s[2] for s in single]),
+            single)

@@ -122,12 +122,92 @@ def aux_pose_blocks(problem: StereoBAProblem, state: BAState):
     return Hpp, gp
 
 
-def _retract_state(problem: StereoBAProblem, state: BAState, dx: torch.Tensor) -> BAState:
-    K = state.poses.shape[0]
-    J = state.points.shape[0]
-    d_pose = torch.where(problem.fixed_pose_mask[:, None], 0.0, dx[: 6 * K].reshape(K, 6))
-    d_pt = torch.where(problem.point_valid[:, None], dx[6 * K:].reshape(J, 3), 0.0)
+def _retract_state(problem, state: BAState, dx: torch.Tensor) -> BAState:
+    """Apply the tangent step ``dx [..., 6K + 3J]`` (a leading batch axis
+    allowed): fixed poses and invalid landmarks stay. ``problem`` is anything
+    with ``fixed_pose_mask [..., K]`` and ``point_valid [..., J]``."""
+    lead, K = state.poses.shape[:-2], state.poses.shape[-2]
+    J = state.points.shape[-2]
+    d_pose = torch.where(problem.fixed_pose_mask[..., None], 0.0,
+                         dx[..., : 6 * K].reshape(*lead, K, 6))
+    d_pt = torch.where(problem.point_valid[..., None], dx[..., 6 * K:].reshape(*lead, J, 3), 0.0)
     return BAState(poses=lie.se3_retract(state.poses, d_pose), points=state.points + d_pt)
+
+
+class AuxTerms(NamedTuple):
+    """The sun and pose-prior terms of a window problem, or of B window
+    problems solved together (leading axes ``...``: none, or ``[B]``), with
+    the per-problem settings as tensors: the problems of one batch may
+    differ in them. Every setting is selected with ``torch.where``, so one
+    problem's terms are computed the same way, to the bit, alone or in a
+    batch."""
+
+    sun: SunObs  # [..., K, 3], [..., K, 3], [..., K, 2, 2], [..., K]
+    prior: PosePrior  # pose_idx int; T_ref [..., 12]; stiffness [..., 6, 6]; valid [...] bool
+    fixed_pose_mask: torch.Tensor  # [..., K] bool
+    point_valid: torch.Tensor  # [..., J] bool
+    sun_huber: torch.Tensor  # [...], 0 = no robust loss
+    az_err_thresh: torch.Tensor  # [...] radians
+    zen_err_thresh: torch.Tensor  # [...] radians
+
+
+def aux_terms(problem: StereoBAProblem) -> AuxTerms:
+    """One problem's sun and prior terms as ``AuxTerms`` (no leading axis),
+    the settings on the problem's device in its dtype."""
+    dt, dev = problem.sun.dir_c.dtype, problem.sun.dir_c.device
+    pr = problem.prior
+    valid = torch.tensor(bool(pr.valid), device=dev)
+    setting = torch.tensor([problem.sun_huber, problem.az_err_thresh, problem.zen_err_thresh],
+                           dtype=dt, device=dev)
+    return AuxTerms(problem.sun, pr._replace(T_ref=pr.T_ref.to(dev), stiffness=pr.stiffness.to(dev),
+                                             valid=valid),
+                    problem.fixed_pose_mask, problem.point_valid, *setting.unbind())
+
+
+def _aux_residuals(terms: AuxTerms, state: BAState):
+    """Sun residuals and Jacobians ``[..., K, 2(, 6)]`` with their squared
+    norms, and the prior's ``[..., 1, 6(, 6)]`` on its pose (kept on a pose
+    axis of one, so that its products batch the same way with or without a
+    leading axis)."""
+    sun = terms.sun
+    r_sun, J_sun = factors.sun_sensor(
+        state.poses, sun.dir_c, sun.dir_g, sun.stiffness,
+        az_err_thresh=terms.az_err_thresh[..., None], zen_err_thresh=terms.zen_err_thresh[..., None])
+    k = terms.prior.pose_idx
+    r_pr, J_pr = factors.pose_prior(state.poses[..., k:k + 1, :], terms.prior.T_ref[..., None, :],
+                                    terms.prior.stiffness[..., None, :, :])
+    return r_sun, J_sun, torch.sum(r_sun * r_sun, dim=-1), r_pr, J_pr
+
+
+def aux_cost(terms: AuxTerms, state: BAState) -> torch.Tensor:
+    """Sun + prior cost ``[...]`` (``ba_cost_aux`` per problem)."""
+    _, _, sq, r_pr, _ = _aux_residuals(terms, state)
+    h = terms.sun_huber[..., None]
+    rho = torch.where(h > 0.0, loss_mod.huber_rho(sq, h), sq)
+    cost = torch.sum(torch.where(terms.sun.valid, rho, 0.0), dim=-1)
+    cost = cost + torch.where(terms.prior.valid, torch.sum(r_pr * r_pr, dim=(-2, -1)), 0.0)
+    return 0.5 * cost
+
+
+def aux_blocks(terms: AuxTerms, state: BAState):
+    """Sun + prior pose blocks ``(Hpp [..., K, 6, 6], gp [..., K, 6])`` with
+    the gauge mask applied: a fixed pose's blocks are exact zeros, whatever
+    its sun or prior terms hold (``aux_pose_blocks`` per problem, masked)."""
+    r_sun, J_sun, sq, r_pr, J_pr = _aux_residuals(terms, state)
+    h = terms.sun_huber[..., None]
+    w = torch.where(h > 0.0, loss_mod.huber_weight(sq, h), torch.ones_like(sq))
+    r_sun, J_sun = r_sun * w[..., None], J_sun * w[..., None, None]
+    valid = terms.sun.valid
+    r_sun = torch.where(valid[..., None], r_sun, 0.0)
+    J_sun = torch.where(valid[..., None, None], J_sun, 0.0)
+    JT = J_sun.transpose(-1, -2)
+    Hpp, gp = JT @ J_sun, lie._mv(JT, r_sun)
+    k, on = terms.prior.pose_idx, terms.prior.valid
+    JT_pr = J_pr.transpose(-1, -2)
+    Hpp[..., k, :, :] += torch.where(on[..., None, None], (JT_pr @ J_pr)[..., 0, :, :], 0.0)
+    gp[..., k, :] += torch.where(on[..., None], lie._mv(JT_pr, r_pr)[..., 0, :], 0.0)
+    free = ~terms.fixed_pose_mask
+    return (torch.where(free[..., None, None], Hpp, 0.0), torch.where(free[..., None], gp, 0.0))
 
 
 def segment_table(idx: torch.Tensor, n: int) -> torch.Tensor:

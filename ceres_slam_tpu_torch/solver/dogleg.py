@@ -11,7 +11,9 @@ model (five scalars) is read to the host, where the interior solution or
 the More-Sorensen boundary solution (64 bisection steps) is a few hundred
 scalar operations in float64 — on the device each would be a kernel
 launch. A second read per iteration brings back the candidate's cost for
-the host-side accept test.
+the host-side accept test. A batch of windows (``window.BatchLayout``)
+runs one loop each in lockstep: the two reads bring back every window's
+model and statistics, and the host solves each window's 2x2 model.
 """
 
 from __future__ import annotations
@@ -26,19 +28,23 @@ from ceres_slam_tpu_torch.solver import window as window_mod
 
 
 def block_hvp(Hpp_p, Hll_p, U_jo, slot_pose, pose_slots, v):
-    """``H v`` for ``H = [[Hpp, W], [W^T, Hll]]`` without materializing W:
-    the coupling goes through the per-slot U blocks, gathered by slot pose
-    (padding slots carry U = 0 and pose K) and summed by pose through the
-    layout's by-pose table, in a fixed order."""
-    K, J = Hpp_p.shape[0], Hll_p.shape[0]
-    vp = v[: 6 * K].reshape(K, 6)
-    vl = v[6 * K:].reshape(J, 3)
-    U4 = U_jo.reshape(J, -1, 6, 3)
-    Wvl = (U4 @ vl[:, None, :, None]).squeeze(-1)  # [J, O, 6]
-    Hvp = lie._mv(Hpp_p, vp) + dense.gather_sum(pose_slots, Wvl.reshape(-1, 6))
-    vp_obs = torch.cat([vp, torch.zeros_like(vp[:1])])[slot_pose].reshape(J, -1, 6)
-    Hvl = lie._mv(Hll_p, vl) + torch.einsum("joab,joa->jb", U4, vp_obs)
-    return torch.cat([Hvp.reshape(-1), Hvl.reshape(-1)])
+    """``H v`` for ``H = [[Hpp, W], [W^T, Hll]]`` without materializing W
+    (one window, or a batch with a leading axis): the coupling goes through
+    the per-slot U blocks, gathered by slot pose (padding slots carry U = 0
+    and pose K; in a batch ``slot_pose`` indexes window b's poses at
+    ``b*(K+1)``) and summed by pose through the layout's by-pose table, in a
+    fixed order."""
+    lead, K, J = Hpp_p.shape[:-3], Hpp_p.shape[-3], Hll_p.shape[-3]
+    vp = v[..., : 6 * K].reshape(*lead, K, 6)
+    vl = v[..., 6 * K:].reshape(*lead, J, 3)
+    U4 = U_jo.reshape(*lead, J, -1, 6, 3)
+    Wvl = (U4 @ vl[..., :, None, :, None]).squeeze(-1)  # [..., J, O, 6]
+    Hvp = lie._mv(Hpp_p, vp) + dense.gather_sum(pose_slots, Wvl.reshape(-1, 6)).reshape(
+        *lead, K, 6)
+    vp_obs = torch.cat([vp, torch.zeros_like(vp[..., :1, :])], dim=-2).reshape(-1, 6)[
+        slot_pose].reshape(*lead, J, -1, 6)
+    Hvl = lie._mv(Hll_p, vl) + torch.einsum("...joab,...joa->...jb", U4, vp_obs)
+    return torch.cat([Hvp.reshape(*lead, -1), Hvl.reshape(*lead, -1)], dim=-1)
 
 
 def _boundary_min(B00, B01, B11, g0, g1, r):
@@ -114,39 +120,44 @@ def subspace_solution(B00, B01, B11, g0, g1, radius):
 
 def _subspace_basis(g, dx_gn, hvp):
     """Device half: orthonormal basis ``b1 ~ g``, ``b2 ~ dx_gn`` (zero when
-    the span is 1-D) and the projected model ``[B00, B01, B11, g0, g1]``."""
+    the span is 1-D) and the projected model ``[..., 5]``: ``[B00, B01, B11,
+    g0, g1]`` (per window of a batch)."""
     eps = 1e-30
-    b1 = g / torch.clamp(torch.sqrt(torch.sum(g * g)), min=eps)
-    b2_raw = dx_gn - torch.sum(dx_gn * b1) * b1
-    n2 = torch.sqrt(torch.sum(b2_raw * b2_raw))
-    degenerate = n2 <= 1e-7 * torch.clamp(torch.sqrt(torch.sum(dx_gn * dx_gn)), min=eps)
-    b2 = torch.where(degenerate, torch.zeros_like(b2_raw), b2_raw / torch.clamp(n2, min=eps))
+
+    def dot(a, b):
+        return torch.sum(a * b, dim=-1)
+
+    b1 = g / torch.clamp(torch.sqrt(dot(g, g)), min=eps)[..., None]
+    b2_raw = dx_gn - dot(dx_gn, b1)[..., None] * b1
+    n2 = torch.sqrt(dot(b2_raw, b2_raw))
+    degenerate = n2 <= 1e-7 * torch.clamp(torch.sqrt(dot(dx_gn, dx_gn)), min=eps)
+    b2 = torch.where(degenerate[..., None], torch.zeros_like(b2_raw),
+                     b2_raw / torch.clamp(n2, min=eps)[..., None])
     Hb1, Hb2 = hvp(b1), hvp(b2)
-    one = torch.ones((), dtype=g.dtype, device=g.device)
+    one = torch.ones_like(n2)
     model = torch.stack([
-        torch.sum(b1 * Hb1),
-        0.5 * (torch.sum(b1 * Hb2) + torch.sum(b2 * Hb1)),
-        torch.where(degenerate, one, torch.sum(b2 * Hb2)),
-        torch.sum(b1 * g),
-        torch.where(degenerate, 0.0 * one, torch.sum(b2 * g)),
-    ])
+        dot(b1, Hb1),
+        0.5 * (dot(b1, Hb2) + dot(b2, Hb1)),
+        torch.where(degenerate, one, dot(b2, Hb2)),
+        dot(b1, g),
+        torch.where(degenerate, 0.0 * one, dot(b2, g)),
+    ], dim=-1)
     return b1, b2, model
 
 
 def blocks_dogleg_loop(layout, state0, config: lm.SolveConfig, init_radius: float = 1e4):
-    """Subspace-dogleg loop carrying the candidate's factor blocks (one K1
-    pass per iteration). Returns ``(state, summary, blocks_at_state)``."""
-    problem = layout.problem
-    total_blocks = window_mod.total_blocks_fn(layout)
-    history = lm.History(config)
-    blocks, cost_t = total_blocks(state0)
-    dtype = cost_t.dtype
-    cost0 = cost = float(cost_t)
-    state, radius, grad_norm, it = state0, init_radius, math.inf, 0
-    cost_buf = [cost0] * config.nonmonotonic_window
-    best = (state, blocks, cost)
-    while it < config.max_iters:
-        Hpp_aux, gp_aux = window_mod._masked_aux_blocks(problem, state, dtype)
+    """Subspace-dogleg loops of B windows in lockstep (``window.BatchLayout``;
+    one window alone: ``window.as_batch``), carrying the candidates' factor
+    blocks (one K1 launch per iteration for all of them), each window with
+    its own radius and stopping rule. Returns ``(state, summaries,
+    blocks_at_state)``."""
+    terms = layout.terms
+    blocks, cost_t = window_mod.total_blocks(layout, state0)
+    ch = window_mod._Chains(config, state0, blocks, cost_t)
+    radius = [init_radius] * ch.B
+    while any(ch.active):
+        state, blocks = ch.state, ch.blocks
+        Hpp_aux, gp_aux = window_mod._masked_aux_blocks(terms, state, ch.dtype)
         Hpp = blocks.Hpp + Hpp_aux
         gp = blocks.gp + gp_aux
         Hpp_p, Hll_p = window_mod._pin(Hpp), window_mod._pin(blocks.Hll)
@@ -155,48 +166,43 @@ def blocks_dogleg_loop(layout, state0, config: lm.SolveConfig, init_radius: floa
         # (indefinite) solve degrades to steepest descent
         dx_gn, grad_norm_t, _ = window_mod.schur_solve(
             Hpp, blocks.Hll, blocks.U_jo, gp, blocks.gl, layout.w_idx, 0.0)
-        g = torch.cat([gp.reshape(-1), blocks.gl.reshape(-1)])
-        dx_gn = torch.where(torch.all(torch.isfinite(dx_gn)), dx_gn, -g)
+        g = torch.cat([gp.flatten(-2), blocks.gl.flatten(-2)], dim=-1)
+        dx_gn = torch.where(torch.all(torch.isfinite(dx_gn), dim=-1, keepdim=True), dx_gn, -g)
 
         def hvp(v, Hpp_p=Hpp_p, Hll_p=Hll_p, U_jo=blocks.U_jo):
             return block_hvp(Hpp_p, Hll_p, U_jo, layout.slot_pose, layout.pose_slots, v)
 
         b1, b2, model = _subspace_basis(g, dx_gn, hvp)
-        y0, y1, pred = subspace_solution(*model.tolist(), radius)
-        dx = y0 * b1 + y1 * b2
-        dx_ok_t = torch.all(torch.isfinite(dx))
-        dx = torch.where(dx_ok_t, dx, torch.zeros_like(dx))
-        new_state = dense._retract_state(problem, state, dx)
-        new_blocks, new_cost_t = total_blocks(new_state)
-        grad_norm, new_cost, dx_ok, step_norm, dx_max = torch.stack([
-            grad_norm_t, new_cost_t, dx_ok_t.to(dtype), torch.sqrt(torch.sum(dx * dx)),
-            dx.abs().max(),
-        ]).tolist()
-
-        actual = cost - new_cost
-        rho = actual / max(pred, 1e-30)
-        accept_ref = max(cost_buf) if config.nonmonotonic else cost
-        accept = math.isfinite(new_cost) and new_cost < accept_ref
-        if not accept:
-            new_radius = radius * 0.25
-        elif rho > 0.75:
-            new_radius = max(radius, 3.0 * step_norm)
-        elif rho < 0.25:
-            new_radius = radius * 0.5
-        else:
-            new_radius = radius
-        small = accept and actual >= 0.0 and actual <= config.ftol * max(cost, 1e-30)
-        radius = min(max(new_radius, 1e-12), 1e12)
-        if accept:
-            state, blocks, cost = new_state, new_blocks, new_cost
-            cost_buf[it % config.nonmonotonic_window] = new_cost
-            if new_cost < best[2]:
-                best = (new_state, new_blocks, new_cost)
-        history.add(it, cost, radius, grad_norm, accept)  # the radius in the lambda slot
-        it += 1
-        if (small or grad_norm <= config.gtol or (dx_ok and dx_max <= config.xtol)
-                or radius <= 1e-11):
-            break
-    if config.nonmonotonic:
-        state, blocks, cost = best
-    return state, history.summary(it, cost0, cost, grad_norm, radius), blocks
+        steps = [subspace_solution(*m, radius[b]) if ch.active[b] else (0.0, 0.0, math.nan)
+                 for b, m in enumerate(model.tolist())]
+        y = torch.tensor([s[:2] for s in steps], dtype=ch.dtype).to(ch.device)
+        dx = y[:, :1] * b1 + y[:, 1:] * b2
+        dx_ok_t = torch.all(torch.isfinite(dx), dim=-1)
+        dx = torch.where(dx_ok_t[:, None], dx, torch.zeros_like(dx))
+        new_state = dense._retract_state(terms, state, dx)
+        new_blocks, new_cost_t = window_mod.total_blocks(layout, new_state)
+        stats = torch.stack([
+            grad_norm_t, new_cost_t, dx_ok_t.to(ch.dtype), torch.sqrt(torch.sum(dx * dx, dim=-1)),
+            dx.abs().amax(dim=-1),
+        ], dim=-1).tolist()
+        for b, (grad_norm, new_cost, dx_ok, step_norm, dx_max) in enumerate(stats):
+            if not ch.active[b]:
+                continue
+            ch.grad_norm[b] = grad_norm
+            accept, actual = ch.accept_test(b, new_cost)
+            rho = actual / max(steps[b][2], 1e-30)
+            if not accept:
+                new_radius = radius[b] * 0.25
+            elif rho > 0.75:
+                new_radius = max(radius[b], 3.0 * step_norm)
+            elif rho < 0.25:
+                new_radius = radius[b] * 0.5
+            else:
+                new_radius = radius[b]
+            small = accept and actual >= 0.0 and actual <= config.ftol * max(ch.cost[b], 1e-30)
+            radius[b] = min(max(new_radius, 1e-12), 1e12)
+            done = (small or grad_norm <= config.gtol or (dx_ok and dx_max <= config.xtol)
+                    or radius[b] <= 1e-11)
+            ch.record(b, accept, new_cost, radius[b], done)  # the radius in the lambda slot
+        ch.advance(new_state, new_blocks)
+    return ch.finish(radius)

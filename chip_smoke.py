@@ -14,7 +14,12 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            float64 and float32, with median times per call (CUDA events
            around the wrapper, host included): K1 at the flagship window
            shape (K=2, J=192, O=2) and the S scale (K=64, J=2048, 16,384
-           slots), called twice for equal bits; K2 (fused with its pose and
+           slots), called twice for equal bits; the batched K1 (one launch
+           for B windows) at the sliding-window grid's padded window (B=15,
+           K=2, J=128, O=2) and at kitti1100's (B=2, K=2, J=192, O=2): each
+           window bit-equal to its single-window launch, within the same
+           tolerance of the batched plain version, beside B single launches
+           back to back; K2 (fused with its pose and
            landmark sums) and K3 (bound to the full-batch plan) at the
            full-batch shapes of triangle200 (N 12,992, J 448, K 200) and
            kitti1100 (N 124,480, J 16,640, K 1,100), called twice for equal
@@ -32,8 +37,9 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            current stream
   slice    generates triangle200 and kitti1100 with the port's make_sim and
            runs both CLIs on CUDA: the flagship sliding window (dataset_vo_sun,
-           triangle200 float64 and float32, kitti1100 float64; K1 launch
-           counts and ATE against the JAX figures; triangle200 float64 twice,
+           its two passes one batch of two; triangle200 float64 and float32,
+           kitti1100 float64; the windows K1 served at least the windows
+           solved, and ATE against the JAX figures; triangle200 float64 twice,
            which must write byte-identical *_poses.csv) and
            full-batch BA
            (dataset_vo --window 0, the same three runs; K2 and K3 launch
@@ -44,6 +50,15 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            child process once its checkpoint holds window 100 or later,
            then run again, resuming, which must write the uninterrupted
            run's *_poses.csv byte for byte (K1 launches in the resumed part)
+  batch    the batched grid: make_sim writes triangle200, square200 and
+           penta200 with --sun-noise 0 10 20 30 into a grid directory, and
+           dataset_vo_sun_batch --sims solves its 15 chains (VO-only + 4 sun
+           configurations a sequence, 199 windows each) in lockstep, float64:
+           each chain's ATE within 15% of the JAX figures, the triangle200 VO
+           and gtsun10 chains within 1e-6 (poses) of one sequential
+           solve_sliding_window pass each, K1 launched at least once per
+           batched trust-region iteration and never alone; the wall,
+           aggregate windows/s, launches and windows per launch
   dense    dense photometric alignment through the dense_stereo CLI at
            240x320 (68,096 aligned pixels), float64: rendered disparities
            (--gt-disparity) against the JAX figures, the full chain (SGM,
@@ -119,7 +134,9 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            solve (device busy share, launches per LM iteration); and, after
            the phong phase, a trace of 5 LM iterations of phong200's joint
            stage (float64, vertex-Schur), and after the blowup phase a trace
-           of 10 blow-up solves. It runs whenever the kernels phase
+           of 10 blow-up solves, and after the batch phase a trace of one
+           step of the grid (window 20 of its 15 chains, solved together:
+           device busy share, launches). It runs whenever the kernels phase
            runs with no main-path phase (slice, dense, phong) after it.
 
 Any failure exits non-zero before the result line. The last line of
@@ -148,8 +165,8 @@ sys.modules["jax"] = None
 sys.modules["ceres_slam_tpu"] = None
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "slice", "dense", "phong", "graph", "blowup", "live_vo",
-          "dist", "cpu", "profile")
+PHASES = ("device", "build", "kernels", "slice", "batch", "dense", "phong", "graph", "blowup",
+          "live_vo", "dist", "cpu", "profile")
 
 # JAX package reference ATEs [m] (f64, --window 2, gtsun10 obs file), and
 # the relative bound each run is held to: the 1,100-window chain gets a
@@ -157,6 +174,27 @@ PHASES = ("device", "build", "kernels", "slice", "dense", "phong", "graph", "blo
 JAX_ATE = {"triangle200": {"vo": 0.3079, "sun": 0.3252},
            "kitti1100": {"vo": 10.1957, "sun": 9.4062}}
 ATE_BOUND = {"triangle200": 0.15, "kitti1100": 0.30}
+
+# JAX package reference ATEs [m] of the batched grid (dataset_vo_sun_batch
+# --sims over triangle200, square200, penta200 with sun noise 0, 10, 20, 30
+# degrees; float64, window 2, on a CPU; recorded by
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_batch.py DIR
+# ), each chain held to 15% as the flagship runs are. The batched K1's
+# shapes: the grid's padded window (15 chains) and kitti1100's (the
+# flagship's two passes).
+JAX_GRID_ATE = {
+    "triangle200": {"vo": 0.3078744672055887, "gtsun0": 0.11567067093296915,
+                    "gtsun10": 0.3251794973471536, "gtsun20": 0.41141736284667246,
+                    "gtsun30": 0.4396799674310402},
+    "square200": {"vo": 0.2963890054012385, "gtsun0": 0.25597432105901646,
+                  "gtsun10": 0.3630550779007953, "gtsun20": 0.42477540742171827,
+                  "gtsun30": 0.4313725929705812},
+    "penta200": {"vo": 0.3949418419645134, "gtsun0": 0.2521623397170816,
+                 "gtsun10": 0.323058716224605, "gtsun20": 0.3314065003324104,
+                 "gtsun30": 0.30362212687936857},
+}
+GRID_ATE_BOUND, GRID_SEQ_ATOL = 0.15, 1e-6
+K1_BATCH_SHAPES = {"grid": (15, 2, 128, 2), "kitti1100": (2, 2, 192, 2)}
 
 # JAX package reference figures of full-batch BA (dataset_vo --window 0,
 # float64, on a CPU): final cost and ATE [m]. The bounds: triangle200
@@ -511,6 +549,54 @@ def _kernel_k1(torch, window_kernel, results, jobs):
                 f"{worst:.3e} " + " ".join(f"{k}={v:.1e}" for k, v in errs.items()))
 
 
+def _kernel_k1_batch(torch, window_kernel, results, jobs):
+    """The batched K1 (one launch for B windows) against the single-window
+    launches on the same windows (bit for bit) and its plain version."""
+    fn = window_kernel.window_factor_blocks_batch
+    for shape, (B, K, J, O) in K1_BATCH_SHAPES.items():
+        for dtype in (torch.float64, torch.float32):
+            tag = "f64" if dtype == torch.float64 else "f32"
+            label = f"K1 batch {shape} B={B} K={K} J={J} O={O} {tag}"
+            plan, poses, points, single = window_kernel.random_batch_inputs(
+                B, K, J, O, dtype, "cuda", seed=9)
+            args = (plan, poses, points)
+            out, again = fn(*args), fn(*args)
+            alone = [window_kernel.window_factor_blocks(*a) for a in single]
+            plain = window_kernel.window_factor_blocks_batch_plain(*args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(out, again)):
+                fail(f"{label}: two calls on the same inputs differ")
+            for b, one in enumerate(alone):
+                if not all(torch.equal(x[b], y) for x, y in zip(out, one)):
+                    fail(f"{label}: window {b} differs from its single-window launch")
+            worst = 0.0
+            for b in range(B):
+                kern = _split(tuple(x[b] for x in out))
+                ref = _split(tuple(x[b] for x in plain))
+                for name, r in ref.items():
+                    err = (kern[name].double() - r.double()).abs().max().item()
+                    worst = max(worst, err)
+                    tol = TOL64 if dtype == torch.float64 else TOL32[name]
+                    if not torch.isfinite(kern[name]).all() or not err <= tol * r.double().abs().max().item():
+                        fail(f"{label}: window {b} {name} max|err| {err:.3e}")
+            ms, singles_ms = _medians_ms(torch, [
+                lambda: fn(*args), lambda: [window_kernel.window_factor_blocks(*a) for a in single]])
+            plain_ms = _median_ms(torch, lambda: window_kernel.window_factor_blocks_batch_plain(*args),
+                                  reps=10)
+            host_us = _host_us(torch, lambda: fn(*args))
+            inputs = (poses, points, plan.pose_idx, plan.obs[:, :14], plan.pose_start,
+                      plan.point_by_pose, plan.cams)
+            row = results[("K1 batch", shape, tag)] = {
+                "B": B, "max_abs_err": worst, "ms": ms, "singles_ms": singles_ms,
+                "plain_ms": plain_ms, **_bound(inputs, out, OPS_PER_ROW["K1"] * B * J * O, tag),
+                "library_ms": None}
+            jobs.append((label, lambda a=args: fn(*a), row))
+            log(f"[kernels] {label}: kernel {ms * 1e3:.1f} us (host {host_us:.1f} us per call "
+                f"back to back) for {B} windows, {B} single-window launches {singles_ms * 1e3:.1f} "
+                f"us, plain {plain_ms * 1e3:.1f} us, {_bound_str(row)}, every window bit-equal to "
+                f"its single launch, two calls bit-equal, max|err| vs plain {worst:.3e}")
+
+
 def _compare(tag, names, got, ref, tol):
     """Worst and per-output max |kernel - plain|; ``tol(name, ref)`` is the
     bound of one output."""
@@ -759,13 +845,15 @@ def phase_kernels(torch, kernels):
     results, jobs = {}, []
     _stream_lookup(torch, cuda_build)
     _kernel_k1(torch, kernels["K1"], results, jobs)
+    _kernel_k1_batch(torch, kernels["K1"], results, jobs)
     _kernel_full_batch(torch, kernels, results, jobs)
     _kernel_k4(torch, kernels["K4"], results, jobs)
     _kernel_p(torch, kernels["P"], results, jobs)
     return results, jobs, _p_path(torch, kernels["P"])
 
 
-def phase_profile(torch, jobs, dense: bool, phong: bool, data, blowup: bool = False):
+def phase_profile(torch, jobs, dense: bool, phong: bool, data, blowup: bool = False,
+                  grid: bool = False):
     """torch.profiler measurements, run last so that no profiler session
     precedes the timed main-path runs: each kernel call's device time and
     kernels per call (K1 must run one, K2 and K3 two), K4 on the path's own
@@ -811,6 +899,8 @@ def phase_profile(torch, jobs, dense: bool, phong: bool, data, blowup: bool = Fa
         _profile_solve(torch, lambda: photometric.solve_photometric(problem, state0, cfg))
     if phong:
         _profile_phong(torch, data)
+    if grid:
+        _profile_grid_step(torch, data)
     if blowup:
         from ceres_slam_tpu_torch.apps import blowup as blowup_app
 
@@ -859,6 +949,20 @@ def _make_sims(data):
     log(f"[slice] sims (triangle200, kitti1100): {time.perf_counter() - t0:.2f} s")
 
 
+def _reset_k1(window_kernel):
+    single, batch = window_kernel.window_factor_blocks, window_kernel.window_factor_blocks_batch
+    single.launches = batch.launches = batch.windows = 0
+
+
+def _k1_launches(window_kernel) -> dict:
+    """K1's launches since ``_reset_k1``, single-window and batched, and the
+    windows they served."""
+    single, batch = window_kernel.window_factor_blocks, window_kernel.window_factor_blocks_batch
+    return {"single": single.launches, "batch": batch.launches,
+            "total": single.launches + batch.launches,
+            "windows": single.launches + batch.windows}
+
+
 def _run_cli(data, seq, dtype, device, window_kernel, extra=()):
     import numpy as np
 
@@ -866,11 +970,11 @@ def _run_cli(data, seq, dtype, device, window_kernel, extra=()):
     from ceres_slam_tpu_torch.utils import csvio, metrics
 
     base = os.path.join(data, seq)
-    window_kernel.window_factor_blocks.launches = 0
+    _reset_k1(window_kernel)
     stats = dataset_vo_sun.main([base + ".csv", base + "_sun_ref.csv",
                                  base + "_sun_dir_gtsun10.csv", "--window", "2",
                                  "--dtype", dtype, "--device", device, *extra])
-    launches = window_kernel.window_factor_blocks.launches
+    launches = _k1_launches(window_kernel)
     gt = csvio.read_poses_csv(base + "_gt_poses.csv")
     poses, ate = {}, {}
     for name, p in stats["passes"].items():
@@ -913,7 +1017,7 @@ def _run_full(data, seq, dtype, device, kernels):
 def _repeat_bytes(data, seq, dtype, kernels, stats):
     """Run the flagship CLI again (ROADMAP F14: every sum on the card in a
     fixed order) and fail unless its *_poses.csv equal the first run's
-    bytes. Returns the rerun's K1 launches."""
+    bytes. Returns the rerun's K1 launches (``_k1_launches``)."""
     first = {name: open(p["output"], "rb").read() for name, p in stats["passes"].items()}
     again, launches, _, _ = _run_cli(data, seq, dtype, "cuda", kernels["K1"])
     for name, p in again["passes"].items():
@@ -926,16 +1030,19 @@ def _repeat_bytes(data, seq, dtype, kernels, stats):
 
 
 def _slice_window(data, kernels):
-    """The flagship sliding-window CLI; returns K1's launches and the
-    triangle200 float64 poses."""
+    """The flagship sliding-window CLI (its two passes one batch); returns
+    K1's launches and the triangle200 float64 poses. Each launch of the
+    batched K1 serves a window of both passes: the gate counts the windows
+    served, at least one for each window solved."""
     total_launches, keep = 0, None
     for seq, dtype in (("triangle200", "float64"), ("triangle200", "float32"),
                        ("kitti1100", "float64")):
         stats, launches, poses, ate = _run_cli(data, seq, dtype, "cuda", kernels["K1"])
         windows = sum(p["windows"] for p in stats["passes"].values())
-        if launches < windows:
-            fail(f"{seq} {dtype}: {launches} K1 launches for {windows} solved windows")
-        total_launches += launches
+        if launches["windows"] < windows or not stats["batched"] or launches["single"]:
+            fail(f"{seq} {dtype}: K1 served {launches['windows']} windows ({launches}) for "
+                 f"{windows} solved windows of the batched passes")
+        total_launches += launches["total"]
         for name, ref in JAX_ATE[seq].items():
             dev = abs(ate[name] - ref) / ref
             log(f"[slice] {seq} {dtype} {name}: ATE {ate[name]:.4f} m (JAX {ref:.4f}, "
@@ -943,13 +1050,16 @@ def _slice_window(data, kernels):
             if dev > ATE_BOUND[seq]:
                 fail(f"{seq} {dtype} {name}: ATE {ate[name]:.4f} vs JAX {ref:.4f}")
         log(f"[slice] {seq} {dtype} cuda: load {stats['load_s']:.2f} s, RANSAC "
-            f"{stats['ransac_s']:.2f} s, total {stats['total_s']:.2f} s, K1 launches {launches}")
+            f"{stats['ransac_s']:.2f} s, both passes as one batch {stats['batch_wall_s']:.2f} s, "
+            f"total {stats['total_s']:.2f} s; K1 launches {launches['total']} (batched "
+            f"{launches['batch']}) serving {launches['windows']} windows, "
+            f"{launches['windows'] / max(launches['total'], 1):.2f} windows per launch")
         for name, p in stats["passes"].items():
             log(f"[slice]   pass {name}: {p['windows']} windows in {p['wall_s']:.2f} s "
                 f"({p['windows_per_s']:.1f} windows/s), {p['mean_iters']:.2f} iterations/window")
         if (seq, dtype) == ("triangle200", "float64"):
             keep = poses
-            total_launches += _repeat_bytes(data, seq, dtype, kernels, stats)
+            total_launches += _repeat_bytes(data, seq, dtype, kernels, stats)["total"]
     return total_launches, keep
 
 
@@ -1056,9 +1166,9 @@ def _checkpoint_resume(data, window_kernel):
              "checkpoint held window 100")
     from ceres_slam_tpu_torch.apps import dataset_vo_sun
 
-    window_kernel.window_factor_blocks.launches = 0
+    _reset_k1(window_kernel)
     resumed = dataset_vo_sun.main(argv + ["--checkpoint", path, "--checkpoint-every", "25"])
-    k1 = window_kernel.window_factor_blocks.launches
+    k1 = _k1_launches(window_kernel)["total"]
     windows = resumed["passes"]["sun"]["windows"]
     same = open(out, "rb").read() == first
     log(f"[slice] checkpoint resume (triangle200 float64 sun pass): killed at checkpoint "
@@ -1067,7 +1177,7 @@ def _checkpoint_resume(data, window_kernel):
         f"{'byte-identical' if same else 'DIFFERENT'} {os.path.basename(out)}")
     if not same or not 0 < windows <= 199 - step or not k1 or os.path.exists(path + ".sun"):
         fail("the resumed pass differs from the uninterrupted one, or did not resume")
-    return launches + k1
+    return launches["total"] + k1
 
 
 def phase_slice(kernels, data):
@@ -1077,6 +1187,118 @@ def phase_slice(kernels, data):
     full_launches, (full_poses, jacobi_cost) = _slice_full(data, kernels)
     _banded_full(data, kernels, jacobi_cost)
     return {"K1": k1_launches, **full_launches}, window_poses, full_poses
+
+
+def _grid_dir(data):
+    """triangle200, square200 and penta200 with the four sun-noise files, in
+    the grid's own directory (once per run of the script)."""
+    from ceres_slam_tpu_torch.apps import make_sim
+
+    grid = os.path.join(data, "grid")
+    if not os.path.exists(os.path.join(grid, "penta200.csv")):
+        t0 = time.perf_counter()
+        for seq in ("triangle", "square", "penta"):
+            make_sim.main([grid, "--kind", seq, "--num-states", "200", "--sun-noise", "0", "10",
+                           "20", "30"])
+        log(f"[batch] sims (triangle200, square200, penta200, 4 sun files each): "
+            f"{time.perf_counter() - t0:.2f} s")
+    return grid
+
+
+def phase_batch(kernels, data, smi):
+    """The 15-chain grid through dataset_vo_sun_batch --sims on the card;
+    returns K1's launches."""
+    import numpy as np
+
+    import torch
+
+    from ceres_slam_tpu_torch.apps import dataset_vo_sun_batch
+    from ceres_slam_tpu_torch.problems.dataset import DatasetProblemSun
+    from ceres_slam_tpu_torch.solver.lm import SolveConfig
+    from ceres_slam_tpu_torch.utils import csvio, metrics
+
+    grid = _grid_dir(data)
+    wk = kernels["K1"]
+    _reset_k1(wk)
+    stats = dataset_vo_sun_batch.main(["--sims", grid, "--dtype", "float64", "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = _k1_launches(wk)
+    runs = stats["runs"]
+    steps = max(len(r["iterations_by_window"]) for r in runs)
+    # a step's loops run until its slowest chain stops: one K1 launch each
+    # iteration, and one for the initial cost
+    iterations = sum(max(r["iterations_by_window"][w] for r in runs if w < len(r["iterations_by_window"]))
+                     for w in range(steps))
+    log(f"[batch] grid of {len(runs)} chains ({smi}): {stats['windows']} windows in "
+        f"{stats['wall_s']:.2f} s ({stats['windows_per_s']:.1f} windows/s aggregate; set-up "
+        f"{stats['setup_s']:.2f} s); K1 launches {launches['total']} (batched "
+        f"{launches['batch']}), {launches['windows']} windows served, "
+        f"{launches['windows'] / max(launches['total'], 1):.2f} windows per launch; "
+        f"{steps} steps, {iterations} batched trust-region iterations, "
+        f"{sum(r['iterations'] for r in runs)} chain iterations")
+    if launches["single"] or launches["total"] < iterations or len(runs) != 15:
+        fail(f"grid: {len(runs)} chains, K1 launches {launches} for {iterations} batched "
+             "trust-region iterations")
+    for r in runs:
+        name = os.path.basename(r["output"])[:-len("_poses.csv")]
+        seq, _, method = name.partition("_")
+        method = method or "vo"
+        gt = csvio.read_poses_csv(os.path.join(grid, f"{seq}_gt_poses.csv"))
+        poses = csvio.read_poses_csv(r["output"])
+        if poses.shape != gt.shape or not np.all(np.isfinite(poses)):
+            fail(f"grid {name}: poses not finite or of shape {gt.shape}")
+        ate, ref = metrics.ate_translation(poses, gt), JAX_GRID_ATE[seq][method]
+        dev = abs(ate - ref) / ref
+        log(f"[batch]   {seq} {method}: ATE {ate:.4f} m (JAX {ref:.4f}, {100 * dev:.2f}% off, "
+            f"bound {100 * GRID_ATE_BOUND:.0f}%), {r['windows']} windows, {r['iterations']} "
+            "iterations")
+        if dev > GRID_ATE_BOUND:
+            fail(f"grid {name}: ATE {ate:.4f} vs JAX {ref:.4f}")
+    # two chains again, each alone through the sequential pass
+    base = os.path.join(grid, "triangle200")
+    config = SolveConfig(max_iters=1000, nonmonotonic=True, ftol=1e-6, xtol=1e-6)
+    for method, use_sun in (("vo", False), ("gtsun10", True)):
+        ds = DatasetProblemSun.read_csv(base + ".csv", base + "_sun_ref.csv",
+                                        base + "_sun_dir_gtsun10.csv")
+        ds.device = "cuda"
+        ds.precompute_pair_alignments()
+        t0 = time.perf_counter()
+        summaries = ds.solve_sliding_window(window=2, use_sun=use_sun, config=config)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out = base + ("_poses.csv" if method == "vo" else f"_{method}_poses.csv")
+        d = float(np.max(np.abs(csvio.read_poses_csv(out) - ds.poses)))
+        log(f"[batch] triangle200 {method} alone (solve_sliding_window): {len(summaries)} windows "
+            f"in {wall:.2f} s ({len(summaries) / wall:.1f} windows/s); max |pose(grid) - "
+            f"pose(alone)| = {d:.3e} (bound {GRID_SEQ_ATOL:g})")
+        if not d <= GRID_SEQ_ATOL:
+            fail(f"grid triangle200 {method}: the batched chain differs from its pass alone by "
+                 f"{d:.3e}")
+    return launches["total"]
+
+
+def _profile_grid_step(torch, data):
+    """One step of the grid (window 20 of its 15 chains solved together,
+    float64, after 20 steps untraced) under the profiler."""
+    from ceres_slam_tpu_torch.apps import dataset_vo_sun_batch
+    from ceres_slam_tpu_torch.problems import batch_scan
+    from ceres_slam_tpu_torch.solver.lm import SolveConfig
+
+    runs, _ = dataset_vo_sun_batch.load_runs(
+        dataset_vo_sun_batch.grid_runs(os.path.join(data, "grid")), "float64", "cuda")
+    solver = batch_scan.BatchSolve(runs, 2, SolveConfig(max_iters=1000, nonmonotonic=True,
+                                                        ftol=1e-6, xtol=1e-6))
+    for k1 in range(20):
+        solver.step(k1)
+    torch.cuda.synchronize()
+    n = sum(1 for c in solver.chains if len(c.ok) == 20)
+    t = _trace(torch, lambda: solver.step(20))
+    its = max(c.summaries[-1].iterations for c in solver.chains)
+    log(f"[profile] grid step (window 20 of {n} chains, float64, {its} trust-region "
+        f"iterations): wall {t['wall_us'] / 1e3:.2f} ms (profiled), device busy "
+        f"{t['device_us'] / 1e3:.3f} ms ({100 * t['device_us'] / t['wall_us']:.2f}%), "
+        f"{t['kernels']:g} device kernels, {t['launches']:g} launches, {t['syncs']:g} syncs, "
+        f"{t['copies']:g} copies; per iteration {t['launches'] / (its + 1):.1f} launches")
 
 
 def _graph_dataset(data, seq, device):
@@ -1818,8 +2040,8 @@ def phase_cpu(kernels, data, window_poses, full_poses, dense_pose, graph_poses):
     if window_poses is None:
         return
     stats, launches, poses, _ = _run_cli(data, "triangle200", "float64", "cpu", kernels["K1"])
-    if launches:
-        fail(f"the CPU run launched K1 {launches} times")
+    if launches["total"]:
+        fail(f"the CPU run launched K1: {launches}")
     for name in poses:
         d = float(np.max(np.abs(poses[name] - window_poses[name])))
         log(f"[cpu] triangle200 float64 {name}: max |pose(cpu) - pose(cuda)| = {d:.3e} "
@@ -1841,7 +2063,8 @@ def phase_cpu(kernels, data, window_poses, full_poses, dense_pose, graph_poses):
 PALLAS = "ceres_slam_tpu/ops/pallas_kernels.py"
 KERNELS = (
     ("K1", "window_factor_blocks", "window_factor_blocks.cu", f"{PALLAS}:299", "flagship", "f64",
-     "redesigned: one launch (pose blocks, landmark blocks), per-window plan, thin launch path"),
+     "redesigned: one launch (pose blocks, landmark blocks), per-window plan, thin launch path; "
+     "batched: one launch for B windows of one shape (window_factor_blocks_batch)"),
     ("K2", "stereo_factor_sums", "stereo_factor_blocks.cu", f"{PALLAS}:124", "kitti1100", "f64",
      "redesigned: fused with its pose and landmark sums (a block per pose, then a landmark "
      "pass in slot order), staged 16-byte stores, full-batch plan, thin launch path"),
@@ -1901,6 +2124,8 @@ def main():
     if "slice" in phases:
         slice_launches, window_poses, full_poses = phase_slice(kernels, data)
         launches.update(slice_launches)
+    if "batch" in phases:
+        launches["K1"] += phase_batch(kernels, data, smi)
     if "dense" in phases:
         launches["K4"], dense_pose = phase_dense(kernels, data)
     if "phong" in phases:
@@ -1919,15 +2144,18 @@ def main():
     if "cpu" in phases:
         phase_cpu(kernels, data, window_poses, full_poses, dense_pose, graph_poses)
     if "profile" in phases or ("kernels" in phases
-                               and not {"slice", "dense", "phong"} & set(phases)):
+                               and not {"slice", "batch", "dense", "phong"} & set(phases)):
         phase_profile(torch, jobs, "dense" in phases, "phong" in phases, data,
-                      "blowup" in phases)
+                      "blowup" in phases, "batch" in phases)
     nan = {"max_abs_err": math.nan, "ms": math.nan, "plain_ms": math.nan, "bound_ms": math.nan,
            "bound_by": None, "library_ms": None}
+    batched = {f"{shape} {tag}": k[("K1 batch", shape, tag)] for shape in K1_BATCH_SHAPES
+               for tag in ("f64", "f32") if ("K1 batch", shape, tag) in k}
     log(json.dumps({"kernels": [{
         "name": fn, "route": "cuda", "source": f"ceres_slam_tpu_torch/csrc/{src}",
         "replaces": replaces, "launches": launches[name],
-        **k.get((name, shape, tag), nan), "design": design}
+        **k.get((name, shape, tag), nan), "design": design,
+        **({"batched": batched} if name == "K1" and batched else {})}
         for name, fn, src, replaces, shape, tag, design in KERNELS]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

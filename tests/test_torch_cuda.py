@@ -84,6 +84,124 @@ def test_k1_deterministic_single_launch(shape, dtype):
     assert torch.equal(blocks.stereo_cost, a[4])
 
 
+# The batched K1: B windows of one shape in one launch. The shapes are the
+# sliding-window grid's padded window (triangle/square/penta200: K 2, J 128,
+# O 2; 15 chains) and kitti1100's (K 2, J 192, O 2; the flagship's two
+# passes). Window b equals a single-window launch on window b's plan bit for
+# bit (the same device code on the same slice); against the plain version
+# K1's tolerances above.
+K1_BATCH = {"grid": (15, 2, 128, 2), "kitti1100": (2, 2, 192, 2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("shape", list(K1_BATCH))
+def test_batched_k1_equals_single_launches(shape, dtype):
+    """One launch for B windows (counted once, serving B windows), one
+    device kernel a call; each window bit-equal to its single-window launch
+    and within K1's tolerance of the plain version; two calls the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    B, K, J, O = K1_BATCH[shape]
+    plan, poses, points, single = window_kernel.random_batch_inputs(B, K, J, O, dtype, "cuda",
+                                                                    seed=31)
+    fn = window_kernel.window_factor_blocks_batch
+    launches, windows = fn.launches, fn.windows
+    got = fn(plan, poses, points)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.windows) == (launches + 1, windows + B)
+    for b, args in enumerate(single):
+        for x, y in zip(got, window_kernel.window_factor_blocks(*args)):
+            assert torch.equal(x[b], y)
+    ref = window_kernel.window_factor_blocks_batch_plain(plan, poses, points)
+    for b in range(B):
+        r = _split(tuple(x[b] for x in ref))
+        for name, g in _split(tuple(x[b] for x in got)).items():
+            g, rr = g.double(), r[name].double()
+            assert torch.isfinite(g).all(), name
+            assert (g - rr).abs().max() <= TOL[dtype][name] * rr.abs().max(), name
+    again = fn(plan, poses, points)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    assert _device_kernels(lambda: fn(plan, poses, points)) == 1
+
+
+def _batch_sims(tmp_path):
+    """Two datasets (16 and 12 states) and the three runs of
+    tests/test_torch_batch.py, on the card."""
+    from ceres_slam_tpu_torch.problems import batch_scan
+    from ceres_slam_tpu_torch.problems.dataset import DatasetProblemSun
+    from ceres_slam_tpu_torch.utils import sim
+
+    bases = []
+    for kind, k, j, seed in (("triangle", 16, 120, 0), ("square", 12, 90, 5)):
+        ds = sim.generate(kind=kind, num_states=k, num_points=j, seed=seed,
+                          stereo_noise=(0.3, 0.3, 0.3), sun_noise_deg=5.0)
+        base = str(tmp_path / kind)
+        sim.write_track_csv(ds, base + ".csv", with_covar=True)
+        sim.write_ref_sun_csv(ds, base + "_sun_ref.csv")
+        sim.write_obs_sun_csv(ds, base + "_sun_dir.csv")
+        bases.append(base)
+
+    def load(base):
+        d = DatasetProblemSun.read_csv(base + ".csv", base + "_sun_ref.csv",
+                                       base + "_sun_dir.csv")
+        d.device = "cuda"
+        return d
+
+    runs = [(bases[0], dict(use_sun=False)), (bases[0], dict(use_sun=True)),
+            (bases[1], dict(use_sun=True, huber_param=0.1, az_err_thresh=0.2,
+                            zen_err_thresh=0.2))]
+
+    def batch():
+        datasets = {b: load(b) for b in bases}
+        return batch_scan.solve_batch([batch_scan.RunSpec(datasets[b], **kw) for b, kw in runs],
+                                      config=lm.SolveConfig(**_BATCH_CFG))
+
+    return runs, load, batch
+
+
+_BATCH_CFG = dict(max_iters=1000, nonmonotonic=True, ftol=1e-6, xtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_batch_solve_on_the_card_matches_sequential_passes(tmp_path):
+    """A 3-run batch on the card (two datasets, VO and sun runs) against
+    each run's sequential pass on the card: poses within 1e-8, the same
+    iterations in every window; the batched K1 serves every window of a
+    step in one launch, at least once a trust-region iteration."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    runs, load, batch = _batch_sims(tmp_path)
+    fn = window_kernel.window_factor_blocks_batch
+    launches = fn.launches
+    results = batch()
+    steps = max(r.ok.size for r in results)
+    iterations = sum(max((s.iterations for r in results for i, s in _by_window(r) if i == w),
+                         default=0) for w in range(steps))
+    assert fn.launches - launches >= iterations >= steps
+    for res, (base, kw) in zip(results, runs):
+        ds = load(base)
+        summaries = ds.solve_sliding_window(window=2, config=lm.SolveConfig(**_BATCH_CFG), **kw)
+        assert np.abs(res.poses - ds.poses).max() <= 1e-8
+        assert [s.iterations for s in res.summaries] == [s.iterations for s in summaries]
+
+
+def _by_window(res):
+    """``(window index, summary)`` of a run's solved windows."""
+    return zip(np.nonzero(res.ok)[0], res.summaries)
+
+
+@pytest.mark.cuda
+def test_batch_solve_is_bit_reproducible(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _, _, batch = _batch_sims(tmp_path)
+    a, b = batch(), batch()
+    for x, y in zip(a, b):
+        assert np.array_equal(x.poses, y.poses) and np.array_equal(x.pose_covars, y.pose_covars)
+        assert [s.iterations for s in x.summaries] == [s.iterations for s in y.summaries]
+
+
 # K2 (fused: the factor pass with its pose and landmark sums) and K3 (bound
 # to the full-batch plan) against their plain versions at the full-batch
 # shapes of the sims (triangle200: N 12,992, J 448, K 200; kitti1100: N
