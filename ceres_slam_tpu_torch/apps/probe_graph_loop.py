@@ -4,15 +4,21 @@ The port's counterpart of ``scripts/probe_pallas_scan.py``, which asks the
 TPU toolchain whether a Pallas kernel (``double_kernel``, o = 2 x) can run
 inside ``lax.scan`` and ``lax.while_loop``. On Hopper the question is
 whether a launch on the port's thin launch path can be captured in a CUDA
-graph (``torch.cuda.CUDAGraph``) and replayed, which a launch-light solver
-loop needs. The cases, each in its own process (a failed capture must not
-take down the matrix):
+graph (``torch.cuda.CUDAGraph``) and replayed, and run in a loop on the
+device (``ops/graph_loop.DeviceWhile``: a conditional WHILE node), which a
+launch-light solver loop needs. The cases, each in its own process (a
+failed capture must not take down the matrix):
 
   grid_in_graph        3 launches of P's 4-block form captured in one graph, replayed
   grid1_in_graph       the same with P's 1-block form
   eager_loop           3 launches in a Python loop, no graph
   grid_in_replay_loop  one captured in-place launch, replayed 3 times from the
-                       host (the while_loop analogue)
+                       host (the loop and its count stay on the host)
+  grid_in_while        the TPU probe's grid_in_while: P's in-place 4-block
+                       launch as the body of a WHILE node, with a counter on
+                       the device that stops the loop at 3
+  grid_in_while_data   the same body while sum(x) < 8 sum(x0), a condition
+                       on the data the body wrote (the form CG's loop takes)
   k1_in_graph          3 launches of K1 (window_factor_blocks) on a flagship
                        window plan captured in one graph: each replay must equal
                        the eager launches bit for bit, also after the poses
@@ -31,7 +37,8 @@ import os
 import subprocess
 import sys
 
-P_CASES = ("grid_in_graph", "grid1_in_graph", "eager_loop", "grid_in_replay_loop")
+P_CASES = ("grid_in_graph", "grid1_in_graph", "eager_loop", "grid_in_replay_loop",
+           "grid_in_while", "grid_in_while_data")
 CASES = P_CASES + ("k1_in_graph",)
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -40,6 +47,43 @@ def _check_times8(torch, x, y):
     if not torch.equal(y, x * 8):
         raise AssertionError(f"result differs from x * 8 at {int((y != x * 8).sum())} elements")
     return float(y.sum())
+
+
+def p_while(torch, x, stop: int = 3, data: bool = False):
+    """P's while form on the card: returns ``(loop, buf, reset)``, a
+    ``DeviceWhile`` whose body doubles ``buf`` in place (P's 4-block
+    launch) while a counter on the device is below ``stop`` or, with
+    ``data``, while ``sum(buf) < 2**stop * sum(x)``; ``reset()`` puts
+    ``buf`` back to ``x`` and the condition to its start. Both forms run
+    ``stop`` iterations from ``x = arange(1024)``."""
+    from ceres_slam_tpu_torch.ops import double_kernel as P
+    from ceres_slam_tpu_torch.ops import graph_loop
+
+    threshold = float(x.sum()) * 2 ** stop
+    buf = x.clone()
+    i = torch.zeros(1, dtype=torch.int32, device=x.device)
+    pred = torch.ones(1, dtype=torch.int32, device=x.device)
+
+    def body():
+        P.double_kernel(buf, out=buf)
+        if data:
+            pred.copy_(buf.sum() < threshold)
+        else:
+            i.add_(1)
+            pred.copy_(i < stop)
+
+    P.double_kernel(x)  # build and load outside the capture
+    loop = graph_loop.DeviceWhile(body, pred, counted=(P.double_kernel,))
+
+    def reset():
+        buf.copy_(x)
+        i.zero_()
+        if data:
+            pred.copy_(x.sum() < threshold)
+        else:
+            pred.fill_(int(stop > 0))
+
+    return loop, buf, reset
 
 
 def p_case(torch, case: str) -> float:
@@ -55,6 +99,18 @@ def p_case(torch, case: str) -> float:
             y = P.double_kernel(y)
         torch.cuda.synchronize()
         return _check_times8(torch, x, y)
+    if case in ("grid_in_while", "grid_in_while_data"):
+        loop, buf, reset = p_while(torch, x, data=case == "grid_in_while_data")
+        reset()
+        n = loop.run()
+        plain, m = x, 0  # the same loop on the host, with P's plain version
+        while (float(plain.sum()) < float(x.sum()) * 8) if case.endswith("data") else m < 3:
+            plain, m = P.double_kernel_plain(plain), m + 1
+        loop.close()
+        if n != m or not torch.equal(buf, plain):
+            raise AssertionError(f"{n} iterations on the device, {m} on the host, results "
+                                 f"{'equal' if torch.equal(buf, plain) else 'different'}")
+        return _check_times8(torch, x, buf)
     P.double_kernel(x, one_block=one_block)  # build and load outside the capture
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()

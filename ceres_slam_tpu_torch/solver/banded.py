@@ -243,7 +243,9 @@ def ctridiag_factor(D, E):
 
 
 def ctridiag_solve(levels, b):
-    """Solve with a ``ctridiag_factor`` result; ``b [n, m]``."""
+    """Solve with a ``ctridiag_factor`` result; ``b [n, m]``. No host sync
+    on CUDA (triangular solves, no ``cholesky_solve``): it runs inside the
+    CG loop's CUDA graph."""
     m = b.shape[-1]
     opts = dict(dtype=b.dtype, device=b.device)
     # forward reduction: fold odd rows into even rows
@@ -252,12 +254,12 @@ def ctridiag_solve(levels, b):
         if b.shape[0] % 2:
             b = torch.cat([b, torch.zeros((1, m), **opts)])
         b_ev, b_od = b[0::2], b[1::2]
-        z = torch.cholesky_solve(b_od[..., None], ch)[..., 0]  # D_od^{-1} b_od
+        z = lm.cholesky_apply(ch, b_od)  # D_od^{-1} b_od
         bnew = b_ev - (E_eo @ z[..., None])[..., 0]
         bnew[1:] -= (E_oe.transpose(1, 2) @ z[..., None])[:-1, :, 0]
         stack.append(z)
         b = bnew
-    x = torch.cholesky_solve(b[..., None], levels[-1][0])[..., 0]
+    x = lm.cholesky_apply(levels[-1][0], b)
     # back-substitution
     for (_, _, _, Y1, Y2), z in zip(reversed(levels[:-1]), reversed(stack)):
         n2 = z.shape[0]
@@ -286,4 +288,5 @@ def precond_from_tridiag(D, E, t: TrackInfo, K: int):
         rf = F.pad(r.reshape(-1), (0, n_pad * 6 - 6 * K))
         return ctridiag_solve(levels, rf.reshape(t.n_super, m)).reshape(-1)[: K * 6].reshape(K, 6)
 
+    apply.tensors = tuple(x for level in levels for x in level if x is not None)  # what it reads
     return apply

@@ -146,6 +146,16 @@ def _cholesky_or_nan(A: torch.Tensor) -> torch.Tensor:
     return torch.where((info == 0)[..., None, None], L, torch.full_like(L, math.nan))
 
 
+def cholesky_apply(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``(L L^T)^{-1} b`` for vectors ``b [..., n]`` and factors ``L [..., n,
+    n]``: two triangular solves, as the JAX package applies its factors.
+    Unlike a batched ``torch.cholesky_solve`` it never synchronizes with the
+    host on CUDA, so a CUDA graph can capture it (``solver/pcg.py``'s CG
+    loop)."""
+    y = torch.linalg.solve_triangular(L, b[..., None], upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True)[..., 0]
+
+
 def dogleg_solve(state0, config: SolveConfig, cost_fn: Callable, normal_eq_fn: Callable,
                  retract_fn: Callable, init_radius: float = 1e4):
     """Powell's dogleg trust-region minimizer over a dense system (Ceres'

@@ -33,8 +33,19 @@ tables (the CPU default, as in the JAX package off the TPU), the
 reductions are ``dense.segment_sum``, and the kernels' wrappers run their
 plain versions. Masks are ``torch.where`` (ROADMAP F15).
 
-The CG loop runs on the host: its stop test ``|r| > tol |rhs|`` is read
-every iteration, so the iterate count equals the JAX ``while_loop``'s.
+The CG loop: on CUDA, ``pcg_solve`` runs it on the card, as the JAX
+package's ``lax.while_loop``: one iteration (K3's matvec, the
+preconditioner, the updates) and the stop test ``(i < max_iters) & (|r| >
+tol |rhs|)`` are captured in a CUDA graph and run in a conditional WHILE
+node (``ops/graph_loop.DeviceWhile``), one graph launch per LM iteration;
+the host reads the iteration count once, after the loop. ``solve_ba_pcg``
+captures it once per solve (``CGGraph``): each LM iteration copies its
+blocks and factors (``loop_inputs``) into the captured ones. ``cg`` is its
+plain version, the same iteration and test with the loop on the host (the
+test read every iteration): the CPU path, the distributed layer's loop
+(``parallel/sharded_pcg.py``, whose matvec all-reduces between
+iterations) and, on the card, ``loop="host"``. Both run the same kernels
+in the same order, so they give the same bits and iteration counts.
 """
 
 from __future__ import annotations
@@ -44,7 +55,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ceres_slam_tpu_torch.ops import full_batch_plan, lie, schur_kernel, stereo_factor_kernel
+from ceres_slam_tpu_torch.ops import (full_batch_plan, graph_loop, lie, schur_kernel,
+                                      stereo_factor_kernel)
 from ceres_slam_tpu_torch.solver import dense, lm
 from ceres_slam_tpu_torch.solver.window import _damp, _inv3x3, _pin
 
@@ -281,27 +293,40 @@ def schur_diag_blocks(b: ObsBlocks, tables: ObsTables | None = None) -> torch.Te
 
 
 def _block_precond(S_diag: torch.Tensor):
-    """Cholesky-based inverse application of the ``[K, 6, 6]`` diagonal blocks."""
+    """Cholesky-based inverse application of the ``[K, 6, 6]`` diagonal
+    blocks: two triangular solves (``lm.cholesky_apply``), no host sync."""
     chol = lm._cholesky_or_nan(S_diag)
 
     def apply(r: torch.Tensor) -> torch.Tensor:  # [K, 6]
-        return torch.cholesky_solve(r[..., None], chol)[..., 0]
+        return lm.cholesky_apply(chol, r)
 
+    apply.tensors = (chol,)  # what it reads (a captured CG loop copies new factors in)
     return apply
 
 
 def pcg_solve(b: ObsBlocks, rhs: torch.Tensor, max_iters: int, tol: float,
-              tables: ObsTables | None = None, precond=None):
+              tables: ObsTables | None = None, precond=None, loop: str | None = None,
+              graph: CGGraph | None = None):
     """Preconditioned CG on the reduced camera system; returns ``(x,
     iterations)``. The default preconditioner is the exact block-Jacobi;
     ``precond`` (a callable ``r -> M^{-1} r``, e.g.
     ``banded.make_banded_precond``) overrides it. Whatever the
     preconditioner, the matvec is ``Hpp v - K3(v)`` when ``b`` carries K3's
     binding (always on CUDA: ``b`` must come from ``build_obs_blocks``),
-    else the gather matvec with ``tables``, else segment sums."""
-    if b.uy is None and b.U18.device.type == "cuda":
+    else the gather matvec with ``tables``, else segment sums.
+
+    ``loop``: ``"device"`` (the CUDA default) runs the iterations in a
+    conditional WHILE node on the card (``device_cg``), ``"host"`` (the
+    CPU default) in ``cg``; the two give the same bits. ``graph`` (a
+    ``CGGraph``, device loop only) keeps the captured loop for the next
+    call, which copies its blocks, factors and right-hand side in."""
+    on_cuda = b.U18.device.type == "cuda"
+    if b.uy is None and on_cuda:
         raise ValueError("on CUDA the matvec runs K3: take the blocks from build_obs_blocks, "
                          "which binds them to the full-batch plan")
+    loop = loop or ("device" if on_cuda else "host")
+    if loop not in ("device", "host"):
+        raise ValueError(f"unknown CG loop: {loop!r}")
     if precond is None:
         precond = _block_precond(schur_diag_blocks(b, tables))
 
@@ -312,39 +337,168 @@ def pcg_solve(b: ObsBlocks, rhs: torch.Tensor, max_iters: int, tol: float,
             return schur_matvec_gather(b, tables, v)
         return schur_matvec(b, v)
 
+    if loop == "device":
+        return device_cg(matvec, precond, rhs, max_iters, tol, counted=(schur_kernel.schur_uy,),
+                         graph=graph, inputs=None if graph is None else loop_inputs(b, precond))
     return cg(matvec, precond, rhs, max_iters, tol)
+
+
+def loop_inputs(b: ObsBlocks, precond) -> tuple:
+    """Every tensor the CG iteration of ``pcg_solve`` reads that changes
+    from one LM iteration to the next: the blocks ``Hpp``, ``U18`` and
+    ``Cinv`` (K3 reads the last two by address) and the preconditioner's
+    factors (``precond.tensors``)."""
+    return (b.Hpp, b.U18, b.Cinv, *precond.tensors)
+
+
+class CGState(NamedTuple):
+    """The CG iterate: solution, residual, preconditioned residual, search
+    direction and ``r . z`` (a 0-d tensor)."""
+
+    x: torch.Tensor
+    r: torch.Tensor
+    z: torch.Tensor
+    p: torch.Tensor
+    rz: torch.Tensor
+
+
+def cg_start(precond, rhs: torch.Tensor, tol: float):
+    """The iterate at x = 0 and the stop bound ``tol |rhs|`` (a 0-d tensor)."""
+    z = precond(rhs)
+    bound = tol * torch.sqrt(torch.sum(rhs * rhs))
+    return CGState(torch.zeros_like(rhs), rhs, z, z, torch.sum(rhs * z)), bound
+
+
+def cg_body(matvec, precond, s: CGState) -> CGState:
+    """One CG iteration (``ceres_slam_tpu/solver/pcg.py``'s ``body``); pure:
+    it returns new tensors and leaves ``s`` as it was."""
+    Sp = matvec(s.p)
+    denom = torch.sum(s.p * Sp)
+    alpha = s.rz / torch.where(denom == 0.0, torch.ones_like(denom), denom)
+    x = s.x + alpha * s.p
+    r = s.r - alpha * Sp
+    z = precond(r)
+    rz_new = torch.sum(r * z)
+    beta = rz_new / torch.where(s.rz == 0.0, torch.ones_like(s.rz), s.rz)
+    return CGState(x, r, z, z + beta * s.p, rz_new)
+
+
+def cg_continue(s: CGState, bound: torch.Tensor) -> torch.Tensor:
+    """The residual half of the stop test, ``|r| > tol |rhs|``, on the device."""
+    return torch.sqrt(torch.sum(s.r * s.r)) > bound
 
 
 def cg(matvec, precond, rhs: torch.Tensor, max_iters: int, tol: float):
     """Preconditioned conjugate gradients for ``matvec(x) = rhs`` from x = 0,
     ``precond(r) -> M^{-1} r``; stops after ``max_iters`` iterations or when
     ``|r| <= tol |rhs|`` (read on the host every iteration). Returns ``(x,
-    iterations)``."""
-    x = torch.zeros_like(rhs)
-    r = rhs
-    z = precond(r)
-    pv = z
-    rz = torch.sum(r * z)
-    bound = tol * torch.sqrt(torch.sum(rhs * rhs))
+    iterations)``. The plain version of ``device_cg``."""
+    s, bound = cg_start(precond, rhs, tol)
     it = 0
-    while it < max_iters and bool(torch.sqrt(torch.sum(r * r)) > bound):
-        Sp = matvec(pv)
-        denom = torch.sum(pv * Sp)
-        alpha = rz / torch.where(denom == 0.0, torch.ones_like(denom), denom)
-        x = x + alpha * pv
-        r = r - alpha * Sp
-        z = precond(r)
-        rz_new = torch.sum(r * z)
-        beta = rz_new / torch.where(rz == 0.0, torch.ones_like(rz), rz)
-        pv = z + beta * pv
-        rz = rz_new
+    while it < max_iters and bool(cg_continue(s, bound)):
+        s = cg_body(matvec, precond, s)
         it += 1
-    return x, it
+    return s.x, it
+
+
+class CGLoop(NamedTuple):
+    """The loop ``device_cg`` captures: ``body()`` runs one CG iteration on
+    the state buffers ``s`` in place, counts it in ``i`` and writes the stop
+    test ``(i < max_iters) & (|r| > tol |rhs|)`` to ``pred`` (int32, 1:
+    run again), which holds the test of the starting iterate.
+    ``restart(rhs)`` puts the buffers at the start for a new right-hand
+    side (the matvec's and the preconditioner's tensors as they are now)."""
+
+    s: CGState
+    i: torch.Tensor  # int32 [1]
+    pred: torch.Tensor  # int32 [1]
+    body: object
+    restart: object
+
+
+def cg_loop(matvec, precond, rhs: torch.Tensor, max_iters: int, tol: float) -> CGLoop:
+    """The state buffers and the body of the CG loop, on any device (on the
+    CPU the tests iterate ``body`` while ``pred``, as the WHILE node does)."""
+    s0, bound = cg_start(precond, rhs, tol)
+    s = CGState(*(t.clone() for t in s0))  # own buffers: r0 is rhs, p0 is z0
+    i = torch.zeros(1, dtype=torch.int32, device=rhs.device)
+
+    def test():
+        return (i < max_iters) & cg_continue(s, bound)
+
+    pred = test().to(torch.int32)
+
+    def body():
+        for buf, t in zip(s, cg_body(matvec, precond, s)):
+            buf.copy_(t)
+        i.add_(1)
+        pred.copy_(test())
+
+    def restart(rhs):
+        start, b = cg_start(precond, rhs, tol)
+        for buf, t in zip((*s, bound), (*start, b)):
+            buf.copy_(t)
+        i.zero_()
+        pred.copy_(test())
+
+    return CGLoop(s, i, pred, body, restart)
+
+
+class CGGraph:
+    """A CG loop captured once and run for every LM iteration of a solve
+    (``solve_ba_pcg`` on CUDA makes one): the first ``device_cg`` call
+    captures its body on its own tensors (the blocks, the preconditioner's
+    factors), which the graph then reads by address; a later call whose
+    tensors have the same shapes copies them into those and restarts the
+    loop, with no capture and no instantiation. ``close()`` frees it."""
+
+    def __init__(self):
+        self.key = self.loop = self.lp = self.inputs = None
+
+    def close(self) -> None:
+        if self.loop is not None:
+            self.loop.close()
+        self.key = self.loop = self.lp = self.inputs = None
+
+
+def device_cg(matvec, precond, rhs: torch.Tensor, max_iters: int, tol: float, counted=(),
+              graph: CGGraph | None = None, inputs=None):
+    """``cg`` with its loop on the card: ``cg_loop``'s body captured and run
+    in a conditional WHILE node (``graph_loop.DeviceWhile``), one graph
+    launch for all the iterations; the host reads the iteration count once,
+    after the loop. ``counted``: the kernel wrappers the matvec or the
+    preconditioner launch (each gets one launch per iteration). With a
+    ``graph``, ``inputs`` lists every tensor the matvec and the
+    preconditioner read that changes from call to call; the loop is kept
+    there and reused while their shapes stay (without one, the capture is
+    this call's alone). Raises on the CPU, and if the capture fails."""
+    if rhs.device.type != "cuda":
+        raise ValueError(f"device_cg runs on the card, not {rhs.device}: use cg")
+    own = graph is None
+    graph = CGGraph() if own else graph
+    key = (max_iters, tol, rhs.shape, rhs.dtype,
+           None if inputs is None else tuple((t.shape, t.dtype) for t in inputs))
+    if graph.key == key and inputs is not None:
+        for dst, src in zip(graph.inputs, inputs):
+            dst.copy_(src)
+        graph.lp.restart(rhs)
+    else:
+        graph.close()
+        graph.lp = cg_loop(matvec, precond, rhs, max_iters, tol)
+        graph.loop = graph_loop.DeviceWhile(graph.lp.body, graph.lp.pred, counted=counted)
+        graph.key, graph.inputs = key, inputs
+    try:
+        n = graph.loop.run()
+        return graph.lp.s.x.clone(), n  # the buffer is the next call's
+    finally:
+        if own:
+            graph.close()
 
 
 def pcg_step(problem, state, lam: float, max_cg_iters: int = 100, cg_tol: float = 1e-6,
              tables: ObsTables | None = None, tracks=None,
-             plan: full_batch_plan.FullBatchPlan | None = None):
+             plan: full_batch_plan.FullBatchPlan | None = None, loop: str | None = None,
+             graph: CGGraph | None = None):
     """One damped LM linear solve via Schur + PCG. Returns ``(dx, grad_norm,
     pred_decrease, cg_iterations)``; the first three are the LM core's
     step contract. With ``tracks`` (a ``banded.TrackInfo``) the
@@ -353,7 +507,7 @@ def pcg_step(problem, state, lam: float, max_cg_iters: int = 100, cg_tol: float 
     matvecs (``build_obs_blocks`` builds the plan where none is given). On
     CUDA the gather tables are built here where none are given (a host
     round trip; ``solve_ba_pcg`` builds them once), so every sum outside
-    the kernels has a fixed order."""
+    the kernels has a fixed order. ``loop``, ``graph``: ``pcg_solve``'s."""
     if tables is None and state.poses.device.type == "cuda":
         st = problem.stereo
         tables = build_obs_tables(st.pose_idx.cpu(), st.point_idx.cpu(), state.poses.shape[0],
@@ -368,7 +522,8 @@ def pcg_step(problem, state, lam: float, max_cg_iters: int = 100, cg_tol: float 
     # rhs = -(gp - U C^{-1} gl)
     y = lie._mv(b.Cinv, b.gl)
     rhs = -(b.gp - _sum_by_pose(b, tables, u18_vec(b.U18, y[b.point_idx])))
-    dp, iters = pcg_solve(b, rhs, max_cg_iters, cg_tol, tables=tables, precond=precond)
+    dp, iters = pcg_solve(b, rhs, max_cg_iters, cg_tol, tables=tables, precond=precond, loop=loop,
+                          graph=graph)
 
     # back-substitute landmarks: dl = -C^{-1}(gl + U^T dp)
     Utdp = _sum_by_point(b, tables, u18_t_vec(b.U18, dp[b.pose_idx]))
@@ -392,14 +547,16 @@ def step_result(b: ObsBlocks, dp: torch.Tensor, dl: torch.Tensor, Udl: torch.Ten
 def solve_ba_pcg(problem: dense.StereoBAProblem, state0: dense.BAState,
                  config: lm.SolveConfig = lm.SolveConfig(), max_cg_iters: int = 100,
                  cg_tol: float = 1e-6, tables: ObsTables | None = None, precond: str = "auto",
-                 plan: full_batch_plan.FullBatchPlan | None = None):
+                 plan: full_batch_plan.FullBatchPlan | None = None, loop: str | None = None):
     """LM with the matrix-free Schur-PCG linear solver (the role of Ceres'
     ITERATIVE_SCHUR). Returns ``(state, SolveSummary)`` with the CG
     iterations of the whole solve in ``linear_iterations``.
 
     On CUDA the full-batch plan and the gather tables are built here
     whenever none are given, so K2 runs every LM iteration and K3 every
-    matvec; on the CPU they are used only if given.
+    matvec, and the CG loop runs on the card (``loop``: ``pcg_solve``'s),
+    captured once for the solve (a ``CGGraph``); on the CPU they are used
+    only if given.
 
     ``precond``: ``'jacobi'`` (exact block-Jacobi), ``'banded'`` (the
     cyclic-reduction factorization of the banded part of S,
@@ -428,13 +585,20 @@ def solve_ba_pcg(problem: dense.StereoBAProblem, state0: dense.BAState,
         raise ValueError(f"unknown preconditioner: {precond!r}")
 
     cg_iters = []
+    on_card = state0.poses.device.type == "cuda" and loop in (None, "device")
+    graph = CGGraph() if on_card else None  # one capture of the CG loop for the solve
 
     def step(s, lam):
         dx, grad_norm, pred, iters = pcg_step(problem, s, lam, max_cg_iters, cg_tol,
-                                              tables=tables, tracks=tracks, plan=plan)
+                                              tables=tables, tracks=tracks, plan=plan, loop=loop,
+                                              graph=graph)
         cg_iters.append(iters)
         return dx, grad_norm, pred
 
-    state, summary = lm.lm_solve(state0, config, lambda s: dense.ba_cost(problem, s), step,
-                                 lambda s, dx: dense._retract_state(problem, s, dx))
+    try:
+        state, summary = lm.lm_solve(state0, config, lambda s: dense.ba_cost(problem, s), step,
+                                     lambda s, dx: dense._retract_state(problem, s, dx))
+    finally:
+        if graph is not None:
+            graph.close()
     return state, summary._replace(linear_iterations=sum(cg_iters))

@@ -8,8 +8,11 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
   device   the card's name and power limit (nvidia-smi), torch and CUDA versions
   build    compiles the kernels K1 (csrc/window_factor_blocks.cu), K2
            (csrc/stereo_factor_blocks.cu), K3 (csrc/schur_uy.cu), K4
-           (csrc/bilinear_sample_imgs.cu) and P (csrc/double_kernel.cu) with
-           nvcc, one process each, all started together
+           (csrc/bilinear_sample_imgs.cu) and P (csrc/double_kernel.cu) and
+           the device WHILE loop (csrc/graph_while.cu) with nvcc, one
+           process each, all started together; the loop's build checks that
+           the toolkit, the driver and PyTorch's runtime are CUDA 12.3 or
+           newer (conditional graph nodes)
   kernels  each kernel against its plain PyTorch version on the card, in
            float64 and float32, with median times per call (CUDA events
            around the wrapper, host included): K1 at the flagship window
@@ -31,10 +34,14 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            port never calls); P (o = 2 x on [2, 512] float32) in both launch
            forms, eager and captured in a CUDA graph, equal to x * 2 (x * 8
            after 3 launches) bit for bit, host us per launch eager and per
-           replayed launch; P's path, the graph probe's four P cases
-           (apps/probe_graph_loop.py), run in this process with P's launches
-           counted; and the host cost of the two ways to read PyTorch's
-           current stream
+           replayed launch, and P in a conditional WHILE node: host us per
+           launch of the whole loop, device us per iteration; P's path, the
+           graph probe's six P cases (apps/probe_graph_loop.py), run in this
+           process with P's launches counted, the two while cases
+           (grid_in_while: a counter on the device stops the loop at 3;
+           grid_in_while_data: while sum(x) < 8 sum(x0)) bit-equal to x * 8
+           and to the same loop on the host; and the host cost of the two
+           ways to read PyTorch's current stream
   slice    generates triangle200 and kitti1100 with the port's make_sim and
            runs both CLIs on CUDA: the flagship sliding window (dataset_vo_sun,
            its two passes one batch of two; triangle200 float64 and float32,
@@ -42,10 +49,15 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            solved, and ATE against the JAX figures; triangle200 float64 twice,
            which must write byte-identical *_poses.csv) and
            full-batch BA
-           (dataset_vo --window 0, the same three runs; K2 and K3 launch
-           counts, final cost and ATE against the JAX figures), plus one
-           banded-preconditioner solve of the triangle200 full problem, and
-           a checkpoint resume: the triangle200 float64 sun pass
+           (dataset_vo --window 0, the same three runs, the CG loop in a
+           WHILE node on the card; K2 and K3 launch counts, final cost and
+           ATE against the JAX figures), then solve_ba_pcg on the same
+           problems with the CG loop on the host (cg) and on the card in
+           turns (host, device, device, host) at triangle200 float64 and
+           float32, triangle200 float64 with the banded preconditioner
+           forced and kitti1100 float64: the same LM and CG iterations and
+           the same bits in all four, K3 once per CG iteration, and the
+           CLI's final cost; and a checkpoint resume: the triangle200 float64 sun pass
            (--sun-only --checkpoint PATH --checkpoint-every 25) killed in a
            child process once its checkpoint holds window 100 or later,
            then run again, resuming, which must write the uninterrupted
@@ -82,7 +94,8 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            plan of that row order) and dense + dogleg, the final costs
            against each other and the JAX figures, covariance(1) against
            the CPU's; kitti1100 (N 124,480, J 16,640) with pcg against the
-           JAX figure, K2's and K3's launches printed
+           JAX figure, K2's and K3's launches printed (pcg's CG loop runs
+           in the WHILE node on the card)
   blowup   the covariance blow-up experiment (apps/blowup.py) at the
            reference's 1,000 poses on the card: the max relative deviation
            from the closed form against the JAX figure, the wall, solves/s
@@ -130,7 +143,13 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            coordinates (the 240x320 problem's projections, float64 and
            float32); kitti1100's full problem (float64): one
            build_obs_blocks and one CG iteration (device time, kernels,
-           launches, syncs, copies); a trace of one photometric rate
+           launches, syncs, copies), and the CG loop in both forms side by
+           side (host loop and WHILE node: per CG iteration device time,
+           launches, syncs, copies; one LM iteration's CG solve in turns,
+           the device loop captured for the call and captured once and
+           reused, as solve_ba_pcg does; the capture, build and
+           instantiation, against the reused loop's copies and restart);
+           a trace of one photometric rate
            solve (device busy share, launches per LM iteration); and, after
            the phong phase, a trace of 5 LM iterations of phong200's joint
            stage (float64, vertex-Schur), and after the blowup phase a trace
@@ -354,7 +373,8 @@ def phase_device(torch):
 
 
 def phase_build(kernels):
-    """One nvcc per source, all started together."""
+    """One nvcc per source, all started together (the kernels and the
+    device WHILE loop's library, whose build checks the CUDA versions)."""
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
@@ -363,7 +383,11 @@ def phase_build(kernels):
             paths = dict(zip(kernels, ex.map(lambda m: m.build(), kernels.values())))
     except RuntimeError as e:
         fail(f"kernel build: {e}")
-    log(f"[build] {len(paths)} kernels in {time.perf_counter() - t0:.2f} s")
+    log(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.2f} s")
+    if "loop" in kernels:
+        v = {k: ".".join(map(str, x)) for k, x in kernels["loop"].versions().items()}
+        log(f"[build] CUDA for the device WHILE loop (conditional nodes need 12.3): toolkit "
+            f"{v['toolkit']}, driver {v['driver']}, PyTorch's runtime {v['torch']}")
     for name, path in paths.items():
         log(f"[build] {name}: {os.path.relpath(path, ROOT)}")
         for ln in open(path[:-3] + ".log"):
@@ -446,11 +470,20 @@ def _trace(torch, fn):
 
 def _profile_full_batch(torch, data):
     """kitti1100's full problem (the dataset_vo --window 0 problem, float64,
-    from the CLI's initial guess): one build_obs_blocks and one CG
-    iteration (21 iterations less 1, block-Jacobi, tol 0) under the
-    profiler, with the plan and the gather tables built beforehand, as
-    solve_ba_pcg builds them once per problem."""
-    from ceres_slam_tpu_torch.ops import full_batch_plan
+    from the CLI's initial guess): one build_obs_blocks, and the CG loop in
+    both forms, side by side (block-Jacobi): the host loop (``cg``, loop=
+    "host") and the WHILE node on the card (``device_cg``): per CG
+    iteration (21 iterations less 1, tol 0, under the profiler) launches,
+    syncs and copies, and device time (the host loop's from the profiler;
+    the node's from CUDA events around its launch, since the profiler sees
+    only the first pass of a conditional node's body); then one LM
+    iteration's CG solve at pcg_step's settings (100 iterations, tol 1e-6)
+    in turns: the host loop, the device loop captured for the call, and
+    the device loop captured once and reused (solve_ba_pcg's CGGraph),
+    with the first's set-up, capture, build and instantiation, run and
+    close, and the second's copies and restart. The plan and the gather tables are built
+    beforehand, as solve_ba_pcg builds them once per problem."""
+    from ceres_slam_tpu_torch.ops import full_batch_plan, graph_loop
     from ceres_slam_tpu_torch.problems.dataset import DatasetProblem
     from ceres_slam_tpu_torch.solver import dense, pcg
 
@@ -484,15 +517,101 @@ def _profile_full_batch(torch, data):
     rhs = -b.gp
     precond = pcg._block_precond(pcg.schur_diag_blocks(b, tables))
 
-    def cg(n):
-        return lambda: pcg.pcg_solve(b, rhs, n, 0.0, tables=tables, precond=precond)
+    def cg(n, loop, tol=0.0):
+        return lambda: pcg.pcg_solve(b, rhs, n, tol, tables=tables, precond=precond, loop=loop)
 
-    cg(21)()
-    one, many = _trace(torch, cg(1)), _trace(torch, cg(21))
-    d = {k: (many[k] - one[k]) / 20 for k in one}
-    log(f"[profile] full batch kitti1100 f64: one CG iteration {d['device_us']:.2f} us of device "
-        f"time, {d['kernels']:g} device kernels, {d['launches']:g} launches, {d['syncs']:g} "
-        f"syncs, {d['copies']:g} copies, wall {d['wall_us']:.1f} us (profiled)")
+    node_us = _node_us_per_iteration(torch, b, precond, rhs)
+    for loop in ("host", "device"):
+        cg(21, loop)()
+        one, many = _trace(torch, cg(1, loop)), _trace(torch, cg(21, loop))
+        d = {k: (many[k] - one[k]) / 20 for k in one}
+        dev = (f"{d['device_us']:.2f} us of device time (profiler), {d['kernels']:g} device "
+               "kernels" if loop == "host" else f"{node_us:.2f} us of device time (CUDA events "
+               "around the node, gaps included)")
+        log(f"[profile] full batch kitti1100 f64, CG loop {loop}: one CG iteration {dev}, "
+            f"{d['launches']:g} launches, {d['syncs']:g} syncs, {d['copies']:g} copies, wall "
+            f"{d['wall_us']:.1f} us (profiled); per CG solve {one['launches']:g} launches, "
+            f"{one['syncs']:g} syncs, {one['copies']:g} copies (1 iteration)")
+    graph = pcg.CGGraph()
+    forms = {"host": cg(100, "host", 1e-6), "device": cg(100, "device", 1e-6),
+             "reused": lambda: pcg.pcg_solve(b, rhs, 100, 1e-6, tables=tables, precond=precond,
+                                             loop="device", graph=graph)}
+    forms["reused"]()
+    walls = {k: [] for k in forms}
+    for _ in range(5):
+        for form in ("host", "device", "reused", "reused", "device", "host"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, n = forms[form]()
+            torch.cuda.synchronize()
+            walls[form].append(time.perf_counter() - t0)
+    parts = {k: [] for k in ("setup", "capture", "build", "run", "close")}
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lp = pcg.cg_loop(lambda v: pcg.schur_matvec_plan(b, v), precond, rhs, 100, 1e-6)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loop = graph_loop.DeviceWhile(lp.body, lp.pred)
+        t2 = time.perf_counter()
+        loop.run()
+        t3 = time.perf_counter()
+        loop.close()
+        torch.cuda.synchronize()
+        for k, v in zip(parts, (t1 - t0, loop.capture_s, loop.build_s, t3 - t2,
+                                time.perf_counter() - t3)):
+            parts[k].append(v * 1e3)
+    restart = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for dst, src in zip(graph.inputs, pcg.loop_inputs(b, precond)):
+            dst.copy_(src)
+        graph.lp.restart(rhs)
+        torch.cuda.synchronize()
+        restart.append((time.perf_counter() - t0) * 1e3)
+    graph.close()
+    names = {"host": "host loop", "device": "device loop captured for the call",
+             "reused": "device loop captured once, reused (solve_ba_pcg's)"}
+    log(f"[profile] full batch kitti1100 f64: one LM iteration's CG solve ({n} iterations, "
+        "block-Jacobi, tol 1e-6), wall in turns, median of 10 (min-max): " + "; ".join(
+            f"{names[k]} {statistics.median(v) * 1e3:.2f} ms ({min(v) * 1e3:.2f}-"
+            f"{max(v) * 1e3:.2f}), {statistics.median(v) / n * 1e6:.1f} us per CG iteration"
+            for k, v in walls.items()))
+    log("[profile] full batch kitti1100 f64: the device loop's parts per LM iteration, ms "
+        "(median of 5): captured for the call: " + ", ".join(
+            f"{k} {statistics.median(v):.3f}" for k, v in parts.items())
+        + f"; reused: copies and restart {statistics.median(restart):.3f}, then the run")
+
+
+def _node_us_per_iteration(torch, b, precond, rhs):
+    """Device us per CG iteration inside the WHILE node: CUDA events around
+    the loop's launch (its state reset before each), for 21 and 1
+    iterations (tol 0), the difference over 20; median of 10 each."""
+    from ceres_slam_tpu_torch.ops import graph_loop
+    from ceres_slam_tpu_torch.solver import pcg
+
+    s0, _ = pcg.cg_start(precond, rhs, 0.0)
+    ms = {}
+    for n in (1, 21):
+        lp = pcg.cg_loop(lambda v: pcg.schur_matvec_plan(b, v), precond, rhs, n, 0.0)
+        loop = graph_loop.DeviceWhile(lp.body, lp.pred)
+        times = []
+        for _ in range(11):
+            for buf, t in zip(lp.s, s0):
+                buf.copy_(t)
+            lp.i.zero_()
+            lp.pred.fill_(1)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loop.launch()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        loop.close()
+        ms[n] = statistics.median(times[1:])
+    return (ms[21] - ms[1]) / 20 * 1e3
 
 
 def _split(out):
@@ -800,11 +919,40 @@ def _kernel_p(torch, P, results, jobs):
         f"{_bound_str(results[('P', '2x512', 'f32')])}; host {eager_us:.2f} us per launch eager, "
         f"{replay_us:.2f} us per replayed launch (a graph of 3); eager and graph-captured "
         "launches equal x * 2 (x * 8 after 3) bit for bit in both forms")
+    _p_while_times(torch, x)
+
+
+def _p_while_times(torch, x):
+    """P's while form (a DeviceWhile: P's in-place 4-block launch, a
+    counter and the condition in the body): host us per launch of the
+    whole loop, and device us per iteration inside the node from CUDA
+    events around reset + launch, 101 iterations less 1, over 100."""
+    from ceres_slam_tpu_torch.apps import probe_graph_loop
+
+    ms, host = {}, None
+    for stop in (1, 101):
+        loop, buf, reset = probe_graph_loop.p_while(torch, x, stop=stop)
+
+        def go(loop=loop, reset=reset):
+            reset()
+            loop.launch()
+
+        ms[stop] = _median_ms(torch, go, reps=20)
+        if stop == 101 and not torch.equal(buf, x * 2.0 ** 101):
+            fail("P while (101 iterations): result differs from x * 2**101")
+        host = _host_us(torch, loop.launch) if stop == 1 else host
+        loop.close()
+    log(f"[kernels] P while (a conditional WHILE node): host {host:.2f} us per launch of the "
+        f"whole loop; device {(ms[101] - ms[1]) * 1e3 / 100:.2f} us per iteration (P, the "
+        f"counter's add, compare and copy, the node's condition kernel; {ms[1] * 1e3:.1f} us "
+        f"for reset + a 1-iteration loop, {ms[101] * 1e3:.1f} us for 101)")
 
 
 def _p_path(torch, P):
-    """P's path: the graph probe's four P cases (apps/probe_graph_loop.py)
-    in this process; returns P's launches."""
+    """P's path: the graph probe's six P cases (apps/probe_graph_loop.py)
+    in this process, the two while cases in a conditional WHILE node, each
+    bit-equal to x * 8 and to the same loop on the host; returns P's
+    launches (the while cases' counted per iteration the device ran)."""
     from ceres_slam_tpu_torch.apps import probe_graph_loop
 
     P.double_kernel.launches = 0
@@ -1064,10 +1212,11 @@ def _slice_window(data, kernels):
 
 
 def _slice_full(data, kernels):
-    """Full-batch BA through dataset_vo; returns K2's and K3's launches, the
-    triangle200 float64 poses and that run's final cost."""
+    """Full-batch BA through dataset_vo (the CG loop on the card); returns
+    K2's and K3's launches, the triangle200 float64 poses and that run's
+    final cost, and each run's final cost."""
     total = {"K2": 0, "K3": 0}
-    keep = None
+    keep, costs = None, {}
     for seq, dtype in (("triangle200", "float64"), ("triangle200", "float32"),
                        ("kitti1100", "float64")):
         stats, launches, poses, ate = _run_full(data, seq, dtype, "cuda", kernels)
@@ -1094,39 +1243,69 @@ def _slice_full(data, kernels):
                  f"vs JAX {cost_ref:.6e} / {ate_ref:.4f}")
         if (seq, dtype) == ("triangle200", "float64"):
             keep = (poses, stats["final_cost"])
-    return total, keep
+        costs[(seq, dtype)] = stats["final_cost"]
+    return total, keep, costs
 
 
-def _banded_full(data, kernels, jacobi_cost):
-    """solve_ba_pcg with the banded preconditioner on the triangle200 full
-    problem, from the CLI's initial guess and with its float64 settings:
-    the same minimum as the block-Jacobi run (rtol 1e-6)."""
+LOOP_TURNS = (("triangle200", "float64", "jacobi"), ("triangle200", "float32", "jacobi"),
+              ("triangle200", "float64", "banded"), ("kitti1100", "float64", "jacobi"))
+
+
+def _loop_turns(data, kernels, seq, dtype, precond, cli_cost):
+    """solve_ba_pcg on ``seq``'s full problem, from the CLI's initial guess
+    and with its settings, with the CG loop on the host (``cg``) and on the
+    card (the WHILE node) in turns: host, device, device, host. Every run
+    must give the same LM and CG iterations and the same bits (poses,
+    points, final cost); K3 must launch once per CG iteration. The
+    block-Jacobi float64 runs must give the CLI's final cost (its solve ran
+    the device loop) and the banded one the same minimum (rtol 1e-6).
+    Returns K2's and K3's launches."""
     import torch
 
+    from ceres_slam_tpu_torch.apps import common
     from ceres_slam_tpu_torch.problems.dataset import DatasetProblem
     from ceres_slam_tpu_torch.solver import dense, pcg
     from ceres_slam_tpu_torch.solver.lm import SolveConfig
 
-    t0 = time.perf_counter()
-    ds = DatasetProblem.read_csv(os.path.join(data, "triangle200_vo.csv"))
-    ds.device = "cuda"
+    ds = DatasetProblem.read_csv(os.path.join(data, f"{seq}_vo.csv"))
+    ds.dtype, ds.device = dtype, "cuda"
     ds.compute_initial_guess()
-    n_obs_pad, n_pts_pad, _ = ds._window_budget(ds.num_states)
-    problem, state, _ = ds.build_window_problem(0, ds.num_states, n_obs_pad, n_pts_pad)
-    config = SolveConfig(max_iters=1000, nonmonotonic=True, ftol=1e-6, xtol=1e-6)
+    problem, state, _ = ds.build_window_problem(0, ds.num_states,
+                                                *ds._window_budget(ds.num_states)[:2])
+    problem = dense.to_device(problem, "cuda")
+    tol = common.solver_tolerance(dtype, 1)
+    config = SolveConfig(max_iters=1000, nonmonotonic=True, ftol=tol, xtol=tol)
     k2, k3 = kernels["K2"].stereo_factor_sums, kernels["K3"].schur_uy
-    k2.launches = k3.launches = 0
-    _, summary = pcg.solve_ba_pcg(dense.to_device(problem, "cuda"), state, config,
-                                  precond="banded")
-    torch.cuda.synchronize()
-    dev = abs(summary.final_cost - jacobi_cost) / jacobi_cost
-    log(f"[slice] triangle200 full batch float64 banded: cost {summary.final_cost:.6e} (Jacobi "
-        f"{jacobi_cost:.6e}, {dev:.2e} relative), {summary.iterations} LM iterations, "
-        f"{summary.linear_iterations} CG iterations, launches K2 {k2.launches}, K3 "
-        f"{k3.launches}, {time.perf_counter() - t0:.2f} s")
-    if not (dev <= 1e-6 and k2.launches >= summary.iterations
-            and k3.launches >= summary.linear_iterations):
-        fail("the banded-preconditioner solve disagrees with the block-Jacobi one")
+    total, runs = {"K2": 0, "K3": 0}, []
+    for loop in ("host", "device", "device", "host"):
+        k2.launches = k3.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol, summ = pcg.solve_ba_pcg(problem, state, config, precond=precond, loop=loop)
+        torch.cuda.synchronize()
+        runs.append((loop, sol, summ, time.perf_counter() - t0))
+        total["K2"] += k2.launches
+        total["K3"] += k3.launches
+        if k3.launches != summ.linear_iterations or k2.launches < summ.iterations:
+            fail(f"{seq} {dtype} {precond} loop {loop}: K2 {k2.launches}, K3 {k3.launches} "
+                 f"launches for {summ.iterations} LM and {summ.linear_iterations} CG iterations")
+    _, ref, rs, _ = runs[0]
+    same = all(s.iterations == rs.iterations and s.linear_iterations == rs.linear_iterations
+               and s.final_cost == rs.final_cost and torch.equal(x.poses, ref.poses)
+               and torch.equal(x.points, ref.points) for _, x, s, _ in runs)
+    walls = {lp: [w for l2, _, _, w in runs if l2 == lp] for lp in ("host", "device")}
+    dev = abs(rs.final_cost - cli_cost) / cli_cost
+    log(f"[slice] {seq} full batch {dtype} {precond}, CG loop host / device in turns: "
+        f"{rs.iterations} LM, {rs.linear_iterations} CG iterations, cost {rs.final_cost:.9e} "
+        f"({dev:.2e} from the CLI's device-loop solve), "
+        f"{'bit-equal' if same else 'DIFFERENT'} poses, points and costs in all four runs; "
+        f"solve s host {' '.join(f'{w:.3f}' for w in walls['host'])}, device "
+        f"{' '.join(f'{w:.3f}' for w in walls['device'])}")
+    if not same:
+        fail(f"{seq} {dtype} {precond}: the device CG loop and the host loop disagree")
+    if not (dev <= 1e-6 if precond == "banded" or dtype == "float32" else dev == 0.0):
+        fail(f"{seq} {dtype} {precond}: cost {rs.final_cost:.9e} vs the CLI's {cli_cost:.9e}")
+    return total
 
 
 def _checkpoint_resume(data, window_kernel):
@@ -1184,8 +1363,11 @@ def phase_slice(kernels, data):
     _make_sims(data)
     k1_launches, window_poses = _slice_window(data, kernels)
     k1_launches += _checkpoint_resume(data, kernels["K1"])
-    full_launches, (full_poses, jacobi_cost) = _slice_full(data, kernels)
-    _banded_full(data, kernels, jacobi_cost)
+    full_launches, (full_poses, _), cli_costs = _slice_full(data, kernels)
+    for seq, dtype, precond in LOOP_TURNS:
+        ref = cli_costs[(seq, "float64" if precond == "banded" else dtype)]
+        for name, n in _loop_turns(data, kernels, seq, dtype, precond, ref).items():
+            full_launches[name] += n
     return {"K1": k1_launches, **full_launches}, window_poses, full_poses
 
 
@@ -2070,13 +2252,14 @@ KERNELS = (
      "pass in slot order), staged 16-byte stores, full-batch plan, thin launch path"),
     ("K3", "schur_uy", "schur_uy.cu", f"{PALLAS}:591", "kitti1100", "f64",
      "redesigned: rows staged through shared memory, a block per landmark group then per "
-     "pose, full-batch plan bound once per LM iteration, thin launch path"),
+     "pose, full-batch plan bound once per LM iteration, thin launch path; runs inside the "
+     "CG loop's conditional WHILE node, one graph launch per LM iteration"),
     ("K4", "bilinear_sample_packed", "bilinear_sample_imgs.cu", f"{PALLAS}:427", "240x320", "f64",
      "redesigned: packed [H, W, 4] texels, strided coordinates, per-solve plan, "
      "thin launch path"),
     ("P", "double_kernel", "double_kernel.cu", "scripts/probe_pallas_scan.py:27", "2x512", "f32",
      "first form: 4 blocks of 256 threads or 1 looping block, thin launch path, capturable "
-     "in a CUDA graph; latency-bound"),
+     "in a CUDA graph and runs in a conditional WHILE node (grid_in_while); latency-bound"),
 )
 
 
@@ -2103,8 +2286,8 @@ def main():
         fail("torch.cuda.is_available() is false: this smoke test needs an NVIDIA GPU")
     sys.path.insert(0, ROOT)
     try:
-        from ceres_slam_tpu_torch.ops import (bilinear_kernel, double_kernel, schur_kernel,
-                                              stereo_factor_kernel, window_kernel)
+        from ceres_slam_tpu_torch.ops import (bilinear_kernel, double_kernel, graph_loop,
+                                              schur_kernel, stereo_factor_kernel, window_kernel)
     except ImportError as e:
         fail(f"cannot import the port: {e}")
     kernels = {"K1": window_kernel, "K2": stereo_factor_kernel, "K3": schur_kernel,
@@ -2112,7 +2295,7 @@ def main():
 
     smi = phase_device(torch)
     if "build" in phases or "kernels" in phases:
-        phase_build(kernels)
+        phase_build({**kernels, "loop": graph_loop})
     launches = {name: 0 for name in kernels}
     k, jobs = {}, []
     if "kernels" in phases:

@@ -502,6 +502,114 @@ def test_p_matches_plain_eager_and_in_a_graph(one_block):
     assert _device_kernels(lambda: P(x, one_block=one_block)) == 1
 
 
+# The device-side while loop (ops/graph_loop.DeviceWhile: a conditional
+# WHILE node around a captured body): P's while cases, and the CG loop of
+# pcg_solve, which must equal the host loop (cg) bit for bit.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["grid_in_while", "grid_in_while_data"])
+def test_p_while_cases(case):
+    """P's in-place launch as the body of a WHILE node: 3 iterations (a
+    counter on the device, or sum(x) < 8 sum(x0)), x * 8 bit for bit, P's
+    count up by the 3 launches the device ran (the capture counts none)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ceres_slam_tpu_torch.apps import probe_graph_loop
+
+    P = double_kernel.double_kernel
+    before = P.launches
+    assert probe_graph_loop.p_case(torch, case) == 4190208.0
+    assert P.launches == before + 1 + 3  # the eager build launch, then the loop's
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("precond", ["jacobi", "banded"])
+def test_device_cg_equals_host_cg(precond, dtype):
+    """``pcg_step`` with the CG loop in the WHILE node equals the host loop
+    (``cg``) bit for bit, with the same iterations, on
+    ``full_batch_plan.random_problem``; K3 launches once per CG iteration
+    in both (the capture counts none)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ceres_slam_tpu_torch.solver import banded
+
+    plan, poses, points = stereo_factor_kernel.random_inputs(12992, 448, 200, dtype, "cuda",
+                                                             seed=16)
+    problem, state = _problem_of(plan, poses), dense.BAState(poses, points)
+    st = problem.stereo
+    tables = pcg.build_obs_tables(st.pose_idx.cpu(), st.point_idx.cpu(), plan.K, plan.J,
+                                  device="cuda")
+    tracks = None
+    if precond == "banded":
+        tracks = banded.build_track_info(st.pose_idx.cpu(), st.point_idx.cpu(), plan.K, plan.J,
+                                         valid=dense.stereo_valid(problem).cpu(), device="cuda")
+    k3 = schur_kernel.schur_uy
+    runs = []
+    for loop in ("host", "device", "device", "host"):
+        before = k3.launches
+        dx, gn, pred, iters = pcg.pcg_step(problem, state, 1e-2, 200, 1e-10, tables=tables,
+                                           tracks=tracks, plan=plan, loop=loop)
+        torch.cuda.synchronize()
+        assert k3.launches - before == iters > 1
+        runs.append((dx, gn, pred, iters))
+    for dx, gn, pred, iters in runs[1:]:
+        assert iters == runs[0][3]
+        assert torch.equal(dx, runs[0][0]) and torch.equal(pred, runs[0][2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precond", ["jacobi", "banded"])
+def test_solve_with_reused_loop_equals_host_loop(precond):
+    """``solve_ba_pcg`` captures its CG loop once (``pcg.CGGraph``) and
+    reuses it every LM iteration, copying the new blocks and factors in:
+    the same LM and CG iterations and the same bits as the host loop, K3
+    once per CG iteration."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    plan, poses, points = stereo_factor_kernel.random_inputs(12992, 448, 200, seed=16,
+                                                             device="cuda")
+    problem, state = _problem_of(plan, poses), dense.BAState(poses, points)
+    cfg = lm.SolveConfig(max_iters=8, nonmonotonic=True, ftol=1e-9, xtol=1e-12)
+    k3 = schur_kernel.schur_uy
+    runs = []
+    for loop in ("host", "device"):
+        before = k3.launches
+        sol, summ = pcg.solve_ba_pcg(problem, state, cfg, precond=precond, loop=loop)
+        torch.cuda.synchronize()
+        assert k3.launches - before == summ.linear_iterations > summ.iterations > 1
+        runs.append((sol, summ))
+    (a, sa), (b, sb) = runs
+    assert (sa.iterations, sa.linear_iterations, sa.final_cost) == (
+        sb.iterations, sb.linear_iterations, sb.final_cost)
+    assert torch.equal(a.poses, b.poses) and torch.equal(a.points, b.points)
+
+
+@pytest.mark.cuda
+def test_device_while_capture_failure_raises():
+    """A body that synchronizes with the host cannot be captured: the
+    capture raises (no host loop instead), and the next loop still works."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ceres_slam_tpu_torch.ops import graph_loop
+
+    pred = torch.ones(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError):
+        graph_loop.DeviceWhile(lambda: pred.fill_(int(pred.item()) - 1), pred)
+    n = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def body():
+        n.add_(1)
+        pred.copy_(n < 5)
+
+    loop = graph_loop.DeviceWhile(body, pred)
+    assert loop.run() == 5 and int(n.item()) == 5
+    n.zero_()
+    pred.fill_(0)
+    assert loop.run() == 0 and int(n.item()) == 0
+    loop.close()
+
+
 # ROADMAP F14: every float sum on the card runs in a fixed order, so two
 # runs of a solve give the same bits.
 

@@ -175,6 +175,16 @@ def test_huber_matches_jax(fn):
     _both(lambda x: getattr(jloss, fn)(x, 0.7), lambda x: getattr(loss, fn)(x, 0.7), s)
 
 
+@pytest.mark.parametrize("fn", ["cauchy_rho", "cauchy_weight"])
+def test_cauchy_matches_jax(fn):
+    """float64, seeded squared norms from 0 to ~1e4 (a = 0.7): 1e-15 relative."""
+    s = _rng(8).uniform(0, 100, 256) ** 2
+    s[:4] = (0.0, 1e-12, 0.49, 1e4)
+    got = getattr(loss, fn)(torch.as_tensor(s), 0.7).numpy()
+    ref = np.asarray(getattr(jloss, fn)(jnp.asarray(s), 0.7))
+    np.testing.assert_allclose(got, ref, rtol=1e-15, atol=0)
+
+
 @pytest.fixture(scope="module")
 def example():
     problem, state = ge._build_example(K=6, J=48, n_obs=240, dtype=jnp.float64, seed=5)
