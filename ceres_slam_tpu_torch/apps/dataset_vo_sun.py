@@ -3,7 +3,7 @@
   python -m ceres_slam_tpu_torch.apps.dataset_vo_sun <track> <ref_sun> <obs_sun>
       [--window 2] [--huber-param 0] [--az-err-thresh 1000] [--zen-err-thresh 1000]
       [--sun-only] [--dtype float64|float32] [--strategy dogleg|lm]
-      [--checkpoint PATH] [--checkpoint-every 25] [--device cuda]
+      [--checkpoint PATH] [--checkpoint-every 25] [--tr-loop device|host] [--device cuda]
 
 Port of ``ceres_slam_tpu/apps/dataset_vo_sun.py``: a VO-only pass (unless
 ``--sun-only``) writing ``<track>_poses.csv``, then a VO+sun pass writing
@@ -20,6 +20,13 @@ the VO pass's solved first pose. ``--checkpoint PATH`` saves each pass's state e
 ``--checkpoint-every`` windows to ``PATH.vo`` / ``PATH.sun``; a run that
 was interrupted resumes from them, and a pass that completes deletes its
 file.
+
+On the card each window solve (each step of the batch) is one graph launch:
+the trust-region loop runs in a CUDA graph's WHILE node, captured once per
+pass (``solver/window.py``). ``--tr-loop host`` runs the same loop body on
+the host instead, one host-read stop test per iteration, and writes the
+same bytes; it is an explicit switch, not a fallback (a capture that fails
+raises). On the CPU the host loop is the only form.
 
 Two settings differ from the JAX app on purpose: ``--ftol 0`` is a
 tolerance of 0 (the JAX app reads it as unset), and the float32 tolerance
@@ -57,7 +64,14 @@ def build_parser():
                         "resumes from the last checkpoint")
     p.add_argument("--checkpoint-every", type=int, default=25, metavar="N",
                    help="windows between checkpoints")
+    add_loop_argument(p)
     return p
+
+
+def add_loop_argument(p):
+    p.add_argument("--tr-loop", choices=["device", "host"], default=None,
+                   help="where the window trust-region loop runs: in a WHILE node on the card "
+                        "(device, the CUDA default) or on the host (host, the CPU's only form)")
 
 
 def solve_config(args, num_windows: int):
@@ -111,6 +125,7 @@ def main(argv=None) -> dict:
         iters = sum(s.iterations for s in summaries)
         stats["passes"][name] = p = {
             "output": out, "windows": len(summaries), "iterations": iters, "wall_s": wall,
+            "iterations_by_window": [s.iterations for s in summaries],
             "windows_per_s": len(summaries) / wall if wall > 0 else math.nan,
             "mean_iters": iters / max(len(summaries), 1),
         }
@@ -127,7 +142,7 @@ def main(argv=None) -> dict:
         results = batch_scan.solve_batch(
             [batch_scan.RunSpec(dataset, **kwargs) for _, kwargs, _ in passes],
             window=args.window or dataset.num_states, config=config, strategy=args.strategy,
-            progress=True)
+            progress=True, loop=args.tr_loop)
         # the passes share the batch's wall
         stats["batch_wall_s"] = wall = time.perf_counter() - ts
         for (name, _, out), res in zip(passes, results):
@@ -142,7 +157,7 @@ def main(argv=None) -> dict:
             summaries = ds.solve_sliding_window(
                 window=args.window, config=config, strategy=args.strategy, progress=True,
                 checkpoint=f"{args.checkpoint}.{name}" if args.checkpoint else None,
-                checkpoint_every=args.checkpoint_every, **kwargs)
+                checkpoint_every=args.checkpoint_every, loop=args.tr_loop, **kwargs)
             wall = time.perf_counter() - ts
             csvio.write_poses_csv(out, ds.poses)
             record(name, out, summaries, wall)

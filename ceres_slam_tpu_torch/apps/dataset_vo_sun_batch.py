@@ -3,7 +3,8 @@ solved together on one device.
 
     python -m ceres_slam_tpu_torch.apps.dataset_vo_sun_batch --sims DATA_DIR
         [--num-states 200] [--sequences triangle square penta] [--window 2]
-        [--dtype float64|float32] [--strategy dogleg|lm] [--device cuda]
+        [--dtype float64|float32] [--strategy dogleg|lm] [--tr-loop device|host]
+        [--device cuda]
     python -m ceres_slam_tpu_torch.apps.dataset_vo_sun_batch --run TRACK,REF_SUN,OBS_SUN,MODE ...
 
 Port of ``ceres_slam_tpu/apps/dataset_vo_sun_batch.py``. The reference
@@ -22,7 +23,10 @@ the last '_'-token of the obs-sun file stem. ``--run`` adds a run; MODE is
 ``vo`` or ``sun``. RANSAC runs once per track, shared by its datasets.
 Thresholds are given in degrees. ``--sequential`` solves the same runs one
 after the other (each through ``solve_sliding_window`` on its own copy of
-the state) and writes the same files, for comparison with the batch. The
+the state) and writes the same files, for comparison with the batch.
+``--tr-loop`` is ``dataset_vo_sun``'s: on the card a step of the batch is
+one graph launch (``device``, the default there), or the same loop on the
+host (``host``). The
 float32 tolerance is chosen by the largest window count of the batch (the
 JAX app passes a state count).
 """
@@ -54,6 +58,9 @@ def build_parser():
     p.add_argument("--strategy", default="dogleg", choices=["dogleg", "lm"])
     p.add_argument("--sequential", action="store_true",
                    help="solve the runs one after the other instead (for comparison)")
+    from ceres_slam_tpu_torch.apps.dataset_vo_sun import add_loop_argument
+
+    add_loop_argument(p)
     return p
 
 
@@ -163,11 +170,12 @@ def main(argv=None) -> dict:
             summaries = ds.solve_sliding_window(
                 window=window, use_sun=r.use_sun, huber_param=r.huber_param,
                 az_err_thresh=r.az_err_thresh, zen_err_thresh=r.zen_err_thresh, config=config,
-                strategy=args.strategy)
+                strategy=args.strategy, loop=args.tr_loop)
             results.append((ds.poses, summaries, None))
     else:
         results = [(res.poses, res.summaries, res.ok) for res in batch_scan.solve_batch(
-            runs, window=window, config=config, strategy=args.strategy, progress=True)]
+            runs, window=window, config=config, strategy=args.strategy, progress=True,
+            loop=args.tr_loop)]
     wall = time.perf_counter() - ts
     n_windows = sum(len(summaries) for _, summaries, _ in results)
     stats = {"device": str(device), "dtype": args.dtype, "sequential": args.sequential,

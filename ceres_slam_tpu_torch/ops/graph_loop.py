@@ -24,8 +24,11 @@ iterates it on the host there.
 Launch counts: a kernel wrapper counts one launch when the body is
 captured, which is no launch; ``DeviceWhile`` takes the wrappers whose
 counts it keeps (``counted``), takes the capture's counts back, and after
-each ``run()`` adds each wrapper's launches per iteration times the
-iterations the device ran.
+each ``run()`` adds each wrapper's counts per iteration times the
+iterations the device ran. A wrapper names its counters in a
+``counters`` attribute (default ``("launches",)``): the batched K1 also
+counts the windows it served (``("launches", "windows")``), and each of
+them is scaled (``CapturedCounts``).
 
 Conditional nodes need CUDA 12.3 or newer in the toolkit, the driver and
 PyTorch's runtime; ``versions()`` reads the three and ``build()`` raises
@@ -130,13 +133,69 @@ def capture_stream(device: int) -> torch.cuda.Stream:
     return _capture_streams[device]
 
 
+class CapturedCounts:
+    """The counters of the wrappers a captured body launches (``counters``,
+    default ``("launches",)``): made before the capture, ``end()`` after it
+    takes the capture's increments back and keeps them as the counts of
+    one iteration, and ``add(n)`` adds them ``n`` times."""
+
+    def __init__(self, wrappers: Iterable):
+        self.names = [(w, name) for w in wrappers
+                      for name in getattr(w, "counters", ("launches",))]
+        self.before = [getattr(w, name) for w, name in self.names]
+        self.per_iteration: list = []
+
+    def end(self) -> None:
+        self.per_iteration = [getattr(w, name) - n
+                              for (w, name), n in zip(self.names, self.before)]
+        for (w, name), n in zip(self.names, self.before):
+            setattr(w, name, n)
+
+    def add(self, n: int) -> None:
+        for (w, name), per in zip(self.names, self.per_iteration):
+            setattr(w, name, getattr(w, name) + per * n)
+
+
+class DeviceGraph:
+    """``fn()`` captured once in a plain CUDA graph (no loop) and replayed on
+    the current stream, on the pool every capture on ``device`` shares: a
+    window loop's restart (``solver/window.py``) is one replay. ``counted``
+    as ``DeviceWhile``'s: each replay adds the capture's counts once."""
+
+    def __init__(self, fn: Callable[[], None], device: int, counted: Iterable = ()):
+        if "create" not in _fns:
+            build()
+        counts = CapturedCounts(counted)
+        pool = _pool(device)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(device), torch.cuda.stream(capture_stream(device)):
+            self.graph.capture_begin(pool=pool)
+            try:
+                fn()
+            except BaseException:
+                _abandon_capture(self.graph, device, pool)
+                raise
+            finally:
+                counts.end()
+            self.graph.capture_end()
+        self.counts, self.fn = counts, fn  # the graph reads what fn's closure holds
+
+    def replay(self) -> None:
+        self.graph.replay()
+        self.counts.add(1)
+
+    def close(self) -> None:
+        self.graph = self.fn = None
+
+
 class DeviceWhile:
     """``while pred: body()`` on the card, as one graph launch.
 
     ``pred``: an int32 tensor of one element on the card, which ``body``
     writes; the loop tests it before every iteration, so it runs zero
     times if ``pred`` is 0 at ``run()``. ``counted``: the kernel wrappers
-    (functions with a ``.launches`` count) whose launches the body makes.
+    (functions with a ``.launches`` count, and the other ``counters`` they
+    name) whose launches the body makes.
     The body is captured here, on ``capture_stream``; a capture or graph
     build that fails raises."""
 
@@ -153,8 +212,7 @@ class DeviceWhile:
         self.body, self.pred = body, pred  # the graph reads what the body's closure holds
         self.count = torch.zeros(1, dtype=torch.int32, device=pred.device)
         self._handle = None
-        counted = tuple(counted)
-        before = [w.launches for w in counted]
+        counts = CapturedCounts(counted)
         t0 = time.perf_counter()
         pool = _pool(self.device)
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -166,11 +224,9 @@ class DeviceWhile:
                 _abandon_capture(self.graph, self.device, pool)
                 raise
             finally:
-                captured = [w.launches - n for w, n in zip(counted, before)]
-                for w, n in zip(counted, before):
-                    w.launches = n
+                counts.end()
             self.graph.capture_end()
-        self.per_iteration = dict(zip(counted, captured))
+        self.counts = counts
         t1 = time.perf_counter()
         handle = ctypes.c_void_p()
         err = _fns["create"](self.graph.raw_cuda_graph(), pred.data_ptr(), self.count.data_ptr(),
@@ -192,11 +248,10 @@ class DeviceWhile:
 
     def run(self) -> int:
         """Run the loop and return its iterations, read once on the host
-        after the loop; each counted wrapper gets its launches."""
+        after the loop; each counted wrapper gets its counts."""
         self.launch()
         n = int(self.count.item())
-        for w, per in self.per_iteration.items():
-            w.launches += per * n
+        self.counts.add(n)
         return n
 
     def close(self) -> None:

@@ -132,30 +132,49 @@ def make_plan(camera: StereoCamera, K: int, J: int, pose_idx, uvd, stiffness, we
                                                       pose_free), dtype, device)
 
 
-def plan_from_arrays(camera: StereoCamera, K: int, J: int, a: dict, dtype=torch.float64,
-                     device="cpu") -> WindowPlan:
-    """The plan of ``plan_arrays``'s arrays on ``device`` (two host-to-device
-    copies); the kernel reads the pose side's records in pose order
-    (``obs_by_pose``)."""
+def plan_host(a: dict, J: int, dtype) -> dict:
+    """The host arrays of ``plan_arrays``'s plan as they go to the device:
+    the records followed by the pose-sorted records in ``dtype``
+    (``plan_obs``), and in int32 the slot poses, the pose order, the pose
+    offsets, the sorted slots' landmarks and the ticket (``plan_ints``)."""
     rec, order, start = a["rec"], a["order"], a["start"]
-    M = rec.shape[0]
-    O = M // J
-    device = _check_target(dtype, device, O)
-    ints = torch.as_tensor(np.concatenate([a["pose_idx"], order, start, order // O, [0]]),
-                           dtype=torch.int32).to(device)
-    S = order.size
-    obs, obs_by_pose = torch.as_tensor(np.concatenate([rec, rec[order]]), dtype=dtype).to(
-        device).split([M, S])
+    O = rec.shape[0] // J
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    return {"plan_obs": np.concatenate([rec, rec[order]]).astype(np_dt),
+            "plan_ints": np.concatenate([a["pose_idx"], order, start, order // O, [0]]).astype(
+                np.int32)}
+
+
+def bind_plan(camera: StereoCamera, K: int, J: int, t: dict, start: np.ndarray) -> WindowPlan:
+    """The plan over ``plan_host``'s arrays once they are on their device
+    (``t``, the same names); ``start`` is the host copy of the pose offsets
+    (the kernel takes them with its launch parameters)."""
+    obs_all, ints = t["plan_obs"], t["plan_ints"]
+    S = int(start[-1])
+    M = obs_all.shape[0] - S
+    device = _check_target(obs_all.dtype, obs_all.device, M // J)
+    obs, obs_by_pose = obs_all.split([M, S])
     pidx, porder, pstart, point_by_pose, ticket = ints.split([M, S, K + 1, S, 1])
     args = None
     if device.type == "cuda":
         args = _Args(obs.data_ptr(), obs_by_pose.data_ptr(), pidx.data_ptr(),
                      point_by_pose.data_ptr(), ticket.data_ptr(), camera.fu, camera.fv,
-                     camera.cu, camera.cv, camera.fu * camera.b, K, J, O, obs.device.index,
+                     camera.cu, camera.cv, camera.fu * camera.b, K, J, M // J, obs.device.index,
                      torch.cuda.device_count() > 1,
-                     (ctypes.c_int * (MAX_POSES + 1))(*start.tolist()))
-    return WindowPlan(camera, K, J, O, obs, pidx, porder, pstart, obs_by_pose, point_by_pose,
-                      ticket, args)
+                     (ctypes.c_int * (MAX_POSES + 1))(*np.asarray(start).tolist()))
+    return WindowPlan(camera, K, J, M // J, obs, pidx, porder, pstart, obs_by_pose,
+                      point_by_pose, ticket, args)
+
+
+def plan_from_arrays(camera: StereoCamera, K: int, J: int, a: dict, dtype=torch.float64,
+                     device="cpu") -> WindowPlan:
+    """The plan of ``plan_arrays``'s arrays on ``device`` (one host-to-device
+    copy); the kernel reads the pose side's records in pose order
+    (``obs_by_pose``)."""
+    from ceres_slam_tpu_torch.utils import device as device_mod
+
+    _check_target(dtype, device, a["rec"].shape[0] // J)
+    return bind_plan(camera, K, J, device_mod.upload(plan_host(a, J, dtype), device), a["start"])
 
 
 class BatchPlan(NamedTuple):
@@ -173,8 +192,8 @@ class BatchPlan(NamedTuple):
     obs: torch.Tensor  # [B * M, 16]
     pose_idx: torch.Tensor  # [B * M] int32, -1 for padding slots
     pose_start: torch.Tensor  # [B, K + 1] int32, offsets into obs_by_pose
-    obs_by_pose: torch.Tensor  # [S, 16]: every window's records sorted by pose, in turn
-    point_by_pose: torch.Tensor  # [S] int32: the slots' landmarks within their window
+    obs_by_pose: torch.Tensor  # [B * M, 16]: every window's records sorted by pose, in turn
+    point_by_pose: torch.Tensor  # [B * M] int32: the slots' landmarks within their window
     ticket: torch.Tensor  # [B] int32, 0 between calls
     cams: torch.Tensor  # [B, 5] float64: fu, fv, cu, cv, fu * b
     args: _BatchArgs | None
@@ -188,14 +207,19 @@ def batch_plan_arrays(windows: list, J: int, cameras, dtype) -> dict:
     M, K1 = windows[0]["rec"].shape[0], windows[0]["start"].size
     if any(w["rec"].shape[0] != M or w["start"].size != K1 for w in windows):
         raise ValueError("the windows of a batch plan must share one shape (K, J, O)")
-    O = M // J
+    O, B = M // J, len(windows)
     base = np.cumsum([0] + [w["order"].size for w in windows[:-1]])
+    S = int(base[-1]) + windows[-1]["order"].size
+    by_pose = np.zeros((B * M, _REC), np_dt)  # padded to every slot: one size per shape
+    by_pose[:S] = np.concatenate([w["rec"][w["order"]] for w in windows])
+    point_by_pose = np.zeros(B * M, np.int32)
+    point_by_pose[:S] = np.concatenate([w["order"] // O for w in windows])
     return {
         "obs": np.concatenate([w["rec"] for w in windows]).astype(np_dt),
-        "obs_by_pose": np.concatenate([w["rec"][w["order"]] for w in windows]).astype(np_dt),
+        "obs_by_pose": by_pose,
         "pose_idx": np.concatenate([w["pose_idx"] for w in windows]).astype(np.int32),
         "pose_start": np.stack([w["start"] + b0 for w, b0 in zip(windows, base)]).astype(np.int32),
-        "point_by_pose": np.concatenate([w["order"] // O for w in windows]).astype(np.int32),
+        "point_by_pose": point_by_pose,
         "ticket": np.zeros(len(windows), np.int32),
         "cams": np.asarray([[c.fu, c.fv, c.cu, c.cv, c.fu * c.b] for c in cameras], np.float64),
     }
@@ -386,6 +410,8 @@ def window_factor_blocks_batch(plan: BatchPlan, poses: torch.Tensor, points: tor
 
 window_factor_blocks_batch.launches = 0
 window_factor_blocks_batch.windows = 0
+# the counts a captured loop scales by its iterations (ops/graph_loop.py)
+window_factor_blocks_batch.counters = ("launches", "windows")
 
 
 def _random_window(K: int, J: int, O: int, rng):

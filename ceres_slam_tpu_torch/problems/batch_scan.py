@@ -7,20 +7,25 @@ is 3 sequences x {VO-only + 4 sun configurations} = 15 chains, and the
 flagship's two passes are two. The JAX module pads every run's statics to
 common shapes and vmaps its device scan over the runs. The port has no
 scan (its pass is the host per-window loop, ``DatasetProblemSun.
-solve_sliding_window``), so its batch is B host loops in lockstep: step w
+solve_sliding_window``), so its batch is B chains in lockstep: step w
 solves window w of every chain that still has one as one batch
 (``solver/window.BatchLayout``): one K1 launch a trust-region iteration
 serves that window of every chain, the small algebra carries a leading
-batch axis, and each chain keeps its own trust-region control on the host.
-A chain whose window is RANSAC-degenerate, or that has no window left, sits
-the step out.
+batch axis, and each chain keeps its own trust-region control in the
+loop's carry. On the card a step is one graph launch: the loop runs in a
+WHILE node (``window.WindowGraph``, captured once per batch shape and
+held by the pass), and the host reads the step's poses, landmarks,
+covariances and summaries once, after it. A chain whose window is
+RANSAC-degenerate, or that has no window left, sits the step out; a step
+with fewer windows takes another capture, not fake windows.
 
 Every run works on its own copy of the mutable state (poses, covariances,
 landmarks), so runs may share one loaded dataset (and its RANSAC
 precompute) and the datasets are left as they were; results come back as
 ``BatchResult``. A window's layout and K1 plan depend on its structure
 alone, so they are built once per dataset and window (at the step that
-solves it), padded to the batch's shape; a step then costs a
+solves it), padded to the batch's shape (landmarks, slots per landmark and
+the gather tables' widths, fixed for the pass); a step then costs a
 concatenation and one host-to-device copy. One chain's results in a batch equal its sequential pass's to the
 rounding of the padding: with the same padding (runs of one dataset, as
 the flagship's two passes), bit for bit on the CPU.
@@ -71,7 +76,7 @@ class BatchSolve:
     All runs share the solver dtype, the covariance floor and the device."""
 
     def __init__(self, runs: list, window: int = 2, config: lm.SolveConfig | None = None,
-                 strategy: str = "dogleg"):
+                 strategy: str = "dogleg", loop: str | None = None):
         if not runs:
             raise ValueError("solve_batch needs at least one run")
         if window < 2:
@@ -87,13 +92,19 @@ class BatchSolve:
         first = runs[0].ds
         self.dtype, self.device, self.floor = first._dt, first._device, first._covar_floor
         datasets = {id(r.ds): r.ds for r in runs}
-        budgets = []
+        budgets, widths = [], []
         for ds in datasets.values():
             ds.precompute_pair_alignments()  # shared by the runs of the dataset
             budgets.append(ds._window_budget(window))
+            widths.append(ds._table_widths(window))
         self.n_obs_pad, self.J, self.O = (max(b[i] for b in budgets) for i in range(3))
+        self.widths = tuple(max(w[i] for w in widths) for i in range(2))
         self.chains = [_Chain(r, window) for r in runs]
         self.num_steps = max(c.num_windows for c in self.chains)
+        # ``loop``: window.run_loop's; on the card the pass holds its captures
+        self.loop = loop
+        on_card = torch.device(self.device).type == "cuda" and loop in (None, "device")
+        self.graph = window_mod.WindowGraph() if on_card else None
 
     def _hosts(self, chains: list, k1: int) -> list:
         """``(WindowHost, the window's landmark ids)`` of window ``k1`` of each
@@ -105,7 +116,8 @@ class BatchSolve:
                     k1, k1 + self.window, self.n_obs_pad, self.J, gauge_fix_first=False,
                     device="cpu")
                 hosts[id(c.run.ds)] = (
-                    window_mod.window_host(problem, self.window, self.J, self.O), slots)
+                    window_mod.window_host(problem, self.window, self.J, self.O, self.widths),
+                    slots)
         return [hosts[id(c.run.ds)] for c in chains]
 
     def _per_window(self, chains: list, slots: list, k1: int) -> dict:
@@ -161,17 +173,20 @@ class BatchSolve:
         layout, state = window_mod.build_batch_layout(
             [h for h, _ in hosts], self._per_window(solve, [s for _, s in hosts], k1),
             self.dtype, self.device)
-        sol, summaries, cov = window_mod.solve_batch_with_covariance(
-            layout, state, 1, self.config, strategy=self.strategy)
-        out = torch.cat([sol.poses.flatten(1), sol.points.flatten(1), cov.flatten(1)],
-                        dim=1).cpu().numpy()
+        sol, stats, cov = window_mod.solve_batch_with_covariance(
+            layout, state, 1, self.config, self.strategy, self.loop, self.graph)
+        f64 = torch.float64
+        out = torch.cat([sol.poses.flatten(1).to(f64), sol.points.flatten(1).to(f64),
+                         cov.flatten(1).to(f64), stats], dim=1).cpu().numpy()  # the one read
+        n = K * 12 + J * 3 + 36
+        summaries = window_mod.summaries(out[:, n:], self.config)
         for c, (_, slots), row, summary in zip(solve, hosts, out, summaries):
             ds = c.ds
             ds.poses[k1:k2] = row[: K * 12].reshape(K, 12)
             pts = row[K * 12: K * 12 + J * 3].reshape(J, 3)[: slots.size]
             upd = ds.initialized_point[slots]
             ds.map_points[slots[upd]] = pts[upd]
-            cv = row[K * 12 + J * 3:].reshape(6, 6)
+            cv = row[K * 12 + J * 3: n].reshape(6, 6)
             # covariance failure fallback: the previous window's
             ds.pose_covars[k1 + 1] = cv if np.all(np.isfinite(cv)) else ds.pose_covars[k1]
             c.summaries.append(summary)
@@ -183,19 +198,28 @@ class BatchSolve:
         return [BatchResult(c.ds.poses, c.ds.pose_covars, c.summaries, np.asarray(c.ok, bool))
                 for c in self.chains]
 
+    def close(self) -> None:
+        """Free the pass's captured loops."""
+        if self.graph is not None:
+            self.graph.close()
+
 
 def solve_batch(runs: list, window: int = 2, config: lm.SolveConfig | None = None,
-                strategy: str = "dogleg", progress: bool = False) -> list:
+                strategy: str = "dogleg", progress: bool = False,
+                loop: str | None = None) -> list:
     """Solve every run's sliding-window pass, the runs' windows together
-    (``BatchSolve``); one ``BatchResult`` per run, the datasets untouched.
-    Runs of different lengths mix: a chain that has run out of windows sits
-    the remaining steps out."""
-    solver = BatchSolve(runs, window, config, strategy)
+    (``BatchSolve``; ``loop``: ``window.run_loop``'s); one ``BatchResult``
+    per run, the datasets untouched. Runs of different lengths mix: a chain
+    that has run out of windows sits the remaining steps out."""
+    solver = BatchSolve(runs, window, config, strategy, loop)
     if progress:
         print(f"  batch: {len(runs)} runs, {solver.num_steps} steps, windows padded to "
               f"J={solver.J}, O={solver.O}", flush=True)
-    for k1 in range(solver.num_steps):
-        n = solver.step(k1)
-        if progress and k1 % 50 == 0:
-            print(f"  step {k1}: {n} windows solved together", flush=True)
+    try:
+        for k1 in range(solver.num_steps):
+            n = solver.step(k1)
+            if progress and k1 % 50 == 0:
+                print(f"  step {k1}: {n} windows solved together", flush=True)
+    finally:
+        solver.close()
     return solver.results()

@@ -235,6 +235,22 @@ class DatasetProblem:
                 max_slots = max(max_slots, int(cnt.max()))
         return _round_up(max_obs), _round_up(max_pts), max_slots
 
+    def _table_widths(self, window: int):
+        """Widths ``(by pair, by pose)`` of the window layout's gather tables
+        shared by every window (``window.gather_table``): the most
+        observations of one (pose, landmark) pair, and of one pose, in any
+        window. A pass pads to them, so every window has one shape."""
+        n = int(self.point_ids.max(initial=0)) + 1
+        pair, pose = 1, 1
+        for k1 in range(0, self.num_states - window + 1):
+            sel = np.concatenate(self._state_obs[k1: k1 + window])
+            if sel.size:
+                _, cnt = np.unique(self.state_ids[sel] * n + self.point_ids[sel],
+                                   return_counts=True)
+                pair = max(pair, int(cnt.max()))
+                pose = max(pose, max(s.size for s in self._state_obs[k1: k1 + window]))
+        return pair, pose
+
     def build_window_problem(self, k1: int, k2: int, n_obs_pad: int, n_pts_pad: int,
                              prior: dense.PosePrior | None = None,
                              sun: dense.SunObs | None = None, sun_huber: float = 0.0,
@@ -335,36 +351,49 @@ class DatasetProblem:
         """The ``dataset_vo`` pipeline: per window, the VO initial guess, BA
         of the window with its first pose held constant, and
         ``reset_points``; ``window=0`` is one full-batch solve.
-        ``linear_solver``: ``auto`` | ``dense`` | ``window`` | ``pcg``.
-        Returns the per-window ``SolveSummary`` list."""
+        ``linear_solver``: ``auto`` | ``dense`` | ``window`` | ``pcg``; the
+        window solver (``window.solve_ba_window``) pads every window of the
+        pass to one shape and, on the card, captures its loop once for the
+        pass (a ``window.WindowGraph``). Returns the per-window
+        ``SolveSummary`` list."""
         from ceres_slam_tpu_torch.solver import pcg
 
         config = config or lm.SolveConfig(max_iters=100)
         K = self.num_states
         window = window or K
-        n_obs_pad, n_pts_pad, _ = self._window_budget(window)
+        n_obs_pad, n_pts_pad, o_pad = self._window_budget(window)
         solver = linear_solver
         if solver == "auto":
             solver = self.auto_linear_solver(window, n_pts_pad)
         if solver not in ("dense", "window", "pcg"):
             raise ValueError(f"unknown linear solver: {linear_solver!r}")
         summaries = []
-        for k1 in range(0, K - window + 1):
-            k2 = min(k1 + window, K)
-            self.compute_initial_guess(k1, k2)
-            problem, state, slots = self.build_window_problem(k1, k2, n_obs_pad, n_pts_pad,
-                                                              gauge_fix_first=True)
-            if solver == "window":
-                layout = window_mod.build_window_layout(problem, k2 - k1, n_pts_pad,
-                                                        device=self._device)
-                sol, summary, _ = window_mod._run_loop(layout, state, config, "lm")
-            else:
-                problem = dense.to_device(problem, self._device)
-                solve = pcg.solve_ba_pcg if solver == "pcg" else dense.solve_ba
-                sol, summary = solve(problem, state, config)
-            self.absorb_window_solution(k1, k2, sol, slots)
-            summaries.append(summary)
-            self.reset_points()
+        graph = None
+        if solver == "window":
+            widths = self._table_widths(window)
+            if torch.device(self._device).type == "cuda":
+                graph = window_mod.WindowGraph()
+        try:
+            for k1 in range(0, K - window + 1):
+                k2 = min(k1 + window, K)
+                self.compute_initial_guess(k1, k2)
+                problem, state, slots = self.build_window_problem(
+                    k1, k2, n_obs_pad, n_pts_pad, gauge_fix_first=True,
+                    device="cpu" if solver == "window" else None)
+                if solver == "window":
+                    sol, summary = window_mod.solve_ba_window(
+                        problem, state, config, "lm", O_pad=o_pad, graph=graph, widths=widths,
+                        device=self._device)
+                else:
+                    problem = dense.to_device(problem, self._device)
+                    solve = pcg.solve_ba_pcg if solver == "pcg" else dense.solve_ba
+                    sol, summary = solve(problem, state, config)
+                self.absorb_window_solution(k1, k2, sol, slots)
+                summaries.append(summary)
+                self.reset_points()
+        finally:
+            if graph is not None:
+                graph.close()
         return summaries
 
 
@@ -436,7 +465,8 @@ class DatasetProblemSun(DatasetProblem):
                              zen_err_thresh: float = 1000.0,
                              config: lm.SolveConfig | None = None,
                              strategy: str = "dogleg", progress: bool = False,
-                             checkpoint: str | None = None, checkpoint_every: int = 25):
+                             checkpoint: str | None = None, checkpoint_every: int = 25,
+                             loop: str | None = None):
         """One pass of the flagship pipeline: per window, the VO initial
         guess, the window solve with a pose prior from the previous
         window's covariance, and the covariance of the window's second pose
@@ -449,11 +479,17 @@ class DatasetProblemSun(DatasetProblem):
         every ``checkpoint_every`` windows (``utils/checkpoint.py``, with
         the window size, ``use_sun`` and the dataset's fingerprint as its
         meta), resumes from a matching checkpoint if one exists, and
-        deletes the file when the pass completes."""
+        deletes the file when the pass completes.
+
+        ``loop``: ``window.run_loop``'s. Every window of the pass is padded
+        to one shape (landmarks, slots per landmark, the gather tables'
+        widths), so on the card the pass captures its loop once (a
+        ``window.WindowGraph``) and each window is one graph launch."""
         config = config or lm.SolveConfig(max_iters=100)
         K = self.num_states
         window = window or K
         n_obs_pad, n_pts_pad, o_pad = self._window_budget(window)
+        widths = self._table_widths(window)
         self.precompute_pair_alignments()
         summaries = []
         k_start = 0
@@ -467,35 +503,43 @@ class DatasetProblemSun(DatasetProblem):
                 self.pose_covars[:] = arrays["pose_covars"]
                 if progress:
                     print(f"  resumed from checkpoint at window {k_start}")
-        for k1 in range(k_start, K - window + 1):
-            k2 = min(k1 + window, K)
-            if self.compute_initial_guess(k1, k2):
-                problem, state, slots = self.build_window_problem(
-                    k1, k2, n_obs_pad, n_pts_pad,
-                    prior=self._window_prior(k1),
-                    sun=self._window_sun(k1, k2) if use_sun else None,
-                    sun_huber=huber_param if use_sun else 0.0,
-                    az_err_thresh=az_err_thresh, zen_err_thresh=zen_err_thresh,
-                    gauge_fix_first=False,
-                )
-                sol, summary, cov = window_mod.solve_ba_window_with_covariance(
-                    problem, state, 1, config, strategy=strategy, O_pad=o_pad)
-                self.absorb_window_solution(k1, k2, sol, slots)
-                cov = cov.cpu().numpy()
-                if np.all(np.isfinite(cov)):
-                    self.pose_covars[k1 + 1] = cov
-                else:  # covariance failure fallback
-                    self.pose_covars[k1 + 1] = self.pose_covars[k1]
-                summaries.append(summary)
-            else:  # RANSAC degeneracy fallback
-                self.poses[k2 - 1] = self.poses[k1]
-                self.pose_covars[k2 - 1] = self.pose_covars[k1]
-            self.reset_points()
-            if checkpoint and (k1 + 1) % checkpoint_every == 0:
-                ckpt_mod.save(checkpoint, k1 + 1,
-                              {"poses": self.poses, "pose_covars": self.pose_covars}, meta=meta)
-            if progress and k1 % 50 == 0:
-                print(f"  window [{k1},{k2}) done")
+        graph = None
+        if torch.device(self._device).type == "cuda" and loop in (None, "device"):
+            graph = window_mod.WindowGraph()  # the pass's captured loop
+        try:
+            for k1 in range(k_start, K - window + 1):
+                k2 = min(k1 + window, K)
+                if self.compute_initial_guess(k1, k2):
+                    problem, state, slots = self.build_window_problem(
+                        k1, k2, n_obs_pad, n_pts_pad,
+                        prior=self._window_prior(k1),
+                        sun=self._window_sun(k1, k2) if use_sun else None,
+                        sun_huber=huber_param if use_sun else 0.0,
+                        az_err_thresh=az_err_thresh, zen_err_thresh=zen_err_thresh,
+                        gauge_fix_first=False, device="cpu",
+                    )
+                    sol, summary, cov = window_mod.solve_ba_window_with_covariance(
+                        problem, state, 1, config, strategy=strategy, O_pad=o_pad, loop=loop,
+                        graph=graph, widths=widths, device=self._device)
+                    self.absorb_window_solution(k1, k2, sol, slots)
+                    cov = cov.cpu().numpy()
+                    if np.all(np.isfinite(cov)):
+                        self.pose_covars[k1 + 1] = cov
+                    else:  # covariance failure fallback
+                        self.pose_covars[k1 + 1] = self.pose_covars[k1]
+                    summaries.append(summary)
+                else:  # RANSAC degeneracy fallback
+                    self.poses[k2 - 1] = self.poses[k1]
+                    self.pose_covars[k2 - 1] = self.pose_covars[k1]
+                self.reset_points()
+                if checkpoint and (k1 + 1) % checkpoint_every == 0:
+                    ckpt_mod.save(checkpoint, k1 + 1,
+                                  {"poses": self.poses, "pose_covars": self.pose_covars}, meta=meta)
+                if progress and k1 % 50 == 0:
+                    print(f"  window [{k1},{k2}) done")
+        finally:
+            if graph is not None:
+                graph.close()
         if checkpoint and os.path.exists(checkpoint):
             os.unlink(checkpoint)  # the pass completed
         return summaries

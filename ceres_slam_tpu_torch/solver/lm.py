@@ -6,7 +6,9 @@ Port of ``ceres_slam_tpu/solver/lm.py`` (``SolveConfig``, ``SolveSummary``,
 trust-region control (accept test, damping, termination) runs on the host
 in float64 on a few scalars read from the device: one read per iteration,
 plus one for the initial cost. The window solver's block-carrying loops
-(``solver/window.py``, ``solver/dogleg.py``) follow the same rules.
+(``solver/window.py``, ``solver/dogleg.py``) apply the same rules on the
+device, as the JAX loops do: their control is a carry of tensors in the
+cost's dtype, and on CUDA the loop runs in a WHILE node.
 ``record_history`` keeps the per-iteration cost, damping, gradient norm
 and accept decision on the host (``utils/telemetry.full_report``).
 """
@@ -146,14 +148,16 @@ def _cholesky_or_nan(A: torch.Tensor) -> torch.Tensor:
     return torch.where((info == 0)[..., None, None], L, torch.full_like(L, math.nan))
 
 
-def cholesky_apply(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``(L L^T)^{-1} b`` for vectors ``b [..., n]`` and factors ``L [..., n,
-    n]``: two triangular solves, as the JAX package applies its factors.
-    Unlike a batched ``torch.cholesky_solve`` it never synchronizes with the
-    host on CUDA, so a CUDA graph can capture it (``solver/pcg.py``'s CG
-    loop)."""
-    y = torch.linalg.solve_triangular(L, b[..., None], upper=False)
-    return torch.linalg.solve_triangular(L.mT, y, upper=True)[..., 0]
+def cholesky_apply(L: torch.Tensor, b: torch.Tensor, columns: bool = False) -> torch.Tensor:
+    """``(L L^T)^{-1} b`` for vectors ``b [..., n]`` (or, with ``columns``,
+    matrices ``b [..., n, m]``) and factors ``L [..., n, n]``: two triangular
+    solves, as the JAX package applies its factors. Unlike a batched
+    ``torch.cholesky_solve`` it never synchronizes with the host on CUDA, so
+    a CUDA graph can capture it (``solver/pcg.py``'s CG loop, the window
+    loops of ``solver/window.py``)."""
+    y = torch.linalg.solve_triangular(L, b if columns else b[..., None], upper=False)
+    x = torch.linalg.solve_triangular(L.mT, y, upper=True)
+    return x if columns else x[..., 0]
 
 
 def dogleg_solve(state0, config: SolveConfig, cost_fn: Callable, normal_eq_fn: Callable,

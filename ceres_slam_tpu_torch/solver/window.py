@@ -17,36 +17,46 @@ with the Schur reduce, the Cholesky and the covariance in float64 (the
 flagship's 1e-12 prior makes S span ~12 orders of magnitude).
 
 Every trust-region iteration runs the K1 factor pass
-(``ops/window_kernel.window_factor_blocks``) exactly once: the candidate
-state's pass is both its cost evaluation and, on acceptance, the next
-iteration's normal equations.
+(``ops/window_kernel.window_factor_blocks_batch``) exactly once: the
+candidate state's pass is both its cost evaluation and, on acceptance, the
+next iteration's normal equations.
 
-The loops are Python loops whose trust-region control (accept test,
-damping or radius, termination) runs on the host in float64 on a few
-scalars read from the device: one read per LM iteration, two per dogleg
-iteration (``solver/dogleg.py``), plus one for the initial cost.
+The trust-region loops are the JAX package's ``lax.while_loop``s
+(``blocks_lm_loop`` here, ``solver/dogleg.py``'s ``blocks_dogleg_loop``):
+the state of B windows solved together is a ``Carry`` of ``[B, ...]``
+tensors (the iterate and its blocks, the damping or radius, the cost, the
+nonmonotonic buffer, the best iterate, the iteration count, the done flag,
+the history), and one iteration of every window (``lm_body``,
+``dogleg.dogleg_body``) is a pure function of it whose control is
+``torch.where``s: a window that has stopped keeps its values. On CUDA the
+loop runs on the card (``loop="device"``): the body, updating the carry in
+place, is captured once per shape and run in a conditional WHILE node
+(``ops/graph_loop.DeviceWhile``, ``WindowGraph``), its stop test an int32
+on the card; the host reads the results once, after the loop. The plain
+version (``loop="host"``, the CPU's) iterates the same body on the host
+while the test holds, and gives the same bits.
 
 Independent windows of one shape solve together (``BatchLayout``, built by
-``problems/batch_scan.py`` for chains in lockstep): the algebra takes a
-leading batch axis, one K1 launch serves every window of the batch, and
-each window keeps its own trust-region control on the host (a window that
-has converged is held fixed with ``torch.where`` while the others go on).
-One window alone is the batch of one, so the two give the same bits: every
-step of the algebra is written so that a window's arithmetic does not
-depend on the leading axis (no 2-D BLAS matrix-vector product, dot or
-small 2-D product, whose batched forms round differently on the CPU).
+``problems/batch_scan.py`` for chains in lockstep, and by ``windows_batch``
+for one window alone, B = 1): one K1 launch serves every window of the
+batch. Every step of the algebra is written so that a window's arithmetic
+does not depend on the leading axis (no 2-D BLAS matrix-vector product, dot
+or small 2-D product, whose batched forms round differently on the CPU),
+so a window gives the same bits alone and in a batch padded alike.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ceres_slam_tpu_torch.ops import lie, window_kernel
+from ceres_slam_tpu_torch.ops import graph_loop, lie, subspace_kernel, window_kernel
 from ceres_slam_tpu_torch.solver import dense, lm
+from ceres_slam_tpu_torch.utils import device as device_mod
 
 
 class WindowLayout(NamedTuple):
@@ -68,17 +78,23 @@ class WindowLayout(NamedTuple):
     pose_slots: torch.Tensor | None = None  # [K, P] int64: pose k's slots, padded with M
 
 
-def gather_table(ids: np.ndarray, n: int) -> np.ndarray:
+def gather_table(ids: np.ndarray, n: int, width: int | None = None) -> np.ndarray:
     """``[n, D]`` gather table of ``ids [M]`` for ``dense.gather_sum``, built
     on the host: row b lists the positions m with ``ids[m] == b`` in
     increasing order, padded with ``M`` (ids outside ``[0, n)`` are left
-    out); ``D`` is the largest count (at least 1)."""
+    out); ``D`` is the largest count (at least 1), or ``width`` where one is
+    given (a width fixed for a pass: every window of it one shape)."""
     M = ids.size
     on = np.nonzero((ids >= 0) & (ids < n))[0]
     order = on[np.argsort(ids[on], kind="stable")]
     counts = np.bincount(ids[on], minlength=n)
     rank = np.arange(order.size) - np.concatenate([[0], np.cumsum(counts)])[ids[order]]
-    table = np.full((n, max(1, int(counts.max(initial=0)))), M, np.int64)
+    D = max(1, int(counts.max(initial=0)))
+    if width is not None:
+        if D > width:
+            raise ValueError(f"gather table width {width} < required {D}")
+        D = width
+    table = np.full((n, D), M, np.int64)
     table[ids[order], rank] = order
     return table
 
@@ -101,9 +117,13 @@ class WindowHost(NamedTuple):
     fixed_pose_mask: np.ndarray  # [K] bool
 
 
-def _layout_host(problem: dense.StereoBAProblem, K: int, J: int, O_pad: int | None):
+def _layout_host(problem: dense.StereoBAProblem, K: int, J: int, O_pad: int | None,
+                 widths: tuple | None = None):
     """The window's ``WindowHost`` and its observations in slot order
-    ``(uvd, stiffness, pose [M], landmark [M], valid [M])`` (host tensors)."""
+    ``(uvd, stiffness, pose [M], landmark [M], valid [M])`` (host tensors).
+    ``widths``: the by-pair and by-pose tables' widths (default: the
+    window's own)."""
+    w_pair, w_pose = widths if widths is not None else (None, None)
     st = problem.stereo
     pose_idx = st.pose_idx.cpu().numpy()
     point_idx = st.point_idx.cpu().numpy()
@@ -138,42 +158,45 @@ def _layout_host(problem: dense.StereoBAProblem, K: int, J: int, O_pad: int | No
         camera=problem.camera, K=K, J=J, O=O,
         plan=window_kernel.plan_arrays(K, J, np.where(wf, pose_idx[flat], -1), uvd, stiff,
                                        v & point_valid[slot_landmark], ~fixed_pose[p_idx]),
-        slot_pose=slot_pose, w_idx=gather_table(slot_pose * J + slot_landmark, K * J),
-        pose_slots=gather_table(slot_pose, K), point_valid=point_valid,
+        slot_pose=slot_pose, w_idx=gather_table(slot_pose * J + slot_landmark, K * J, w_pair),
+        pose_slots=gather_table(slot_pose, K, w_pose), point_valid=point_valid,
         fixed_pose_mask=fixed_pose)
     return host, (uvd, stiff, p_idx, slot_landmark, v)
 
 
-def window_host(problem: dense.StereoBAProblem, K: int, J: int,
-                O_pad: int | None = None) -> WindowHost:
+def window_host(problem: dense.StereoBAProblem, K: int, J: int, O_pad: int | None = None,
+                widths: tuple | None = None) -> WindowHost:
     """The host layout of a window problem (see ``build_window_layout``)."""
-    return _layout_host(problem, K, J, O_pad)[0]
+    return _layout_host(problem, K, J, O_pad, widths)[0]
 
 
 def build_window_layout(problem: dense.StereoBAProblem, K: int, J: int,
-                        O_pad: int | None = None, device=None) -> WindowLayout:
+                        O_pad: int | None = None, device=None,
+                        widths: tuple | None = None) -> WindowLayout:
     """Reorder the valid stereo observations landmark-grouped and pad to
-    ``[J, O]`` (``O_pad`` fixes O to a budget), and build K1's plan.
-    Host-side numpy; the layout is placed on ``device`` (default: the
-    problem's)."""
+    ``[J, O]`` (``O_pad`` fixes O to a budget; ``widths`` the gather tables'
+    widths), and build K1's plan. Host-side numpy; the layout, the problem
+    and the plan are placed on ``device`` (default: the problem's) in one
+    host-to-device copy (``utils/device.upload``)."""
     st = problem.stereo
     device = device if device is not None else st.uvd.device
-    host, (uvd, stiff, p_idx, slot_landmark, v) = _layout_host(problem, K, J, O_pad)
-
-    def put(x, dt=None):
-        return torch.as_tensor(x, dtype=dt).to(device)
-
-    stereo = dense.StereoObs(
-        uvd=uvd.to(device), stiffness=stiff.to(device), pose_idx=put(p_idx, torch.int64),
-        point_idx=put(slot_landmark, torch.int64), valid=put(v),
-    )
+    host, (uvd, stiff, p_idx, slot_landmark, v) = _layout_host(problem, K, J, O_pad, widths)
+    stereo = dense.StereoObs(uvd=uvd, stiffness=stiff, pose_idx=torch.as_tensor(p_idx),
+                             point_idx=torch.as_tensor(slot_landmark), valid=torch.as_tensor(v))
+    problem = problem._replace(stereo=stereo)
+    leaves = [f"problem{i}" for i in range(len(_leaves(problem)))]
+    arrays = dict(zip(leaves, (x.cpu().numpy() for x in _leaves(problem))),
+                  slot_pose=host.slot_pose, w_idx=host.w_idx, pose_slots=host.pose_slots,
+                  **window_kernel.plan_host(host.plan, J, st.uvd.dtype))
+    t = device_mod.upload(arrays, device)
+    on_device = iter(t[k] for k in leaves)
     return WindowLayout(
-        problem=dense.to_device(problem._replace(stereo=stereo), device),
+        problem=_map(lambda _: next(on_device), problem),
         O=host.O,
-        slot_pose=put(host.slot_pose, torch.int64),
-        w_idx=put(host.w_idx, torch.int64),
-        plan=window_kernel.plan_from_arrays(problem.camera, K, J, host.plan, st.uvd.dtype, device),
-        pose_slots=put(host.pose_slots, torch.int64),
+        slot_pose=t["slot_pose"],
+        w_idx=t["w_idx"],
+        plan=window_kernel.bind_plan(problem.camera, K, J, t, host.plan["start"]),
+        pose_slots=t["pose_slots"],
     )
 
 
@@ -181,8 +204,8 @@ class BatchLayout(NamedTuple):
     """B window problems of one shape ``(K, J, O)`` solved together: the
     windows' layouts side by side (window b's slots are ``b*M .. b*M + M-1``),
     the gather tables offset per window (padding: ``B*M``, the zero row a
-    sum appends), their sun and prior terms, and K1's plan: a ``BatchPlan``,
-    or for one window alone (``as_batch``) its ``WindowPlan``."""
+    sum appends), their sun and prior terms, and K1's batch plan (one
+    window alone is a batch of one: ``windows_batch``)."""
 
     terms: dense.AuxTerms  # [B, ...]
     K: int
@@ -191,7 +214,7 @@ class BatchLayout(NamedTuple):
     slot_pose: torch.Tensor  # [B*M] int64: b*(K+1) + the slot's pose (K for padding)
     w_idx: torch.Tensor  # [B*K*J, D] int64: row (b*K + k)*J + j lists window b's pair (k, j)
     pose_slots: torch.Tensor  # [B*K, P] int64: row b*K + k lists window b's pose k's slots
-    plan: object  # window_kernel.BatchPlan, or WindowPlan for one window
+    plan: window_kernel.BatchPlan
 
 
 def _offset_tables(tables: list, M: int) -> np.ndarray:
@@ -206,16 +229,16 @@ def _offset_tables(tables: list, M: int) -> np.ndarray:
     return out.reshape(-1, D)
 
 
-def build_batch_layout(windows: list, per_window: dict, dtype, device):
+def build_batch_layout(windows: list, per_window: dict, dtype, device, prior_pose: int = 0):
     """B windows of one shape as a ``BatchLayout`` and their ``BAState``,
     from the windows' ``WindowHost`` and ``per_window``'s host arrays: the
     state (``poses [B, K, 12]``, ``points [B, J, 3]``) and the sun and prior
     terms (``sun_dir_c``, ``sun_dir_g [B, K, 3]``, ``sun_stiffness [B, K, 2,
     2]``, ``sun_valid [B, K]``, ``prior_T_ref [B, 12]``, ``prior_stiffness
     [B, 6, 6]``, ``prior_valid [B]``, ``sun_huber``, ``az_err_thresh``,
-    ``zen_err_thresh [B]``; the prior is on each window's first pose, as the
-    sliding window puts it). Everything goes to ``device`` in one
-    host-to-device copy."""
+    ``zen_err_thresh [B]``; the prior is on each window's pose
+    ``prior_pose``, the first as the sliding window puts it). Everything goes
+    to ``device`` in one host-to-device copy."""
     from ceres_slam_tpu_torch.utils import device as device_mod
 
     K, J, O = windows[0].K, windows[0].J, windows[0].O
@@ -237,30 +260,14 @@ def build_batch_layout(windows: list, per_window: dict, dtype, device):
     t = device_mod.upload(arrays, device)
     terms = dense.AuxTerms(
         sun=dense.SunObs(t["sun_dir_c"], t["sun_dir_g"], t["sun_stiffness"], t["sun_valid"]),
-        prior=dense.PosePrior(0, t["prior_T_ref"], t["prior_stiffness"], t["prior_valid"]),
+        prior=dense.PosePrior(prior_pose, t["prior_T_ref"], t["prior_stiffness"],
+                              t["prior_valid"]),
         fixed_pose_mask=t["fixed_pose_mask"], point_valid=t["point_valid"],
         sun_huber=t["sun_huber"], az_err_thresh=t["az_err_thresh"],
         zen_err_thresh=t["zen_err_thresh"])
     plan = window_kernel.bind_batch_plan([w.camera for w in windows], K, J, t)
     return (BatchLayout(terms, K, J, O, t["slot_pose"], t["w_idx"], t["pose_slots"], plan),
             dense.BAState(t["poses"], t["points"]))
-
-
-def as_batch(layout: WindowLayout) -> BatchLayout:
-    """One window's layout as a batch of one (its tables need no offset)."""
-    plan = layout.plan
-    return BatchLayout(_lead(dense.aux_terms(layout.problem)), plan.K, plan.J, layout.O,
-                       layout.slot_pose, layout.w_idx, layout.pose_slots, plan)
-
-
-def _lead(x):
-    """``x`` with a leading axis of one (through NamedTuples; ints stay)."""
-    if isinstance(x, torch.Tensor):
-        return x[None]
-    if isinstance(x, tuple):
-        vals = [_lead(v) for v in x]
-        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
-    return x
 
 
 def _first(x):
@@ -300,13 +307,8 @@ def factor_blocks_batch(layout: BatchLayout, state: dense.BAState) -> Blocks:
     """One K1 pass over every window of a batch (one launch): the blocks
     with a leading B axis, views of the kernel's outputs."""
     B, K, J, O = state.poses.shape[0], layout.K, layout.J, layout.O
-    plan = layout.plan
-    if isinstance(plan, window_kernel.BatchPlan):
-        hll, u, gl, hppgp, cost = window_kernel.window_factor_blocks_batch(
-            plan, state.poses, state.points)
-    else:  # one window alone
-        hll, u, gl, hppgp, cost = _lead(window_kernel.window_factor_blocks(
-            plan, state.poses[0], state.points[0]))
+    hll, u, gl, hppgp, cost = window_kernel.window_factor_blocks_batch(
+        layout.plan, state.poses, state.points)
     return Blocks(
         Hpp=hppgp.narrow(2, 0, 36).view(B, K, 6, 6),
         Hll=hll.view(B, J, 3, 3),
@@ -412,15 +414,17 @@ def _equilibrated_cho(S: torch.Tensor):
     """Jacobi-equilibrated Cholesky of S ``[..., n, n]``; returns
     ``solve(b)`` = ``S^{-1} b`` for ``b [..., n]`` or, with ``columns=True``,
     ``b [..., n, m]``. A failed factorization gives NaN (as ``jax.scipy``
-    does), which the loops treat as a rejected step — and no host
-    synchronization."""
+    does), which the loops treat as a rejected step. The factor is applied
+    by two triangular solves (``lm.cholesky_apply``), as the JAX package's
+    ``cho_solve`` does: no host synchronization, so a CUDA graph captures
+    it."""
     s = torch.rsqrt(torch.clamp(torch.diagonal(S, dim1=-2, dim2=-1), min=1e-30))
     L = lm._cholesky_or_nan(S * (s[..., :, None] * s[..., None, :]))
 
     def solve(b, columns: bool = False):
         if columns:
-            return torch.cholesky_solve(b * s[..., :, None], L) * s[..., :, None]
-        return torch.cholesky_solve((b * s)[..., None], L)[..., 0] * s
+            return lm.cholesky_apply(L, b * s[..., :, None], columns=True) * s[..., :, None]
+        return lm.cholesky_apply(L, b * s) * s
 
     return solve
 
@@ -456,13 +460,33 @@ def schur_solve(Hpp, Hll, U_jo, gp, gl, w_idx, lam):
 def pose_marginal_covariance(Hpp, Hll, U_jo, w_idx, pose_idx: int):
     """6x6 tangent marginal covariance of pose ``pose_idx`` (of each window
     of a batch): the block ``(S^{-1})_kk`` of the undamped reduced camera
-    matrix."""
+    matrix, by two triangular solves against unit columns (no host sync)."""
     K = Hpp.shape[-3]
     S, *_ = _schur_reduce(Hpp, Hll, U_jo, w_idx, 0.0)
     E = torch.zeros((6 * K, 6), dtype=S.dtype, device=S.device)
     E[6 * pose_idx: 6 * pose_idx + 6] = torch.eye(6, dtype=S.dtype, device=S.device)
     X = _equilibrated_cho(S)(E, columns=True)
     return X[..., 6 * pose_idx: 6 * pose_idx + 6, :]
+
+
+def window_step(layout: WindowLayout, state: dense.BAState, lam):
+    """One damped LM linear solve of a window: its K1 pass, the sun and prior
+    blocks and the Schur step (``ceres_slam_tpu/solver/window.py::
+    window_step``). Returns ``(dx [6K + 3J], grad_norm, pred_decrease)``."""
+    b = factor_blocks(layout, state)
+    Hpp_aux, gp_aux = _masked_aux_blocks(layout.problem, state, state.poses.dtype)
+    return schur_solve(b.Hpp + Hpp_aux, b.Hll, b.U_jo, b.gp + gp_aux, b.gl, layout.w_idx, lam)
+
+
+def window_marginal_covariance(layout: WindowLayout, state: dense.BAState, pose_idx: int):
+    """6x6 tangent marginal covariance of pose ``pose_idx`` at ``state``
+    through the window's block system (``ceres_slam_tpu/solver/window.py::
+    window_marginal_covariance``), in float64."""
+    b = factor_blocks(layout, state)
+    Hpp_aux, _ = _masked_aux_blocks(layout.problem, state, torch.float64)
+    f64 = torch.float64
+    return pose_marginal_covariance(b.Hpp.to(f64) + Hpp_aux, b.Hll.to(f64), b.U_jo.to(f64),
+                                    layout.w_idx, pose_idx)
 
 
 def _select(mask: torch.Tensor, new, old):
@@ -472,160 +496,455 @@ def _select(mask: torch.Tensor, new, old):
                        for x, y in zip(new, old)))
 
 
-class _Chains:
-    """The host side of B trust-region loops in lockstep: each window's cost,
-    nonmonotonic buffer, iteration count, history and done flag (float64
-    host scalars, as one window's loop keeps them), and on the device the
-    current and the best iterate with their blocks, updated per window
-    with ``torch.where``."""
+# -- the trust-region loops ----------------------------------------------------
 
-    def __init__(self, config: lm.SolveConfig, state, blocks, cost_t):
-        self.config = config
-        self.B = cost_t.shape[0]
-        self.dtype, self.device = cost_t.dtype, cost_t.device
-        self.cost0 = cost_t.tolist()
-        self.cost = list(self.cost0)
-        self.cost_buf = [[c] * config.nonmonotonic_window for c in self.cost0]
-        self.best_cost = list(self.cost0)
-        self.it = [0] * self.B
-        self.grad_norm = [math.inf] * self.B
-        self.active = [config.max_iters > 0] * self.B
-        self.histories = [lm.History(config) for _ in range(self.B)]
-        self.state, self.blocks = state, blocks
-        self.best = (state, blocks)
-        self._accept, self._better = [False] * self.B, [False] * self.B
+class Carry(NamedTuple):
+    """The state of B trust-region loops (the JAX loops' ``Carry``, with a
+    leading window axis), every number in the cost's dtype: the iterate
+    and its factor blocks, the damping (LM) or trust radius (dogleg)
+    ``lam``, the cost, the last gradient norm, the iteration count
+    (int32), the done flag, the nonmonotonic buffer of recent accepted
+    costs, the best iterate (kept under nonmonotonic steps), the initial
+    cost, and with ``record_history`` the per-iteration cost, ``lam``,
+    gradient norm and accept flag (``[B, max_iters]``; NaN, False past the
+    last iteration)."""
 
-    def accept_test(self, b: int, new_cost: float):
-        """Window b's accept decision on ``new_cost``; returns ``(accept, actual)``."""
-        cfg = self.config
-        actual = self.cost[b] - new_cost
-        accept_ref = max(self.cost_buf[b]) if cfg.nonmonotonic else self.cost[b]
-        accept = math.isfinite(new_cost) and new_cost < accept_ref
-        return accept, actual
-
-    def record(self, b: int, accept: bool, new_cost: float, lam: float, done: bool):
-        """Window b's iteration ends: take the step if accepted, keep the
-        best, write the history, stop the window if ``done`` or at the
-        iteration budget."""
-        cfg = self.config
-        if accept:
-            self.cost[b] = new_cost
-            self.cost_buf[b][self.it[b] % cfg.nonmonotonic_window] = new_cost
-            self._accept[b] = True
-            if new_cost < self.best_cost[b]:
-                self.best_cost[b] = new_cost
-                self._better[b] = True
-        self.histories[b].add(self.it[b], self.cost[b], lam, self.grad_norm[b], accept)
-        self.it[b] += 1
-        if done or self.it[b] >= cfg.max_iters:
-            self.active[b] = False
-
-    def _pick(self, flags: list, new, old):
-        if all(flags):
-            return new
-        if not any(flags):
-            return old
-        return _select(torch.tensor(flags, device=self.device), new, old)
-
-    def advance(self, new_state, new_blocks):
-        """Move every window whose step was accepted to its new iterate."""
-        self.state = self._pick(self._accept, new_state, self.state)
-        self.blocks = self._pick(self._accept, new_blocks, self.blocks)
-        if self.config.nonmonotonic:
-            self.best = (self._pick(self._better, new_state, self.best[0]),
-                         self._pick(self._better, new_blocks, self.best[1]))
-        self._accept, self._better = [False] * self.B, [False] * self.B
-
-    def finish(self, lam: list):
-        """``(state, summaries, blocks)``: under nonmonotonic steps each
-        window's best iterate (Ceres returns the best minimizer)."""
-        state, blocks, cost = self.state, self.blocks, self.cost
-        if self.config.nonmonotonic:
-            (state, blocks), cost = self.best, self.best_cost
-        summaries = [h.summary(it, c0, c, gn, lm_)
-                     for h, it, c0, c, gn, lm_ in zip(self.histories, self.it, self.cost0, cost,
-                                                      self.grad_norm, lam)]
-        return state, summaries, blocks
+    state: dense.BAState
+    blocks: Blocks
+    lam: torch.Tensor  # [B]
+    cost: torch.Tensor  # [B]
+    grad_norm: torch.Tensor  # [B]
+    it: torch.Tensor  # [B] int32
+    done: torch.Tensor  # [B] bool
+    cost_buf: torch.Tensor  # [B, nonmonotonic_window]
+    best_state: dense.BAState
+    best_blocks: Blocks
+    best_cost: torch.Tensor  # [B]
+    cost0: torch.Tensor  # [B]
+    history: tuple  # ([B, max_iters] x 3, bool [B, max_iters]) or ()
 
 
-def blocks_lm_loop(layout: BatchLayout, state0: dense.BAState, config: lm.SolveConfig):
-    """Block-carrying Levenberg-Marquardt loops of B windows in lockstep
-    (one K1 launch per iteration for all of them; one window alone:
-    ``as_batch``), each window with its own damping and stopping rule.
-    Returns ``(state, summaries, blocks_at_state)``."""
-    terms = layout.terms
-    blocks, cost_t = total_blocks(layout, state0)
-    ch = _Chains(config, state0, blocks, cost_t)
-    lam = [config.init_lambda] * ch.B
-    while any(ch.active):
-        state, blocks = ch.state, ch.blocks
-        Hpp_aux, gp_aux = _masked_aux_blocks(terms, state, ch.dtype)
-        lam_t = torch.tensor(lam, dtype=torch.float64).to(ch.device)
-        dx, grad_norm_t, pred_t = schur_solve(
-            blocks.Hpp + Hpp_aux, blocks.Hll, blocks.U_jo, blocks.gp + gp_aux, blocks.gl,
-            layout.w_idx, lam_t)
-        dx_ok_t = torch.all(torch.isfinite(dx), dim=-1)
-        dx = torch.where(dx_ok_t[:, None], dx, torch.zeros_like(dx))
-        new_state = dense._retract_state(terms, state, dx)
-        new_blocks, new_cost_t = total_blocks(layout, new_state)
-        stats = torch.stack([grad_norm_t, pred_t, new_cost_t, dx_ok_t.to(ch.dtype),
-                             dx.abs().amax(dim=-1)], dim=-1).tolist()
-        for b, (grad_norm, pred, new_cost, dx_ok, dx_max) in enumerate(stats):
-            if not ch.active[b]:
-                continue
-            ch.grad_norm[b] = grad_norm
-            accept, actual = ch.accept_test(b, new_cost)
-            rho = actual / max(pred, 1e-30)
-            small = accept and actual >= 0.0 and actual <= config.ftol * max(ch.cost[b], 1e-30)
-            done = (small or grad_norm <= config.gtol or (dx_ok and dx_max <= 1e-14)
-                    or lam[b] >= config.max_lambda)
-            if accept:
-                lam[b] = max(lam[b] * max(1.0 / 3.0, 1.0 - (2.0 * rho - 1.0) ** 3),
-                             config.min_lambda)
-            else:
-                lam[b] = min(lam[b] * 4.0, config.max_lambda)
-            ch.record(b, accept, new_cost, lam[b], done)
-        ch.advance(new_state, new_blocks)
-    return ch.finish(lam)
+def _leaves(x) -> list:
+    """The tensors of a (nested) tuple, in order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, tuple):
+        return [t for v in x for t in _leaves(v)]
+    return []
 
 
-def _run_loop_batch(layout: BatchLayout, state0, config, strategy):
+def _map(fn, x):
+    """``x`` with ``fn`` applied to each tensor (through tuples)."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, tuple):
+        vals = [_map(fn, v) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    return x
+
+
+def loop_start(layout: BatchLayout, state0: dense.BAState, config: lm.SolveConfig,
+               lam0: float) -> Carry:
+    """The carry before the first iteration: one K1 pass on ``state0`` (its
+    blocks and cost), ``lam0`` the initial damping or radius."""
+    blocks, cost = total_blocks(layout, state0)
+    B, dt, dev = cost.shape[0], cost.dtype, cost.device
+    history = ()
+    if config.record_history:
+        nan = torch.full((B, config.max_iters), math.nan, dtype=dt, device=dev)
+        history = (nan, nan.clone(), nan.clone(),
+                   torch.zeros((B, config.max_iters), dtype=torch.bool, device=dev))
+    return Carry(
+        state=state0, blocks=blocks, lam=torch.full((B,), lam0, dtype=dt, device=dev),
+        cost=cost, grad_norm=torch.full((B,), math.inf, dtype=dt, device=dev),
+        it=torch.zeros(B, dtype=torch.int32, device=dev),
+        done=torch.zeros(B, dtype=torch.bool, device=dev),
+        cost_buf=cost[:, None].expand(B, config.nonmonotonic_window).contiguous(),
+        best_state=state0, best_blocks=blocks, best_cost=cost, cost0=cost, history=history)
+
+
+def active(c: Carry, config: lm.SolveConfig) -> torch.Tensor:
+    """``[B]`` bool: the windows whose loop goes on (JAX's ``cond``)."""
+    return ~c.done & (c.it < config.max_iters)
+
+
+def advance(c: Carry, config: lm.SolveConfig, on: torch.Tensor, accept: torch.Tensor,
+            new_state, new_blocks, new_cost, lam, grad_norm, done) -> Carry:
+    """The end of an iteration of the windows ``on`` (the others keep every
+    value): take the accepted steps, keep the best iterate, write the
+    nonmonotonic buffer and the history at each window's iteration index
+    (one-hot ``torch.where``s, no host index), count the iteration."""
+    accept = accept & on
+    cost = torch.where(accept, new_cost, c.cost)
+    W = config.nonmonotonic_window
+    slot = torch.arange(W, device=cost.device) == torch.remainder(c.it, W)[:, None]
+    best = (c.best_state, c.best_blocks, c.best_cost)
+    if config.nonmonotonic:
+        better = accept & (new_cost < c.best_cost)
+        best = (_select(better, new_state, c.best_state),
+                _select(better, new_blocks, c.best_blocks),
+                torch.where(better, new_cost, c.best_cost))
+    lam = torch.where(on, lam, c.lam)
+    history = c.history
+    if config.record_history:
+        at = on[:, None] & (torch.arange(config.max_iters, device=cost.device)
+                            == c.it[:, None].long())
+        history = tuple(torch.where(at, v[:, None], h)
+                        for h, v in zip(c.history, (cost, lam, grad_norm, accept)))
+    return Carry(
+        state=_select(accept, new_state, c.state), blocks=_select(accept, new_blocks, c.blocks),
+        lam=lam, cost=cost, grad_norm=torch.where(on, grad_norm, c.grad_norm),
+        it=c.it + on.to(torch.int32), done=torch.where(on, done, c.done),
+        cost_buf=torch.where(accept[:, None] & slot, new_cost[:, None], c.cost_buf),
+        best_state=best[0], best_blocks=best[1], best_cost=best[2], cost0=c.cost0,
+        history=history)
+
+
+def accept_test(c: Carry, config: lm.SolveConfig, new_cost, pred):
+    """``(accept, actual, rho, small)``: the step's acceptance (against the
+    worst recent accepted cost under nonmonotonic steps), the actual and
+    relative decrease, and the ftol test, which fires only on a real
+    decrease (an accepted uphill step does not end the solve)."""
+    actual = c.cost - new_cost
+    rho = actual / torch.clamp(pred, min=1e-30)
+    ref = c.cost_buf.amax(dim=-1) if config.nonmonotonic else c.cost
+    accept = torch.isfinite(new_cost) & (new_cost < ref)
+    small = accept & (actual >= 0.0) & (actual <= config.ftol * torch.clamp(c.cost, min=1e-30))
+    return accept, actual, rho, small
+
+
+def lm_body(layout: BatchLayout, config: lm.SolveConfig, c: Carry) -> Carry:
+    """One Levenberg-Marquardt iteration of every window still running
+    (``ceres_slam_tpu/solver/window.py::blocks_lm_loop``'s body): the damped
+    Schur step, one K1 pass on the candidate, the accept test and the
+    damping rule. A non-finite step (a failed factorization) is a rejected
+    step, not convergence. Pure: ``c`` is left as it was."""
+    on = active(c, config)
+    Hpp_aux, gp_aux = _masked_aux_blocks(layout.terms, c.state, c.cost.dtype)
+    b = c.blocks
+    dx, grad_norm, pred = schur_solve(b.Hpp + Hpp_aux, b.Hll, b.U_jo, b.gp + gp_aux, b.gl,
+                                      layout.w_idx, c.lam)
+    dx_ok = torch.all(torch.isfinite(dx), dim=-1)
+    dx = torch.where(dx_ok[:, None], dx, 0.0)
+    new_state = dense._retract_state(layout.terms, c.state, dx)
+    new_blocks, new_cost = total_blocks(layout, new_state)
+    accept, _, rho, small = accept_test(c, config, new_cost, pred)
+    lam_down = c.lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+    lam = torch.where(accept, torch.clamp(lam_down, min=config.min_lambda),
+                      torch.clamp(c.lam * 4.0, max=config.max_lambda))
+    done = (small | (grad_norm <= config.gtol) | (dx_ok & (dx.abs().amax(dim=-1) <= 1e-14))
+            | (c.lam >= config.max_lambda))
+    if config.run_full_budget:
+        done = torch.zeros_like(done)
+    return advance(c, config, on, accept, new_state, new_blocks, new_cost, lam, grad_norm, done)
+
+
+def _strategy(strategy: str, config: lm.SolveConfig, init_radius: float):
+    """``(body, lam0)`` of a trust-region strategy."""
     if strategy == "dogleg":
         from ceres_slam_tpu_torch.solver import dogleg
 
-        return dogleg.blocks_dogleg_loop(layout, state0, config)
+        return dogleg.dogleg_body, init_radius
     if strategy != "lm":
         raise ValueError(f"unknown trust-region strategy: {strategy!r}")
-    return blocks_lm_loop(layout, state0, config)
+    return lm_body, config.init_lambda
 
 
-def _run_loop(layout, state0, config, strategy):
-    state, summaries, blocks = _run_loop_batch(as_batch(layout), _lead(state0), config, strategy)
-    return _first(state), summaries[0], _first(blocks)
+def finish(c: Carry, config: lm.SolveConfig):
+    """``(state, stats, blocks)`` of a finished loop: under nonmonotonic steps
+    each window's best iterate (Ceres returns the best minimizer) with its
+    blocks; ``stats [B, 5 (+ 4 max_iters)]`` float64 on the device, the
+    per-window summary (``summaries`` reads it)."""
+    state, blocks, cost = c.state, c.blocks, c.cost
+    if config.nonmonotonic:
+        state, blocks, cost = c.best_state, c.best_blocks, c.best_cost
+    f64 = torch.float64
+    cols = [c.it.to(f64)[:, None], *(x.to(f64)[:, None] for x in (c.cost0, cost, c.grad_norm,
+                                                                   c.lam))]
+    cols += [h.to(f64) for h in c.history]
+    return state, torch.cat(cols, dim=-1), blocks
+
+
+def summaries(stats, config: lm.SolveConfig) -> list:
+    """The ``SolveSummary`` of each window from ``finish``'s stats (a host
+    array): iterations, costs, final gradient norm and damping or radius,
+    and with ``record_history`` the per-iteration history."""
+    stats = np.asarray(stats, dtype=np.float64)
+    n = config.max_iters
+    out = []
+    for row in stats:
+        s = lm.SolveSummary(int(row[0]), *(float(x) for x in row[1:5]))
+        if config.record_history:
+            h = row[5:].reshape(4, n)
+            s = s._replace(cost_history=h[0], lambda_history=h[1], grad_norm_history=h[2],
+                           step_accepted=h[3] != 0.0)
+        out.append(s)
+    return out
+
+
+def host_loop(layout: BatchLayout, state0: dense.BAState, config: lm.SolveConfig,
+              strategy: str = "lm", init_radius: float = 1e4) -> Carry:
+    """The plain version of the loop on the card: the body iterated on the
+    host while any window runs (the test read every iteration)."""
+    body, lam0 = _strategy(strategy, config, init_radius)
+    c = loop_start(layout, state0, config, lam0)
+    while bool(torch.any(active(c, config))):
+        c = body(layout, config, c)
+    return c
+
+
+class WindowLoop(NamedTuple):
+    """What ``DeviceWhile`` captures: ``body()`` runs one iteration of every
+    window on the carry buffers ``carry`` in place and writes the stop
+    test (``any`` window running) to ``pred`` (int32, 1: run again).
+    ``restart()`` puts the buffers at the start of a new solve, from the
+    layout's and the initial state's tensors as they are now."""
+
+    carry: Carry
+    pred: torch.Tensor  # int32 [1]
+    body: object
+    restart: object
+
+
+def window_loop(layout: BatchLayout, state0: dense.BAState, config: lm.SolveConfig,
+                strategy: str = "lm", init_radius: float = 1e4) -> WindowLoop:
+    """The carry buffers and the body of the window loop, on any device (on
+    the CPU the tests iterate ``body`` while ``pred``, as the WHILE node
+    does)."""
+    step, lam0 = _strategy(strategy, config, init_radius)
+    carry = _map(torch.clone, loop_start(layout, state0, config, lam0))  # own buffers
+    bufs = _leaves(carry)
+    pred = torch.any(active(carry, config)).reshape(1).to(torch.int32)
+
+    def copy_in(new):
+        for buf, t in zip(bufs, _leaves(new)):
+            if t is not buf:
+                buf.copy_(t)
+        pred.copy_(torch.any(active(carry, config)).reshape(1))
+
+    def body():
+        copy_in(step(layout, config, carry))
+
+    def restart():
+        copy_in(loop_start(layout, state0, config, lam0))
+
+    return WindowLoop(carry, pred, body, restart)
+
+
+def loop_inputs(layout: BatchLayout, state0: dense.BAState) -> tuple:
+    """Every tensor the window loop reads that changes from one solve to the
+    next: the sun and prior terms, the masks, the gather tables, K1's batch
+    plan (the kernel reads it by address) and the initial state. A later
+    solve copies them into the captured ones (``WindowGraph``)."""
+    p = layout.plan
+    return (*_leaves(layout.terms), layout.slot_pose, layout.w_idx, layout.pose_slots, p.obs,
+            p.pose_idx, p.pose_start, p.obs_by_pose, p.point_by_pose, p.ticket, p.cams,
+            state0.poses, state0.points)
+
+
+def _counted() -> tuple:
+    """The kernel wrappers a window loop's body launches."""
+    return (window_kernel.window_factor_blocks, window_kernel.window_factor_blocks_batch,
+            subspace_kernel.subspace_step)
+
+
+# the captures and restarts of every WindowGraph of the process, and their host seconds
+GRAPH_STATS = {"captures": 0, "capture_s": 0.0, "build_s": 0.0, "restarts": 0, "restart_s": 0.0}
+
+
+class WindowGraph:
+    """Window loops captured once per shape and run for every solve of a
+    pass (``problems/batch_scan.BatchSolve`` and ``solve_sliding_window``
+    hold one): the first solve of a shape (strategy, configuration, B, K,
+    J, O, the tables' widths, dtype) captures its body on its own tensors,
+    which the graph then reads by address; a later solve of that shape
+    copies its ``loop_inputs`` into those and restarts the loop, with no
+    capture and no instantiation (the restart itself is a captured graph,
+    replayed). ``close()`` frees every capture. ``GRAPH_STATS`` counts the
+    captures and restarts."""
+
+    def __init__(self):
+        self.loops: dict = {}
+
+    def close(self) -> None:
+        for _, _, node, restart in self.loops.values():
+            node.close()
+            restart.close()
+        self.loops = {}
+
+
+def _count(**kv) -> None:
+    for k, v in kv.items():
+        GRAPH_STATS[k] += v
+
+
+def _copy_inputs(dst: tuple, src: tuple) -> None:
+    """A later solve's ``loop_inputs`` into the captured ones: one copy of
+    the whole buffer where each side is views of one buffer at the same
+    offsets (``build_batch_layout``'s one upload), else tensor by tensor."""
+    store_d = {t.untyped_storage().data_ptr() for t in dst}
+    store_s = {t.untyped_storage().data_ptr() for t in src}
+    if store_d == store_s:
+        return
+    whole = (len(store_d) == len(store_s) == 1
+             and dst[0].untyped_storage().nbytes() == src[0].untyped_storage().nbytes()
+             and all(a.storage_offset() * a.element_size() == b.storage_offset() * b.element_size()
+                     for a, b in zip(dst, src)))
+    if whole:
+        def raw(t):
+            return torch.empty(0, dtype=torch.uint8, device=t.device).set_(t.untyped_storage())
+
+        raw(dst[0]).copy_(raw(src[0]))
+        return
+    for d, t in zip(dst, src):
+        d.copy_(t)
+
+
+def _warm_up(step, layout, config, carry) -> None:
+    """One iteration of the body, eagerly and discarded, on the capture
+    stream before its capture: the libraries it calls (cuBLAS, cuSOLVER)
+    make their handles and workspaces there, outside the capture."""
+    stream = graph_loop.capture_stream(carry.cost.get_device())
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        step(layout, config, carry)
+    torch.cuda.current_stream().wait_stream(stream)
+
+
+def device_loop(layout: BatchLayout, state0: dense.BAState, config: lm.SolveConfig,
+                strategy: str = "lm", init_radius: float = 1e4,
+                graph: WindowGraph | None = None):
+    """``host_loop`` on the card: ``window_loop``'s body captured and run in a
+    conditional WHILE node, one graph launch for every iteration of every
+    window. With a ``graph``, the capture is kept there for the next solve
+    of the same shape; without one it is this solve's alone. Returns
+    ``finish``'s ``(state, stats, blocks)`` (new tensors). Raises on the
+    CPU, and if the capture fails."""
+    if state0.poses.device.type != "cuda":
+        raise ValueError(f"the device window loop runs on the card, not "
+                         f"{state0.poses.device}: use loop='host'")
+    own = graph is None
+    graph = WindowGraph() if own else graph
+    inputs = loop_inputs(layout, state0)
+    key = (strategy, config, init_radius, layout.terms.prior.pose_idx,
+           tuple((t.shape, t.dtype) for t in inputs))
+    try:
+        entry = graph.loops.get(key)
+        if entry is None:
+            lp = window_loop(layout, state0, config, strategy, init_radius)
+            _warm_up(_strategy(strategy, config, init_radius)[0], layout, config, lp.carry)
+            node = graph_loop.DeviceWhile(lp.body, lp.pred, counted=_counted())
+            t0 = time.perf_counter()
+            restart = graph_loop.DeviceGraph(lp.restart, node.device, counted=_counted())
+            graph.loops[key] = entry = (inputs, lp, node, restart)
+            _count(captures=1, capture_s=node.capture_s + time.perf_counter() - t0,
+                   build_s=node.build_s)
+        else:
+            t0 = time.perf_counter()
+            _copy_inputs(entry[0], inputs)
+            entry[3].replay()
+            _count(restarts=1, restart_s=time.perf_counter() - t0)
+        entry[2].run()
+        state, stats, blocks = finish(entry[1].carry, config)
+        return _map(torch.clone, state), stats, _map(torch.clone, blocks)
+    finally:
+        if own:
+            graph.close()
+
+
+def run_loop(layout: BatchLayout, state0: dense.BAState, config: lm.SolveConfig,
+             strategy: str = "lm", loop: str | None = None, graph: WindowGraph | None = None,
+             init_radius: float = 1e4):
+    """The trust-region loops of B windows (``strategy``: ``"lm"`` or
+    ``"dogleg"``). ``loop``: ``"device"`` (the CUDA default) runs them in a
+    WHILE node on the card (``device_loop``, with ``graph``), ``"host"``
+    (the CPU's) in ``host_loop``; the two give the same bits. Returns
+    ``(state, stats, blocks_at_state)``, ``stats`` as ``finish`` gives it."""
+    loop = loop or ("device" if state0.poses.device.type == "cuda" else "host")
+    if loop == "device":
+        return device_loop(layout, state0, config, strategy, init_radius, graph)
+    if loop != "host":
+        raise ValueError(f"unknown trust-region loop: {loop!r}")
+    return finish(host_loop(layout, state0, config, strategy, init_radius), config)
+
+
+def blocks_lm_loop(layout: BatchLayout, state0: dense.BAState, config: lm.SolveConfig,
+                   loop: str | None = None, graph: WindowGraph | None = None):
+    """Block-carrying Levenberg-Marquardt loops of B windows in lockstep (one
+    K1 launch per iteration for all of them), each window with its own
+    damping and stopping rule (``run_loop``). Returns ``(state, stats,
+    blocks_at_state)``."""
+    return run_loop(layout, state0, config, "lm", loop, graph)
+
+
+def windows_batch(windows: list, O_pad: int | None = None, widths: tuple | None = None,
+                  device=None):
+    """Window problems ``[(problem, state)]`` of one shape as one batch
+    through ``build_batch_layout``: the layouts, the sun and prior terms and
+    the states go to ``device`` (default: the first state's) in one
+    host-to-device copy, and a captured loop can take them (K1's batch
+    plan). ``O_pad`` and ``widths`` fix the shape for a pass."""
+    hosts, per = [], {}
+    for problem, state in windows:
+        problem = dense.to_device(problem, "cpu")
+        t = dense.aux_terms(problem)
+        hosts.append(window_host(problem, state.poses.shape[-2], state.points.shape[-2], O_pad,
+                                 widths))
+        for name, x in (("poses", state.poses), ("points", state.points),
+                        ("sun_dir_c", t.sun.dir_c), ("sun_dir_g", t.sun.dir_g),
+                        ("sun_stiffness", t.sun.stiffness), ("sun_valid", t.sun.valid),
+                        ("prior_T_ref", t.prior.T_ref), ("prior_stiffness", t.prior.stiffness),
+                        ("prior_valid", t.prior.valid), ("sun_huber", t.sun_huber),
+                        ("az_err_thresh", t.az_err_thresh), ("zen_err_thresh", t.zen_err_thresh)):
+            per.setdefault(name, []).append(x.cpu().numpy())
+    state = windows[0][1]
+    return build_batch_layout(hosts, {k: np.stack(v) for k, v in per.items()},
+                              state.poses.dtype, device or state.poses.device,
+                              prior_pose=t.prior.pose_idx)
 
 
 def solve_batch_with_covariance(layout: BatchLayout, state0: dense.BAState, pose_idx: int,
-                                config: lm.SolveConfig = lm.SolveConfig(), strategy: str = "lm"):
-    """Solve B windows together, then each window's 6x6 tangent marginal
-    covariance of pose ``pose_idx`` from its final iterate's blocks (float64,
-    cast back to the state dtype). Returns ``(state, summaries, cov [B, 6, 6])``."""
-    state, summaries, blocks = _run_loop_batch(layout, state0, config, strategy)
+                                config: lm.SolveConfig = lm.SolveConfig(), strategy: str = "lm",
+                                loop: str | None = None, graph: WindowGraph | None = None):
+    """Solve B windows together (``run_loop``), then each window's 6x6
+    tangent marginal covariance of pose ``pose_idx`` from its final
+    iterate's blocks (float64, after the loop and outside it, cast back to
+    the state dtype). Returns ``(state, stats, cov [B, 6, 6])``, all on the
+    device: the caller reads them once (``summaries`` turns ``stats`` into
+    ``SolveSummary``s)."""
+    state, stats, blocks = run_loop(layout, state0, config, strategy, loop, graph)
     f64 = torch.float64
     Hpp_aux, _ = _masked_aux_blocks(layout.terms, state, f64)
     cov = pose_marginal_covariance(
         blocks.Hpp.to(f64) + Hpp_aux, blocks.Hll.to(f64), blocks.U_jo.to(f64),
         layout.w_idx, pose_idx)
-    return state, summaries, cov.to(state.poses.dtype)
+    return state, stats, cov.to(state.poses.dtype)
 
 
 def solve_ba_window_with_covariance(problem, state0, pose_idx: int,
                                     config: lm.SolveConfig = lm.SolveConfig(),
-                                    strategy: str = "lm", O_pad: int | None = None):
+                                    strategy: str = "lm", O_pad: int | None = None,
+                                    loop: str | None = None, graph: WindowGraph | None = None,
+                                    widths: tuple | None = None, device=None):
     """Window solve + the 6x6 tangent marginal covariance of pose
     ``pose_idx`` from the final iterate's blocks (float64, cast back to
-    the state dtype): the batch of one. Returns ``(state, summary, cov)``."""
-    K, J = state0.poses.shape[0], state0.points.shape[0]
-    layout = build_window_layout(problem, K, J, O_pad, device=state0.poses.device)
-    state, summaries, cov = solve_batch_with_covariance(as_batch(layout), _lead(state0),
-                                                        pose_idx, config, strategy)
-    return _first(state), summaries[0], cov[0]
+    the state dtype): the batch of one (``windows_batch``, on ``device``).
+    Returns ``(state, summary, cov)``."""
+    layout, state = windows_batch([(problem, state0)], O_pad, widths, device)
+    state, stats, cov = solve_batch_with_covariance(layout, state, pose_idx, config, strategy,
+                                                    loop, graph)
+    return _first(state), summaries(stats.cpu(), config)[0], cov[0]
+
+
+def solve_ba_window(problem, state0, config: lm.SolveConfig = lm.SolveConfig(),
+                    strategy: str = "lm", O_pad: int | None = None, loop: str | None = None,
+                    graph: WindowGraph | None = None, widths: tuple | None = None,
+                    device=None):
+    """Trust-region solve of one window with the explicit-Schur window step
+    (``ceres_slam_tpu/solver/window.py::solve_ba_window``): ``strategy``
+    ``"lm"`` or ``"dogleg"`` (SUBSPACE_DOGLEG); ``loop`` and ``graph`` as
+    ``run_loop``'s; on ``device`` (default: the state's). Returns
+    ``(state, summary)``."""
+    layout, state = windows_batch([(problem, state0)], O_pad, widths, device)
+    state, stats, _ = run_loop(layout, state, config, strategy, loop, graph)
+    return _first(state), summaries(stats.cpu(), config)[0]

@@ -8,8 +8,9 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
   device   the card's name and power limit (nvidia-smi), torch and CUDA versions
   build    compiles the kernels K1 (csrc/window_factor_blocks.cu), K2
            (csrc/stereo_factor_blocks.cu), K3 (csrc/schur_uy.cu), K4
-           (csrc/bilinear_sample_imgs.cu) and P (csrc/double_kernel.cu) and
-           the device WHILE loop (csrc/graph_while.cu) with nvcc, one
+           (csrc/bilinear_sample_imgs.cu), P (csrc/double_kernel.cu) and S
+           (csrc/subspace_step.cu, the dogleg's 2x2 subproblem, a kernel of
+           the port) and the device WHILE loop (csrc/graph_while.cu) with nvcc, one
            process each, all started together; the loop's build checks that
            the toolkit, the driver and PyTorch's runtime are CUDA 12.3 or
            newer (conditional graph nodes)
@@ -40,14 +41,21 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            process with P's launches counted, the two while cases
            (grid_in_while: a counter on the device stops the loop at 3;
            grid_in_while_data: while sum(x) < 8 sum(x0)) bit-equal to x * 8
-           and to the same loop on the host; and the host cost of the two
-           ways to read PyTorch's current stream
+           and to the same loop on the host; S (subspace_step) at B 1, 2
+           and 15 and each of its seven cases alone (interior, boundary,
+           indefinite, hard case, degenerate basis, zero gradient, not
+           finite), float64 and float32, bit-equal to its plain version; and
+           the host cost of the two ways to read PyTorch's current stream
   slice    generates triangle200 and kitti1100 with the port's make_sim and
            runs both CLIs on CUDA: the flagship sliding window (dataset_vo_sun,
            its two passes one batch of two; triangle200 float64 and float32,
-           kitti1100 float64; the windows K1 served at least the windows
-           solved, and ATE against the JAX figures; triangle200 float64 twice,
-           which must write byte-identical *_poses.csv) and
+           kitti1100 float64), each with its trust-region loop in the WHILE
+           node and on the host in turns (--tr-loop device, host, device;
+           kitti1100 device, host),
+           which must write byte-identical *_poses.csv with the same
+           iterations in every window (the windows K1 served at least the
+           windows solved in both forms; ATE against the JAX figures; the
+           pass walls, the captures' and restarts' host times), and
            full-batch BA
            (dataset_vo --window 0, the same three runs, the CG loop in a
            WHILE node on the card; K2 and K3 launch counts, final cost and
@@ -65,8 +73,10 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
   batch    the batched grid: make_sim writes triangle200, square200 and
            penta200 with --sun-noise 0 10 20 30 into a grid directory, and
            dataset_vo_sun_batch --sims solves its 15 chains (VO-only + 4 sun
-           configurations a sequence, 199 windows each) in lockstep, float64:
-           each chain's ATE within 15% of the JAX figures, the triangle200 VO
+           configurations a sequence, 199 windows each) in lockstep, float64,
+           its trust-region loop in the WHILE node, then on the host and in
+           the node again (byte-identical files, the same iterations; walls in
+           turns): each chain's ATE within 15% of the JAX figures, the triangle200 VO
            and gtsun10 chains within 1e-6 (poses) of one sequential
            solve_sliding_window pass each, K1 launched at least once per
            batched trust-region iteration and never alone; the wall,
@@ -153,9 +163,13 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            solve (device busy share, launches per LM iteration); and, after
            the phong phase, a trace of 5 LM iterations of phong200's joint
            stage (float64, vertex-Schur), and after the blowup phase a trace
-           of 10 blow-up solves, and after the batch phase a trace of one
-           step of the grid (window 20 of its 15 chains, solved together:
-           device busy share, launches). It runs whenever the kernels phase
+           of 10 blow-up solves, and after the batch phase (the slice phase)
+           a trace of one step of the grid (kitti1100's two flagship passes),
+           window 20 of its chains solved together, with the trust-region
+           loop on the host and in the WHILE node: launches, graph launches,
+           syncs and copies a step and an iteration, the device busy share,
+           and the node's device us per trust-region iteration (CUDA events:
+           the profiler sees a node's first pass only). It runs whenever the kernels phase
            runs with no main-path phase (slice, dense, phong) after it.
 
 Any failure exits non-zero before the result line. The last line of
@@ -464,6 +478,7 @@ def _trace(torch, fn):
     host = [e.name for e in events if e.device_type != DeviceType.CUDA]
     return {"device_us": sum(e.device_time_total for e in dev), "kernels": len(dev),
             "launches": sum(n.startswith("cudaLaunchKernel") for n in host),
+            "graph_launches": sum(n.startswith("cudaGraphLaunch") for n in host),
             "syncs": sum("Synchronize" in n for n in host),
             "copies": sum(n.startswith("cudaMemcpy") for n in host), "wall_us": wall * 1e6}
 
@@ -703,8 +718,9 @@ def _kernel_k1_batch(torch, window_kernel, results, jobs):
             plain_ms = _median_ms(torch, lambda: window_kernel.window_factor_blocks_batch_plain(*args),
                                   reps=10)
             host_us = _host_us(torch, lambda: fn(*args))
+            S = int(plan.pose_start[-1, -1])  # the by-pose tables are padded past S
             inputs = (poses, points, plan.pose_idx, plan.obs[:, :14], plan.pose_start,
-                      plan.point_by_pose, plan.cams)
+                      plan.point_by_pose[:S], plan.cams)
             row = results[("K1 batch", shape, tag)] = {
                 "B": B, "max_abs_err": worst, "ms": ms, "singles_ms": singles_ms,
                 "plain_ms": plain_ms, **_bound(inputs, out, OPS_PER_ROW["K1"] * B * J * O, tag),
@@ -922,6 +938,53 @@ def _kernel_p(torch, P, results, jobs):
     _p_while_times(torch, x)
 
 
+SUBSPACE_BATCHES = (1, 2, 15)
+# operations of one window's 2x2 subproblem: the interior test and the
+# eigen-split (~40), 64 bisection steps of 11, the fill and the projection
+# (~15), four candidates' model values (~40)
+SUBSPACE_OPS = 40 + 64 * 11 + 15 + 40
+
+
+def _kernel_subspace(torch, sk, results, jobs):
+    """The subspace_step kernel (the 2x2 subproblem of SUBSPACE_DOGLEG, one
+    thread a window) against its plain version bit for bit, float64 and
+    float32, at B 1, 2 (the flagship's two passes) and 15 (the grid), and
+    each of the subproblem's cases alone (interior, boundary, indefinite,
+    hard case, degenerate basis, zero gradient, not finite)."""
+    cases = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        every, every_r = sk.random_models(7, dtype, "cuda", seed=3)
+        for i in range(7):  # each case alone, as a batch of one
+            cases[(tag, i)] = (every[i:i + 1].contiguous(), every_r[i:i + 1].contiguous())
+        for B in SUBSPACE_BATCHES:
+            cases[(tag, f"B={B}")] = sk.random_models(B, dtype, "cuda", seed=B)
+    for (tag, what), (m, r) in cases.items():
+        got, plain = sk.subspace_step(m, r), sk.subspace_step_plain(m, r)
+        torch.cuda.synchronize()
+        same = (torch.equal(torch.isnan(got), torch.isnan(plain))
+                and torch.equal(torch.nan_to_num(got), torch.nan_to_num(plain)))
+        if not same:
+            fail(f"subspace_step {tag} {what}: kernel differs from its plain version "
+                 f"({got.tolist()} vs {plain.tolist()})")
+    for B in SUBSPACE_BATCHES:
+        for tag in ("f64", "f32"):
+            m, r = cases[(tag, f"B={B}")]
+            out = sk.subspace_step(m, r)
+            ms, plain_ms = _medians_ms(torch, [lambda: sk.subspace_step(m, r),
+                                               lambda: sk.subspace_step_plain(m, r)])
+            host_us = _host_us(torch, lambda: sk.subspace_step(m, r))
+            row = results[("S", f"B={B}", tag)] = {
+                "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                **_bound((m, r), out, SUBSPACE_OPS * B, tag), "library_ms": None}
+            jobs.append((f"S subspace_step B={B} {tag}", lambda m=m, r=r: sk.subspace_step(m, r),
+                         row))
+            log(f"[kernels] subspace_step B={B} {tag}: kernel {ms * 1e3:.1f} us (host "
+                f"{host_us:.1f} us per call back to back), plain {plain_ms * 1e3:.1f} us, "
+                f"{_bound_str(row)}; bit-equal to its plain version, and so is each of the 7 "
+                "cases alone, in float64 and float32")
+
+
 def _p_while_times(torch, x):
     """P's while form (a DeviceWhile: P's in-place 4-block launch, a
     counter and the condition in the body): host us per launch of the
@@ -997,11 +1060,12 @@ def phase_kernels(torch, kernels):
     _kernel_full_batch(torch, kernels, results, jobs)
     _kernel_k4(torch, kernels["K4"], results, jobs)
     _kernel_p(torch, kernels["P"], results, jobs)
+    _kernel_subspace(torch, kernels["S"], results, jobs)
     return results, jobs, _p_path(torch, kernels["P"])
 
 
-def phase_profile(torch, jobs, dense: bool, phong: bool, data, blowup: bool = False,
-                  grid: bool = False):
+def phase_profile(torch, jobs, dense: bool, phong: bool, data, smi, blowup: bool = False,
+                  grid: bool = False, flagship: bool = False):
     """torch.profiler measurements, run last so that no profiler session
     precedes the timed main-path runs: each kernel call's device time and
     kernels per call (K1 must run one, K2 and K3 two), K4 on the path's own
@@ -1019,7 +1083,7 @@ def phase_profile(torch, jobs, dense: bool, phong: bool, data, blowup: bool = Fa
                     + f"); {span * 1e3:.2f} us per call back to back, gaps included")
         log(f"[profile] {label}: {ms * 1e3:.2f} us of device time per call, {kernels:g} device "
             f"kernels per call{more}{share}")
-        want = {"K1": 1, "K2": 2, "K3": 2, "P": 1}.get(label.split()[0])
+        want = {"K1": 1, "K2": 2, "K3": 2, "P": 1, "S": 1}.get(label.split()[0])
         if want and round(kernels) != want:
             fail(f"{label}: {kernels:g} device kernels per call, not {want}")
     from ceres_slam_tpu_torch.apps import dense_stereo
@@ -1048,7 +1112,9 @@ def phase_profile(torch, jobs, dense: bool, phong: bool, data, blowup: bool = Fa
     if phong:
         _profile_phong(torch, data)
     if grid:
-        _profile_grid_step(torch, data)
+        _profile_grid_step(torch, data, smi)
+    if flagship:
+        _profile_flagship_step(torch, data, smi)
     if blowup:
         from ceres_slam_tpu_torch.apps import blowup as blowup_app
 
@@ -1098,17 +1164,40 @@ def _make_sims(data):
 
 
 def _reset_k1(window_kernel):
+    """K1's counts and the subspace_step kernel's (the window loop's
+    kernels) to 0, and the window loops' capture and restart counts."""
+    from ceres_slam_tpu_torch.ops import subspace_kernel
+    from ceres_slam_tpu_torch.solver import window
+
     single, batch = window_kernel.window_factor_blocks, window_kernel.window_factor_blocks_batch
-    single.launches = batch.launches = batch.windows = 0
+    single.launches = batch.launches = batch.windows = subspace_kernel.subspace_step.launches = 0
+    for k in window.GRAPH_STATS:
+        window.GRAPH_STATS[k] = 0
 
 
 def _k1_launches(window_kernel) -> dict:
-    """K1's launches since ``_reset_k1``, single-window and batched, and the
-    windows they served."""
+    """K1's launches since ``_reset_k1``, single-window and batched, the
+    windows they served, and the subspace_step kernel's launches."""
+    from ceres_slam_tpu_torch.ops import subspace_kernel
+
     single, batch = window_kernel.window_factor_blocks, window_kernel.window_factor_blocks_batch
     return {"single": single.launches, "batch": batch.launches,
             "total": single.launches + batch.launches,
-            "windows": single.launches + batch.windows}
+            "windows": single.launches + batch.windows,
+            "S": subspace_kernel.subspace_step.launches}
+
+
+def _graph_str() -> str:
+    """The window loops' captures and restarts since ``_reset_k1``."""
+    from ceres_slam_tpu_torch.solver import window
+
+    g = window.GRAPH_STATS
+    if not g["captures"]:
+        return "no capture"
+    return (f"{g['captures']} capture(s): capture {1e3 * g['capture_s'] / g['captures']:.2f} ms, "
+            f"build and instantiation {1e3 * g['build_s'] / g['captures']:.2f} ms each; "
+            f"{g['restarts']} restarts, {1e3 * g['restart_s'] / max(g['restarts'], 1):.3f} ms "
+            "each (host)")
 
 
 def _run_cli(data, seq, dtype, device, window_kernel, extra=()):
@@ -1162,53 +1251,67 @@ def _run_full(data, seq, dtype, device, kernels):
     return stats, launches, poses, metrics.ate_translation(poses, gt)
 
 
-def _repeat_bytes(data, seq, dtype, kernels, stats):
-    """Run the flagship CLI again (ROADMAP F14: every sum on the card in a
-    fixed order) and fail unless its *_poses.csv equal the first run's
-    bytes. Returns the rerun's K1 launches (``_k1_launches``)."""
-    first = {name: open(p["output"], "rb").read() for name, p in stats["passes"].items()}
-    again, launches, _, _ = _run_cli(data, seq, dtype, "cuda", kernels["K1"])
-    for name, p in again["passes"].items():
-        same = open(p["output"], "rb").read() == first[name]
-        log(f"[slice] {seq} {dtype} {name}: a second run writes "
-            f"{'byte-identical' if same else 'DIFFERENT'} {os.path.basename(p['output'])}")
-        if not same:
-            fail(f"{seq} {dtype} {name}: two runs wrote different poses")
-    return launches
+# (sequence, dtype, the trust-region loop's forms in turns): kitti1100's host
+# run takes ~80 s, so it runs once, beside one device run
+WINDOW_TURNS = (("triangle200", "float64", ("device", "host", "device")),
+                ("triangle200", "float32", ("device", "host", "device")),
+                ("kitti1100", "float64", ("device", "host")))
 
 
-def _slice_window(data, kernels):
-    """The flagship sliding-window CLI (its two passes one batch); returns
-    K1's launches and the triangle200 float64 poses. Each launch of the
-    batched K1 serves a window of both passes: the gate counts the windows
-    served, at least one for each window solved."""
-    total_launches, keep = 0, None
-    for seq, dtype in (("triangle200", "float64"), ("triangle200", "float32"),
-                       ("kitti1100", "float64")):
-        stats, launches, poses, ate = _run_cli(data, seq, dtype, "cuda", kernels["K1"])
-        windows = sum(p["windows"] for p in stats["passes"].values())
-        if launches["windows"] < windows or not stats["batched"] or launches["single"]:
-            fail(f"{seq} {dtype}: K1 served {launches['windows']} windows ({launches}) for "
-                 f"{windows} solved windows of the batched passes")
-        total_launches += launches["total"]
-        for name, ref in JAX_ATE[seq].items():
-            dev = abs(ate[name] - ref) / ref
-            log(f"[slice] {seq} {dtype} {name}: ATE {ate[name]:.4f} m (JAX {ref:.4f}, "
+def _slice_window(data, kernels, smi):
+    """The flagship sliding-window CLI (its two passes one batch), with the
+    trust-region loop on the card (``--tr-loop device``, the default) and
+    on the host in turns (``WINDOW_TURNS``). The host run and the second
+    device run must write the first device run's *_poses.csv byte for byte
+    with the same iterations in every window; each launch of the
+    batched K1 serves a window of both passes (the gate counts the windows
+    served, at least one for each window solved, in both forms); every ATE
+    against the JAX figures. Returns K1's and the subspace kernel's
+    launches in the device runs and the triangle200 float64 poses."""
+    launches, keep = {"K1": 0, "S": 0}, None
+    for seq, dtype, turns in WINDOW_TURNS:
+        runs = []
+        for loop in turns:
+            stats, k1, poses, ate = _run_cli(data, seq, dtype, "cuda", kernels["K1"],
+                                             ("--tr-loop", loop))
+            files = {n: open(p["output"], "rb").read() for n, p in stats["passes"].items()}
+            iters = {n: p["iterations_by_window"] for n, p in stats["passes"].items()}
+            runs.append((loop, stats, k1, files, iters, _graph_str()))
+            windows = sum(p["windows"] for p in stats["passes"].values())
+            if k1["windows"] < windows or not stats["batched"] or k1["single"]:
+                fail(f"{seq} {dtype} {loop}: K1 served {k1['windows']} windows ({k1}) for "
+                     f"{windows} solved windows of the batched passes")
+            if loop == "device":
+                if not k1["S"]:
+                    fail(f"{seq} {dtype}: the dogleg's subspace_step kernel never launched")
+                launches["K1"] += k1["total"]
+                launches["S"] += k1["S"]
+        _, ref, _, files, iters, _ = runs[0]
+        for loop, stats, _, f, it, _ in runs[1:]:
+            if f != files or it != iters:
+                fail(f"{seq} {dtype}: --tr-loop {loop} wrote other poses or iterations than "
+                     "the first device run")
+        for name, r in JAX_ATE[seq].items():
+            dev = abs(ate[name] - r) / r
+            log(f"[slice] {seq} {dtype} {name}: ATE {ate[name]:.4f} m (JAX {r:.4f}, "
                 f"{100 * dev:.2f}% off, bound {100 * ATE_BOUND[seq]:.0f}%)")
             if dev > ATE_BOUND[seq]:
-                fail(f"{seq} {dtype} {name}: ATE {ate[name]:.4f} vs JAX {ref:.4f}")
-        log(f"[slice] {seq} {dtype} cuda: load {stats['load_s']:.2f} s, RANSAC "
-            f"{stats['ransac_s']:.2f} s, both passes as one batch {stats['batch_wall_s']:.2f} s, "
-            f"total {stats['total_s']:.2f} s; K1 launches {launches['total']} (batched "
-            f"{launches['batch']}) serving {launches['windows']} windows, "
-            f"{launches['windows'] / max(launches['total'], 1):.2f} windows per launch")
-        for name, p in stats["passes"].items():
-            log(f"[slice]   pass {name}: {p['windows']} windows in {p['wall_s']:.2f} s "
-                f"({p['windows_per_s']:.1f} windows/s), {p['mean_iters']:.2f} iterations/window")
+                fail(f"{seq} {dtype} {name}: ATE {ate[name]:.4f} vs JAX {r:.4f}")
+        walls = " / ".join(f"{loop} {st['batch_wall_s']:.2f}" for loop, st, *_ in runs)
+        log(f"[slice] {seq} {dtype} ({smi}): both passes as one batch, trust-region loop in "
+            f"turns: {walls} s; byte-identical *_poses.csv and the same iterations in every "
+            f"window in all {len(runs)}; load {ref['load_s']:.2f} s, RANSAC "
+            f"{ref['ransac_s']:.2f} s")
+        for loop, st, k, *_, g in runs[:2]:
+            log(f"[slice]   {loop}: K1 launches {k['total']} serving {k['windows']} windows "
+                f"({k['windows'] / max(k['total'], 1):.2f} a launch), subspace_step {k['S']}; "
+                f"{g}")
+        for name, p in ref["passes"].items():
+            log(f"[slice]   pass {name}: {p['windows']} windows, {p['mean_iters']:.2f} "
+                f"iterations/window")
         if (seq, dtype) == ("triangle200", "float64"):
             keep = poses
-            total_launches += _repeat_bytes(data, seq, dtype, kernels, stats)["total"]
-    return total_launches, keep
+    return launches, keep
 
 
 def _slice_full(data, kernels):
@@ -1312,8 +1415,9 @@ def _checkpoint_resume(data, window_kernel):
     """The triangle200 float64 sun pass with --checkpoint: uninterrupted
     once, then killed in a child process once its checkpoint holds window
     100 or later, and run again, resuming; the resumed run must write the
-    uninterrupted run's *_poses.csv byte for byte. Returns K1's launches
-    in the two runs of this process."""
+    uninterrupted run's *_poses.csv byte for byte. Returns K1's and the
+    subspace kernel's launches in the two runs of this process (the
+    sequential pass: one window a launch, its loop in the WHILE node)."""
     from ceres_slam_tpu_torch.utils import checkpoint
 
     base = os.path.join(data, "triangle200")
@@ -1347,7 +1451,8 @@ def _checkpoint_resume(data, window_kernel):
 
     _reset_k1(window_kernel)
     resumed = dataset_vo_sun.main(argv + ["--checkpoint", path, "--checkpoint-every", "25"])
-    k1 = _k1_launches(window_kernel)["total"]
+    counts = _k1_launches(window_kernel)
+    k1 = counts["total"]
     windows = resumed["passes"]["sun"]["windows"]
     same = open(out, "rb").read() == first
     log(f"[slice] checkpoint resume (triangle200 float64 sun pass): killed at checkpoint "
@@ -1356,19 +1461,20 @@ def _checkpoint_resume(data, window_kernel):
         f"{'byte-identical' if same else 'DIFFERENT'} {os.path.basename(out)}")
     if not same or not 0 < windows <= 199 - step or not k1 or os.path.exists(path + ".sun"):
         fail("the resumed pass differs from the uninterrupted one, or did not resume")
-    return launches["total"] + k1
+    return {"K1": launches["total"] + k1, "S": launches["S"] + counts["S"]}
 
 
-def phase_slice(kernels, data):
+def phase_slice(kernels, data, smi):
     _make_sims(data)
-    k1_launches, window_poses = _slice_window(data, kernels)
-    k1_launches += _checkpoint_resume(data, kernels["K1"])
+    window_launches, window_poses = _slice_window(data, kernels, smi)
+    for name, n in _checkpoint_resume(data, kernels["K1"]).items():
+        window_launches[name] += n
     full_launches, (full_poses, _), cli_costs = _slice_full(data, kernels)
     for seq, dtype, precond in LOOP_TURNS:
         ref = cli_costs[(seq, "float64" if precond == "banded" else dtype)]
         for name, n in _loop_turns(data, kernels, seq, dtype, precond, ref).items():
             full_launches[name] += n
-    return {"K1": k1_launches, **full_launches}, window_poses, full_poses
+    return {**window_launches, **full_launches}, window_poses, full_poses
 
 
 def _grid_dir(data):
@@ -1401,10 +1507,24 @@ def phase_batch(kernels, data, smi):
 
     grid = _grid_dir(data)
     wk = kernels["K1"]
+    argv = ["--sims", grid, "--dtype", "float64", "--device", "cuda"]
     _reset_k1(wk)
-    stats = dataset_vo_sun_batch.main(["--sims", grid, "--dtype", "float64", "--device", "cuda"])
+    stats = dataset_vo_sun_batch.main(argv)
     torch.cuda.synchronize()
-    launches = _k1_launches(wk)
+    launches, graph = _k1_launches(wk), _graph_str()
+    files = {r["output"]: open(r["output"], "rb").read() for r in stats["runs"]}
+    # the same grid with the loop on the host, then on the card again, in turns
+    walls = [stats["wall_s"]]
+    for loop in ("host", "device"):
+        again = dataset_vo_sun_batch.main(argv + ["--tr-loop", loop])
+        walls.append(again["wall_s"])
+        same = all(open(r["output"], "rb").read() == files[r["output"]] for r in again["runs"])
+        if not same or [r["iterations_by_window"] for r in again["runs"]] != [
+                r["iterations_by_window"] for r in stats["runs"]]:
+            fail(f"grid --tr-loop {loop}: other poses or iterations than the first device run")
+    log(f"[batch] grid ({smi}), trust-region loop device / host / device in turns: "
+        f"{walls[0]:.2f} / {walls[1]:.2f} / {walls[2]:.2f} s, byte-identical poses files and "
+        f"the same iterations in every window; device: {graph}")
     runs = stats["runs"]
     steps = max(len(r["iterations_by_window"]) for r in runs)
     # a step's loops run until its slowest chain stops: one K1 launch each
@@ -1418,7 +1538,8 @@ def phase_batch(kernels, data, smi):
         f"{launches['windows'] / max(launches['total'], 1):.2f} windows per launch; "
         f"{steps} steps, {iterations} batched trust-region iterations, "
         f"{sum(r['iterations'] for r in runs)} chain iterations")
-    if launches["single"] or launches["total"] < iterations or len(runs) != 15:
+    if (launches["single"] or launches["total"] < iterations or len(runs) != 15
+            or launches["windows"] < stats["windows"]):
         fail(f"grid: {len(runs)} chains, K1 launches {launches} for {iterations} batched "
              "trust-region iterations")
     for r in runs:
@@ -1456,31 +1577,101 @@ def phase_batch(kernels, data, smi):
         if not d <= GRID_SEQ_ATOL:
             fail(f"grid triangle200 {method}: the batched chain differs from its pass alone by "
                  f"{d:.3e}")
-    return launches["total"]
+    return {"K1": launches["total"], "S": launches["S"]}
 
 
-def _profile_grid_step(torch, data):
-    """One step of the grid (window 20 of its 15 chains solved together,
-    float64, after 20 steps untraced) under the profiler."""
-    from ceres_slam_tpu_torch.apps import dataset_vo_sun_batch
-    from ceres_slam_tpu_torch.problems import batch_scan
+def _window_node_us(torch, layout, state, strategy):
+    """Device us per trust-region iteration inside the WHILE node: CUDA
+    events around the loop's launch (restarted before each, outside the
+    events) for 21 and 1 iterations (run_full_budget), the difference over
+    20; median of 10 each. torch.profiler sees only the node's first pass."""
+    from ceres_slam_tpu_torch.solver import window
     from ceres_slam_tpu_torch.solver.lm import SolveConfig
+
+    ms = {}
+    for n in (1, 21):
+        graph = window.WindowGraph()
+        window.run_loop(layout, state, SolveConfig(max_iters=n, run_full_budget=True), strategy,
+                        loop="device", graph=graph)
+        _, _, node, restart = next(iter(graph.loops.values()))
+        times = []
+        for _ in range(11):
+            restart.replay()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            node.launch()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        graph.close()
+        ms[n] = statistics.median(times[1:])
+    return (ms[21] - ms[1]) / 20 * 1e3
+
+
+def _profile_window_step(torch, label, runs, smi, k1=20):
+    """One lockstep step (window ``k1`` of every chain, float64 dogleg,
+    after ``k1`` steps untraced) under the profiler, with the trust-region
+    loop on the host and in the WHILE node: wall, launches, syncs and
+    copies a step and an iteration, the device busy share; and the node's
+    device us per iteration (CUDA events) at the step's next window."""
+    from ceres_slam_tpu_torch.problems import batch_scan
+    from ceres_slam_tpu_torch.solver import window
+    from ceres_slam_tpu_torch.solver.lm import SolveConfig
+
+    cfg = SolveConfig(max_iters=1000, nonmonotonic=True, ftol=1e-6, xtol=1e-6)
+    for loop in ("host", "device"):
+        solver = batch_scan.BatchSolve(runs, 2, cfg, loop=loop)
+        for k in range(k1):
+            solver.step(k)
+        torch.cuda.synchronize()
+        t = _trace(torch, lambda: solver.step(k1))
+        done = [c for c in solver.chains if len(c.ok) == k1 + 1 and c.ok[-1]]
+        its = max(c.summaries[-1].iterations for c in done)
+        busy, note = t["device_us"], ""
+        if loop == "device":
+            k = k1 + 1
+            solve = [c for c in solver.chains if c.ds.compute_initial_guess(k, k + 2)]
+            hosts = solver._hosts(solve, k)
+            layout, state = window.build_batch_layout(
+                [h for h, _ in hosts], solver._per_window(solve, [x for _, x in hosts], k),
+                solver.dtype, solver.device)
+            us = {st: _window_node_us(torch, layout, state, st) for st in ("dogleg", "lm")}
+            busy += (its - 1) * us["dogleg"]  # the profiler sees the node's first pass only
+            note = (f"; in the node {us['dogleg']:.1f} us of device time a dogleg iteration "
+                    f"({us['lm']:.1f} LM), CUDA events; device busy counts the node's "
+                    "iterations at that rate")
+        solver.close()
+        per_it = "" if loop == "device" else (
+            f"; per iteration {t['launches'] / (its + 1):.1f} launches, "
+            f"{t['syncs'] / (its + 1):.2f} syncs, {t['copies'] / (its + 1):.2f} copies")
+        log(f"[profile] {label} step (window {k1} of {len(done)} chains, float64 dogleg, {its} "
+            f"trust-region iterations), loop {loop} ({smi}): wall {t['wall_us'] / 1e3:.2f} ms "
+            f"(profiled), device busy {busy / 1e3:.3f} ms ({100 * busy / t['wall_us']:.2f}%), "
+            f"{t['launches']:g} launches, {t['graph_launches']:g} graph launches, "
+            f"{t['syncs']:g} syncs, {t['copies']:g} copies a step{per_it}{note}")
+
+
+def _profile_grid_step(torch, data, smi):
+    from ceres_slam_tpu_torch.apps import dataset_vo_sun_batch
 
     runs, _ = dataset_vo_sun_batch.load_runs(
         dataset_vo_sun_batch.grid_runs(os.path.join(data, "grid")), "float64", "cuda")
-    solver = batch_scan.BatchSolve(runs, 2, SolveConfig(max_iters=1000, nonmonotonic=True,
-                                                        ftol=1e-6, xtol=1e-6))
-    for k1 in range(20):
-        solver.step(k1)
-    torch.cuda.synchronize()
-    n = sum(1 for c in solver.chains if len(c.ok) == 20)
-    t = _trace(torch, lambda: solver.step(20))
-    its = max(c.summaries[-1].iterations for c in solver.chains)
-    log(f"[profile] grid step (window 20 of {n} chains, float64, {its} trust-region "
-        f"iterations): wall {t['wall_us'] / 1e3:.2f} ms (profiled), device busy "
-        f"{t['device_us'] / 1e3:.3f} ms ({100 * t['device_us'] / t['wall_us']:.2f}%), "
-        f"{t['kernels']:g} device kernels, {t['launches']:g} launches, {t['syncs']:g} syncs, "
-        f"{t['copies']:g} copies; per iteration {t['launches'] / (its + 1):.1f} launches")
+    _profile_window_step(torch, "grid", runs, smi)
+
+
+def _profile_flagship_step(torch, data, smi):
+    """kitti1100's two flagship passes (one batch of two, as the CLI runs
+    them) at window 20."""
+    from ceres_slam_tpu_torch.problems import batch_scan
+    from ceres_slam_tpu_torch.problems.dataset import DatasetProblemSun
+
+    base = os.path.join(data, "kitti1100")
+    ds = DatasetProblemSun.read_csv(base + ".csv", base + "_sun_ref.csv",
+                                    base + "_sun_dir_gtsun10.csv")
+    ds.device = "cuda"
+    runs = [batch_scan.RunSpec(ds), batch_scan.RunSpec(ds, use_sun=True)]
+    _profile_window_step(torch, "kitti1100 flagship", runs, smi)
 
 
 def _graph_dataset(data, seq, device):
@@ -2260,6 +2451,12 @@ KERNELS = (
     ("P", "double_kernel", "double_kernel.cu", "scripts/probe_pallas_scan.py:27", "2x512", "f32",
      "first form: 4 blocks of 256 threads or 1 looping block, thin launch path, capturable "
      "in a CUDA graph and runs in a conditional WHILE node (grid_in_while); latency-bound"),
+    ("S", "subspace_step", "subspace_step.cu",
+     "none: a kernel of the port (the JAX package runs it as jnp operations, "
+     "ceres_slam_tpu/solver/dogleg.py:171 subspace_step, :83 _boundary_min)", "B=2", "f64",
+     "first form: one thread a window, the 64-step bisection in registers, every operation "
+     "rounded as the plain version's (bit-equal); runs inside the window loop's WHILE node; "
+     "latency-bound"),
 )
 
 
@@ -2287,11 +2484,12 @@ def main():
     sys.path.insert(0, ROOT)
     try:
         from ceres_slam_tpu_torch.ops import (bilinear_kernel, double_kernel, graph_loop,
-                                              schur_kernel, stereo_factor_kernel, window_kernel)
+                                              schur_kernel, stereo_factor_kernel,
+                                              subspace_kernel, window_kernel)
     except ImportError as e:
         fail(f"cannot import the port: {e}")
     kernels = {"K1": window_kernel, "K2": stereo_factor_kernel, "K3": schur_kernel,
-               "K4": bilinear_kernel, "P": double_kernel}
+               "K4": bilinear_kernel, "P": double_kernel, "S": subspace_kernel}
 
     smi = phase_device(torch)
     if "build" in phases or "kernels" in phases:
@@ -2305,10 +2503,11 @@ def main():
     shutil.rmtree(data, ignore_errors=True)
     os.makedirs(data)
     if "slice" in phases:
-        slice_launches, window_poses, full_poses = phase_slice(kernels, data)
+        slice_launches, window_poses, full_poses = phase_slice(kernels, data, smi)
         launches.update(slice_launches)
     if "batch" in phases:
-        launches["K1"] += phase_batch(kernels, data, smi)
+        for name, n in phase_batch(kernels, data, smi).items():
+            launches[name] += n
     if "dense" in phases:
         launches["K4"], dense_pose = phase_dense(kernels, data)
     if "phong" in phases:
@@ -2329,7 +2528,7 @@ def main():
     if "profile" in phases or ("kernels" in phases
                                and not {"slice", "batch", "dense", "phong"} & set(phases)):
         phase_profile(torch, jobs, "dense" in phases, "phong" in phases, data,
-                      "blowup" in phases, "batch" in phases)
+                      smi, "blowup" in phases, "batch" in phases, "slice" in phases)
     nan = {"max_abs_err": math.nan, "ms": math.nan, "plain_ms": math.nan, "bound_ms": math.nan,
            "bound_by": None, "library_ms": None}
     batched = {f"{shape} {tag}": k[("K1 batch", shape, tag)] for shape in K1_BATCH_SHAPES

@@ -218,7 +218,7 @@ def test_batch_algebra_equals_one_window(sims):
     larger shape, tables offset per window): the K1 pass, the Schur step
     (damped and undamped), the covariance, the dogleg Hessian-vector
     product and the sun and prior terms of each window equal the same
-    window solved alone at that shape (``as_batch``) bit for bit."""
+    window solved alone at that shape (``windows_batch``) bit for bit."""
     dsa, dsb = _load(sims["a"]), _load(sims["b"])
     cases = [(dsa, 3, True), (dsb, 5, True), (dsa, 9, False)]
     J = max(d._window_budget(2)[1] for d in (dsa, dsb))
@@ -230,8 +230,7 @@ def test_batch_algebra_equals_one_window(sims):
             k1, k1 + 2, 512, J, prior=ds._window_prior(k1),
             sun=ds._window_sun(k1, k1 + 2) if use_sun else None, gauge_fix_first=False)
         hosts.append(window.window_host(problem, 2, J, O))
-        singles.append((window.as_batch(window.build_window_layout(problem, 2, J, O)),
-                        window._lead(state)))
+        singles.append(window.windows_batch([(problem, state)], O))
         p = dense.aux_terms(problem)
         for name, x in (("poses", state.poses), ("points", state.points),
                         ("sun_dir_c", p.sun.dir_c), ("sun_dir_g", p.sun.dir_g),

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from ceres_slam_tpu_torch.ops import (bilinear_kernel, double_kernel, full_batch_plan,
+                                      subspace_kernel,
                                       full_batch_trace, schur_kernel, stereo_factor_kernel,
                                       window_kernel)
 from ceres_slam_tpu_torch.parallel import multihost, sharded_ba, sharded_pcg
@@ -821,10 +822,157 @@ def test_resumed_pass_is_bit_equal(tmp_path, monkeypatch):
                                        checkpoint_every=5)
     monkeypatch.setattr(window, "solve_ba_window_with_covariance", solve)
     assert checkpoint.load(path)[0] == 10
-    launches = window_kernel.window_factor_blocks.launches
+    launches = window_kernel.window_factor_blocks_batch.launches
     resumed = dataset()
     resumed.solve_sliding_window(window=2, use_sun=True, config=cfg, checkpoint=path,
                                  checkpoint_every=5)
-    assert window_kernel.window_factor_blocks.launches > launches
+    assert window_kernel.window_factor_blocks_batch.launches > launches
     assert np.array_equal(resumed.poses, full.poses)
     assert np.array_equal(resumed.pose_covars, full.pose_covars)
+
+
+# The 2x2 subproblem of SUBSPACE_DOGLEG (ops/subspace_kernel.py): the kernel
+# equals its plain version on the card bit for bit (every operation rounded
+# as PyTorch rounds it), NaN where the model is not finite.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("B", [1, 2, 15, 40])
+def test_subspace_kernel_matches_plain(B, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    model, radius = subspace_kernel.random_models(B, dtype, "cuda", seed=B)
+    before = subspace_kernel.subspace_step.launches
+    got = subspace_kernel.subspace_step(model, radius)
+    torch.cuda.synchronize()
+    assert subspace_kernel.subspace_step.launches == before + 1
+    ref = subspace_kernel.subspace_step_plain(model, radius)
+    assert got.shape == (B, 3) and torch.equal(torch.isnan(got), torch.isnan(ref))
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(ref))
+
+
+# The window trust-region loops in a conditional WHILE node
+# (solver/window.py): the same bits as the host loop, K1 and the subspace
+# kernel counted per iteration the card ran, one capture per shape, and no
+# host launch, sync or copy per iteration.
+
+def _loop_windows(tmp_path, starts, dtype="float64"):
+    """Windows [k, k + 2) of a 24-state triangle sim with prior and sun, as
+    ``(problem, state)`` on the host padded to the pass's shape, with the
+    pass's ``(O_pad, widths)``."""
+    from ceres_slam_tpu_torch.problems.dataset import DatasetProblemSun
+    from ceres_slam_tpu_torch.utils import sim
+
+    ds = sim.generate(kind="triangle", num_states=24, num_points=200, seed=3,
+                      stereo_noise=(0.3, 0.3, 0.3), sun_noise_deg=5.0)
+    base = str(tmp_path / "w24")
+    sim.write_track_csv(ds, base + ".csv", with_covar=True)
+    sim.write_ref_sun_csv(ds, base + "_sun_ref.csv")
+    sim.write_obs_sun_csv(ds, base + "_sun_dir.csv")
+    d = DatasetProblemSun.read_csv(base + ".csv", base + "_sun_ref.csv", base + "_sun_dir.csv")
+    d.dtype, d.device = dtype, "cpu"
+    n_obs, n_pts, o_pad = d._window_budget(2)
+    out = []
+    for k in starts:
+        d.compute_initial_guess(k, k + 2)
+        problem, state, _ = d.build_window_problem(
+            k, k + 2, n_obs, n_pts, prior=d._window_prior(k), sun=d._window_sun(k, k + 2),
+            gauge_fix_first=False, device="cpu")
+        out.append((problem, state))
+        d.reset_points()
+    return out, o_pad, d._table_widths(2)
+
+
+def _same(a, b):
+    for x, y in zip(window._leaves(a), window._leaves(b)):
+        assert torch.equal(torch.isnan(x), torch.isnan(y)) if x.is_floating_point() else True
+        assert torch.equal(torch.nan_to_num(x), torch.nan_to_num(y))
+
+
+_LOOP_CFG = dict(max_iters=40, nonmonotonic=True, ftol=1e-8, xtol=1e-10, record_history=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("strategy", ["lm", "dogleg"])
+def test_window_device_loop_equals_host_loop(tmp_path, strategy, B, dtype):
+    """The loop in the WHILE node against ``host_loop`` (the same body on
+    the host): the same bits (state, blocks, every summary statistic with
+    the history), K1 once per iteration the card ran and the windows it
+    served counted B a launch, the subspace kernel once per dogleg
+    iteration."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    windows, o_pad, widths = _loop_windows(tmp_path, [3, 8, 15][:B], dtype)
+    layout, state = window.windows_batch(windows, o_pad, widths, device="cuda")
+    cfg = lm.SolveConfig(**_LOOP_CFG)
+    host = window.run_loop(layout, state, cfg, strategy, loop="host")
+    k1, sub = window_kernel.window_factor_blocks_batch, subspace_kernel.subspace_step
+    before = (k1.launches, k1.windows, sub.launches)
+    graph = window.WindowGraph()
+    dev = window.run_loop(layout, state, cfg, strategy, loop="device", graph=graph)
+    torch.cuda.synchronize()
+    node = next(iter(graph.loops.values()))[2]
+    n = int(dev[1][:, 0].max())
+    assert n > 1 and node.count.item() == n
+    # one launch to start, one to warm the capture up, then one a node iteration
+    assert k1.launches - before[0] == n + 2 and k1.windows - before[1] == B * (n + 2)
+    assert sub.launches - before[2] == (n + 1 if strategy == "dogleg" else 0)
+    graph.close()
+    _same(dev, host)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["lm", "dogleg"])
+def test_window_graph_reuse_equals_host_loop(tmp_path, strategy):
+    """A ``WindowGraph`` captures once for windows of one shape: the second
+    window copies its ``loop_inputs`` in and restarts the loop, and gives
+    the host loop's bits; a batch of another B takes a capture of its own."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    windows, o_pad, widths = _loop_windows(tmp_path, [3, 12, 17])
+    cfg = lm.SolveConfig(**_LOOP_CFG)
+    graph, stats = window.WindowGraph(), window.GRAPH_STATS
+    before = (stats["captures"], stats["restarts"])
+    for w in windows[:2]:
+        layout, state = window.windows_batch([w], o_pad, widths, device="cuda")
+        _same(window.run_loop(layout, state, cfg, strategy, loop="device", graph=graph),
+              window.run_loop(layout, state, cfg, strategy, loop="host"))
+    assert (stats["captures"] - before[0], stats["restarts"] - before[1]) == (1, 1)
+    layout, state = window.windows_batch(windows[1:], o_pad, widths, device="cuda")
+    _same(window.run_loop(layout, state, cfg, strategy, loop="device", graph=graph),
+          window.run_loop(layout, state, cfg, strategy, loop="host"))
+    assert stats["captures"] - before[0] == 2 and len(graph.loops) == 2
+    graph.close()
+
+
+@pytest.mark.cuda
+def test_window_node_makes_no_host_work_per_iteration(tmp_path):
+    """A restarted dogleg loop under torch.profiler with 3 and with 12
+    iterations (run_full_budget): the same host launches, syncs and copies,
+    so none per iteration inside the node."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    windows, o_pad, widths = _loop_windows(tmp_path, [3])
+    layout, state = window.windows_batch(windows, o_pad, widths, device="cuda")
+    counts = {}
+    for n in (3, 12):
+        cfg = lm.SolveConfig(max_iters=n, run_full_budget=True)
+        graph = window.WindowGraph()
+        window.run_loop(layout, state, cfg, "dogleg", loop="device", graph=graph)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            _, stats, _ = window.run_loop(layout, state, cfg, "dogleg", loop="device",
+                                          graph=graph)
+            torch.cuda.synchronize()
+        graph.close()
+        assert int(stats[0, 0].item()) == n
+        host = [e.name for e in prof.events() if e.device_type != DeviceType.CUDA]
+        counts[n] = (sum(x.startswith("cudaLaunchKernel") for x in host),
+                     sum("Synchronize" in x for x in host),
+                     sum(x.startswith("cudaMemcpy") for x in host))
+    assert counts[3] == counts[12], counts
