@@ -1,7 +1,8 @@
 """Stereo VO / full-batch BA command-line app.
 
   python -m ceres_slam_tpu_torch.apps.dataset_vo <track>_vo.csv [--window 0]
-      [--dtype float64|float32] [--linear-solver auto|dense|window|pcg] [--device cuda]
+      [--dtype float64|float32] [--linear-solver auto|dense|window|pcg]
+      [--lm-loop device|host] [--cg-loop device|host] [--device cuda]
 
 Port of ``ceres_slam_tpu/apps/dataset_vo.py``: reads the plain track CSV,
 runs the VO initial guess and BA with the first pose of each window held
@@ -10,7 +11,15 @@ Levenberg-Marquardt and nonmonotonic steps, and writes ``<track>_poses.csv``
 and ``<track>_map.csv``. ``--linear-solver auto`` picks dense Cholesky at
 window scale, the explicit-Schur window solver up to 128 poses and
 matrix-free Schur-PCG beyond (the full-batch path, kernels K2 and K3 on
-CUDA).
+CUDA). On the card the Schur-PCG solve runs its LM loop as one conditional
+WHILE node with the CG loop's WHILE node nested in it (``--lm-loop
+device --cg-loop device``, the default there); ``--lm-loop host`` runs
+the LM loop on the host around the CG loop's node, ``--cg-loop host`` the
+CG loop on the host too (it needs ``--lm-loop host``, which it implies
+when ``--lm-loop`` is not given; ``--lm-loop device --cg-loop host``
+raises). On the CPU both loops run on the host. Every form writes the
+same bytes. The switches set the Schur-PCG solve's loops only; another
+solver refuses them.
 
 The float32 tolerance is chosen by the window count (the JAX app passes
 the state count; ROADMAP F5). Full batch is one window either way.
@@ -33,6 +42,13 @@ def build_parser():
     p.add_argument("--linear-solver", default="auto", choices=["auto", "dense", "window", "pcg"],
                    help="auto selects by problem size: dense at window scale, "
                         "explicit Schur to 128 poses, Schur-PCG beyond")
+    p.add_argument("--lm-loop", choices=["device", "host"], default=None,
+                   help="Schur-PCG: the LM loop as a WHILE node on the card (the default "
+                        "there) or on the host")
+    p.add_argument("--cg-loop", choices=["device", "host"], default=None,
+                   help="Schur-PCG: the CG loop as a WHILE node on the card (the default "
+                        "there; nested in the LM loop's node under --lm-loop device) or on "
+                        "the host (needs --lm-loop host)")
     return p
 
 
@@ -59,8 +75,12 @@ def main(argv=None) -> dict:
     t1 = time.perf_counter()
     dataset.precompute_pair_alignments()
     t2 = time.perf_counter()
+    from ceres_slam_tpu_torch.solver import lm
+
+    graph0 = dict(lm.GRAPH_STATS)
     summaries = dataset.solve_full(window=args.window, config=config,
-                                   linear_solver=args.linear_solver)
+                                   linear_solver=args.linear_solver, cg_loop=args.cg_loop,
+                                   lm_loop=args.lm_loop)
     t3 = time.perf_counter()
     if args.report != "none":
         common.print_reports(summaries, args.report)
@@ -75,6 +95,8 @@ def main(argv=None) -> dict:
         "device": str(device), "dtype": args.dtype, "states": dataset.num_states,
         "windows": len(summaries), "lm_iterations": lm_iters,
         "cg_iterations": sum(s.linear_iterations for s in summaries),
+        "lm_graph_captures": lm.GRAPH_STATS["captures"] - graph0["captures"],
+        "lm_graph_restarts": lm.GRAPH_STATS["restarts"] - graph0["restarts"],
         "initial_cost": summaries[0].initial_cost if summaries else float("nan"),
         "final_cost": summaries[-1].final_cost if summaries else float("nan"),
         "load_s": t1 - t0, "ransac_s": t2 - t1, "solve_s": t3 - t2,
@@ -83,7 +105,8 @@ def main(argv=None) -> dict:
     }
     print(f"  load {stats['load_s']:.2f} s, RANSAC {stats['ransac_s']:.2f} s, solve "
           f"{stats['solve_s']:.2f} s ({lm_iters} LM iterations, {stats['cg_iterations']} CG "
-          f"iterations), total {stats['total_s']:.2f} s", file=sys.stderr)
+          f"iterations; LM loop captures {stats['lm_graph_captures']}, restarts "
+          f"{stats['lm_graph_restarts']}), total {stats['total_s']:.2f} s", file=sys.stderr)
     return stats
 
 

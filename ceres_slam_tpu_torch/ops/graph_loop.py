@@ -2,14 +2,27 @@
 
 The counterpart of ``jax.lax.while_loop``, in which the JAX package runs
 every solver loop on the TPU, Pallas kernels included (K3 inside
-``pcg_solve``; the probe's ``grid_in_while`` case,
-``scripts/probe_pallas_scan.py:49-58``). ``DeviceWhile(body, pred)``
+``pcg_solve``, itself inside ``lm_solve``; the probe's ``grid_in_while``
+case, ``scripts/probe_pallas_scan.py:49-58``). ``DeviceWhile(body, pred)``
 captures ``body`` once with PyTorch (``torch.cuda.CUDAGraph(keep_graph=
 True)``), and ``csrc/graph_while.cu`` builds the loop around the captured
 graph: a kernel that sets the condition from ``pred``, then a WHILE node
 whose body is the capture (a child graph node) followed by a kernel that
 sets the condition again. ``run()`` is one host call for the whole loop;
 the host reads the iteration count once, after it.
+
+A loop inside the body: ``while_loop(body, pred)`` called while a
+``DeviceWhile`` captures its body puts a WHILE node of its own into the
+outer body. The outer body is captured in segments, one PyTorch capture
+after another on one stream and one graph pool: the part before the inner
+loop, the inner loop's body, the part after it; ``csrc/graph_while.cu``
+composes them (child graph, the inner condition kernel, the inner WHILE
+node, child graph, the outer condition kernel). The captures run in the
+order the segments run, so the pool never hands a segment a block that an
+earlier segment's tensors still hold, and the inner body reads the outer
+body's tensors by address, with no copies. Called outside a capture,
+``while_loop`` iterates the body on the host (the test of ``pred`` read
+every iteration): the same body, so the same bits.
 
 ``body`` runs the same kernels on the same addresses every iteration: it
 reads and writes tensors allocated before the capture, and writes the
@@ -25,14 +38,19 @@ Launch counts: a kernel wrapper counts one launch when the body is
 captured, which is no launch; ``DeviceWhile`` takes the wrappers whose
 counts it keeps (``counted``), takes the capture's counts back, and after
 each ``run()`` adds each wrapper's counts per iteration times the
-iterations the device ran. A wrapper names its counters in a
-``counters`` attribute (default ``("launches",)``): the batched K1 also
-counts the windows it served (``("launches", "windows")``), and each of
-them is scaled (``CapturedCounts``).
+iterations the device ran. An inner loop's wrappers (``while_loop``'s
+``counted``) get their counts per inner iteration times the inner
+iterations summed over the whole run, which the device counts beside the
+outer loop's. A wrapper names its counters in a ``counters`` attribute
+(default ``("launches",)``): the batched K1 also counts the windows it
+served (``("launches", "windows")``), and each of them is scaled
+(``CapturedCounts``).
 
 Conditional nodes need CUDA 12.3 or newer in the toolkit, the driver and
-PyTorch's runtime; ``versions()`` reads the three and ``build()`` raises
-if any is older.
+PyTorch's runtime, and a loop nested in another 12.4 or newer (CUDA 12.9's
+headers list conditional nodes among those a conditional body may hold);
+``versions()`` reads the three, ``build()`` raises if any is older than
+12.3, and a nested ``while_loop`` raises if any is older than 12.4.
 """
 
 from __future__ import annotations
@@ -47,7 +65,9 @@ from ceres_slam_tpu_torch.ops import cuda_build
 
 _SOURCES = ("graph_while.cu",)
 MIN_CUDA = (12, 3)
+MIN_CUDA_NESTED = (12, 4)
 _fns: dict = {}
+_capturing: list = []  # the DeviceWhile whose body is being captured (innermost last)
 _capture_streams: dict = {}
 _pools: dict = {}
 
@@ -77,17 +97,23 @@ def build() -> str:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib = cuda_build.load("graph_while", _SOURCES, {
         "graph_while_versions": [ctypes.POINTER(i), ctypes.POINTER(i)],
-        # body graph, pred, count, device, multi_device, out handle
-        "graph_while_create": [p, p, p, i, i, ctypes.POINTER(p)],
+        # segments, their preds, n, pred, counts, num_counts, device, multi_device, out
+        "graph_while_create": [p, p, i, p, p, i, i, i, ctypes.POINTER(p)],
         "graph_while_launch": [p, p],  # loop, stream
         "graph_while_destroy": [p]})
     _fns.update(versions=lib.graph_while_versions, create=lib.graph_while_create,
                 launch=lib.graph_while_launch, destroy=lib.graph_while_destroy)
-    old = {k: v for k, v in versions().items() if v < MIN_CUDA}
-    if old:
-        raise RuntimeError(f"a device while loop needs CUDA {MIN_CUDA[0]}.{MIN_CUDA[1]} or newer "
-                           f"(conditional graph nodes); found {old}")
+    require(MIN_CUDA, "a device while loop", "conditional graph nodes")
     return str(cuda_build.library_path("graph_while", _SOURCES))
+
+
+def require(minimum: tuple, what: str, feature: str) -> None:
+    """Raise unless the toolkit, the driver and PyTorch's runtime are all
+    CUDA ``minimum`` or newer."""
+    old = {k: v for k, v in versions().items() if v < minimum}
+    if old:
+        raise RuntimeError(f"{what} needs CUDA {minimum[0]}.{minimum[1]} or newer ({feature}); "
+                           f"found {old}")
 
 
 def _pool(device: int):
@@ -195,47 +221,87 @@ class DeviceWhile:
     writes; the loop tests it before every iteration, so it runs zero
     times if ``pred`` is 0 at ``run()``. ``counted``: the kernel wrappers
     (functions with a ``.launches`` count, and the other ``counters`` they
-    name) whose launches the body makes.
+    name) whose launches the body makes. The body may run inner loops
+    through ``while_loop`` (nested WHILE nodes).
     The body is captured here, on ``capture_stream``; a capture or graph
     build that fails raises."""
 
     def __init__(self, body: Callable[[], None], pred: torch.Tensor, counted: Iterable = ()):
-        if pred.device.type != "cuda":
-            raise ValueError(f"DeviceWhile runs on the card: pred is on {pred.device} (on the "
-                             "CPU iterate the body on the host)")
-        if pred.dtype != torch.int32 or pred.numel() != 1 or not pred.is_contiguous():
-            raise ValueError(f"pred must be one contiguous int32, got {pred.dtype} of shape "
-                             f"{tuple(pred.shape)}")
+        _check_pred(pred, "DeviceWhile")
         if "create" not in _fns:
             build()
         self.device = pred.get_device()
         self.body, self.pred = body, pred  # the graph reads what the body's closure holds
-        self.count = torch.zeros(1, dtype=torch.int32, device=pred.device)
-        self._handle = None
+        self._handle = self._graph = None
+        # [(PyTorch's capture, the inner loop's pred or None, its CapturedCounts or None)]
+        self.segments: list = []
+        self.inner_iterations: list = []
         counts = CapturedCounts(counted)
         t0 = time.perf_counter()
-        pool = _pool(self.device)
-        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        self._pool = _pool(self.device)
         with torch.cuda.device(self.device), torch.cuda.stream(capture_stream(self.device)):
-            self.graph.capture_begin(pool=pool)
+            self._begin()
+            _capturing.append(self)
             try:
                 body()
             except BaseException:
-                _abandon_capture(self.graph, self.device, pool)
+                self._abandon()
                 raise
             finally:
+                _capturing.pop()
                 counts.end()
-            self.graph.capture_end()
+            self._end()
         self.counts = counts
+        inner = [(p, c) for _, p, c in self.segments if p is not None]
+        self.count = torch.zeros(1 + len(inner), dtype=torch.int32, device=pred.device)
         t1 = time.perf_counter()
+        n = len(self.segments)
+        graphs = (ctypes.c_void_p * n)(*(g.raw_cuda_graph() for g, _, _ in self.segments))
+        preds = (ctypes.c_void_p * n)(*(None if p is None else p.data_ptr()
+                                        for _, p, _ in self.segments))
         handle = ctypes.c_void_p()
-        err = _fns["create"](self.graph.raw_cuda_graph(), pred.data_ptr(), self.count.data_ptr(),
-                             self.device, torch.cuda.device_count() > 1, ctypes.byref(handle))
+        err = _fns["create"](graphs, preds, n, pred.data_ptr(), self.count.data_ptr(),
+                             self.count.numel(), self.device, torch.cuda.device_count() > 1,
+                             ctypes.byref(handle))
         if err:
             raise cuda_build.launch_error(err, "graph_while_create")
         self._handle = handle
         # host seconds of the capture and of the loop's build and instantiation
         self.capture_s, self.build_s = t1 - t0, time.perf_counter() - t1
+
+    def _begin(self) -> None:
+        self._graph = torch.cuda.CUDAGraph(keep_graph=True)
+        self._graph.capture_begin(pool=self._pool)
+
+    def _end(self, pred=None, counts=None) -> None:
+        self._graph.capture_end()
+        self.segments.append((self._graph, pred, counts))
+        self._graph = None
+
+    def _abandon(self) -> None:
+        if self._graph is not None:
+            _abandon_capture(self._graph, self.device, self._pool)
+            self._graph = None
+
+    def _inner(self, body: Callable[[], None], pred: torch.Tensor, counted: Iterable) -> None:
+        """``while_loop`` inside this loop's capture: close the segment so
+        far, capture ``body`` as the inner loop's own segment, open the
+        next one."""
+        _check_pred(pred, "a nested while loop")
+        if pred.get_device() != self.device:
+            raise ValueError(f"the inner loop's pred is on cuda:{pred.get_device()}, the loop's "
+                             f"on cuda:{self.device}")
+        require(MIN_CUDA_NESTED, "a while loop inside a device while loop",
+                "nested conditional graph nodes")
+        self._end()
+        counts = CapturedCounts(counted)
+        self._begin()
+        try:
+            body()
+        finally:
+            counts.end()
+        self._end(pred, counts)
+        self._begin()
 
     def launch(self) -> None:
         """Enqueue the whole loop on the current stream (no host sync, no
@@ -246,22 +312,61 @@ class DeviceWhile:
         if err:
             raise cuda_build.launch_error(err, "graph_while_launch")
 
+    def add_counts(self, counts) -> None:
+        """Give each counted wrapper its counts for a run whose ``count``
+        the host read as ``counts``: the loop's iterations, then each inner
+        loop's, summed over the run."""
+        counts = [int(c) for c in counts]
+        self.counts.add(counts[0])
+        inner = [c for _, p, c in self.segments if p is not None]
+        for c, n in zip(inner, counts[1:]):
+            c.add(n)
+        self.inner_iterations = counts[1:]
+
     def run(self) -> int:
         """Run the loop and return its iterations, read once on the host
-        after the loop; each counted wrapper gets its counts."""
+        after the loop (with the inner loops' in ``inner_iterations``);
+        each counted wrapper gets its counts."""
         self.launch()
-        n = int(self.count.item())
-        self.counts.add(n)
-        return n
+        counts = self.count.tolist()
+        self.add_counts(counts)
+        return counts[0]
 
     def close(self) -> None:
-        """Free the executable graph and PyTorch's capture (its blocks go
+        """Free the executable graph and PyTorch's captures (their blocks go
         back to the shared pool); a loop in flight finishes first."""
         if self._handle is not None:
             _fns["destroy"](self._handle)
             self._handle = None
-        self.graph = self.body = None
+        self.segments, self.body = [], None
 
     def __del__(self):
         if getattr(self, "_handle", None) is not None and _fns:
             self.close()
+
+
+def _check_pred(pred: torch.Tensor, what: str) -> None:
+    if pred.device.type != "cuda":
+        raise ValueError(f"{what} runs on the card: pred is on {pred.device} (on the CPU "
+                         "iterate the body on the host)")
+    if pred.dtype != torch.int32 or pred.numel() != 1 or not pred.is_contiguous():
+        raise ValueError(f"pred must be one contiguous int32, got {pred.dtype} of shape "
+                         f"{tuple(pred.shape)}")
+
+
+def while_loop(body: Callable[[], None], pred: torch.Tensor, counted: Iterable = ()) -> None:
+    """``while pred: body()``, with ``pred`` an int32 of one element that
+    ``body`` writes. Inside the body of a ``DeviceWhile`` being captured,
+    a WHILE node nested in that loop's body (``counted``: the kernel
+    wrappers ``body`` launches, counted per inner iteration the card
+    runs); anywhere else on the host, the test read every iteration (the
+    CPU's form, and the card's outside a capture). Inside another capture
+    it raises: a host loop cannot be captured."""
+    if _capturing:
+        _capturing[-1]._inner(body, pred, counted)
+        return
+    if pred.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("while_loop inside a capture that is not a DeviceWhile's: a loop "
+                           "on the host cannot be captured")
+    while int(pred.reshape(-1)[0]):
+        body()

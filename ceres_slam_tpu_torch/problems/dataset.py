@@ -347,15 +347,20 @@ class DatasetProblem:
         return "window" if Kw <= window_mod.window_kernel.MAX_POSES else "pcg"
 
     def solve_full(self, window: int = 0, config: lm.SolveConfig | None = None,
-                   linear_solver: str = "auto"):
+                   linear_solver: str = "auto", cg_loop: str | None = None,
+                   lm_loop: str | None = None):
         """The ``dataset_vo`` pipeline: per window, the VO initial guess, BA
         of the window with its first pose held constant, and
         ``reset_points``; ``window=0`` is one full-batch solve.
         ``linear_solver``: ``auto`` | ``dense`` | ``window`` | ``pcg``; the
         window solver (``window.solve_ba_window``) pads every window of the
         pass to one shape and, on the card, captures its loop once for the
-        pass (a ``window.WindowGraph``). Returns the per-window
-        ``SolveSummary`` list."""
+        pass (a ``window.WindowGraph``). ``cg_loop``, ``lm_loop``: the
+        Schur-PCG solve's loops (``pcg.solve_ba_pcg``'s ``loop`` and
+        ``lm_loop``; on the card both default to ``device``, the LM loop a
+        WHILE node with the CG loop's nested in it, captured once for the
+        pass in an ``lm.LMGraph``); another solver takes neither. Returns
+        the per-window ``SolveSummary`` list."""
         from ceres_slam_tpu_torch.solver import pcg
 
         config = config or lm.SolveConfig(max_iters=100)
@@ -367,12 +372,19 @@ class DatasetProblem:
             solver = self.auto_linear_solver(window, n_pts_pad)
         if solver not in ("dense", "window", "pcg"):
             raise ValueError(f"unknown linear solver: {linear_solver!r}")
+        if solver != "pcg" and (cg_loop or lm_loop):
+            raise ValueError(f"cg_loop and lm_loop set the Schur-PCG solve's loops; the "
+                             f"{solver} solver takes neither")
         summaries = []
         graph = None
         if solver == "window":
             widths = self._table_widths(window)
             if torch.device(self._device).type == "cuda":
                 graph = window_mod.WindowGraph()
+        elif solver == "pcg":
+            cg_loop, lm_loop = pcg.resolve_loops(self._device, cg_loop, lm_loop)
+            if lm_loop == "device":
+                graph = lm.LMGraph()
         try:
             for k1 in range(0, K - window + 1):
                 k2 = min(k1 + window, K)
@@ -384,10 +396,13 @@ class DatasetProblem:
                     sol, summary = window_mod.solve_ba_window(
                         problem, state, config, "lm", O_pad=o_pad, graph=graph, widths=widths,
                         device=self._device)
+                elif solver == "pcg":
+                    problem = dense.to_device(problem, self._device)
+                    sol, summary = pcg.solve_ba_pcg(problem, state, config, loop=cg_loop,
+                                                    lm_loop=lm_loop, graph=graph)
                 else:
                     problem = dense.to_device(problem, self._device)
-                    solve = pcg.solve_ba_pcg if solver == "pcg" else dense.solve_ba
-                    sol, summary = solve(problem, state, config)
+                    sol, summary = dense.solve_ba(problem, state, config)
                 self.absorb_window_solution(k1, k2, sol, slots)
                 summaries.append(summary)
                 self.reset_points()

@@ -14,9 +14,10 @@ of the banded matrix (their ``-U C^{-1} U^T`` term is negative
 semidefinite, so omitting it keeps the preconditioner SPD) and CG makes up
 the difference; with every landmark eligible the preconditioner is the
 exact inverse and CG converges in one iteration. The factorization is
-plain torch (plain XLA in the JAX package); a factor that is not positive
-definite comes out NaN, as ``jnp.linalg.cholesky`` does, and the LM loop
-rejects the step. ``slot_scatter_index`` routes each observation to its
+plain torch (plain XLA in the JAX package) with no host read, so the LM
+loop's captured body holds it; a factor that is not positive definite
+comes out NaN, as ``jnp.linalg.cholesky`` does, and the LM loop rejects
+the step. ``slot_scatter_index`` routes each observation to its
 slot for the distributed layer (``parallel/sharded_pcg.py``), which
 builds the slot rows from every rank's shard.
 """
@@ -214,7 +215,9 @@ def ctridiag_factor(D, E):
 
     ``D [n, m, m]`` diagonal blocks, ``E [n-1, m, m]`` with row i carrying
     ``E[i] x_{i+1}`` (and row i+1 its transpose). Returns the per-level
-    data that ``ctridiag_solve`` takes."""
+    data that ``ctridiag_solve`` takes. No host sync on CUDA (the factors
+    applied by triangular solves, as the JAX package's ``cho_solve``
+    does): it runs inside the LM loop's CUDA graph."""
     m = D.shape[-1]
     opts = dict(dtype=D.dtype, device=D.device)
     levels = []
@@ -231,8 +234,8 @@ def ctridiag_factor(D, E):
         if E_oe.shape[0] < n // 2:
             E_oe = torch.cat([E_oe, torch.zeros((n // 2 - E_oe.shape[0], m, m), **opts)])
         ch = lm._cholesky_or_nan(Dod)
-        Y1 = torch.cholesky_solve(E_oe, ch)  # D_od^{-1} E_{2i+1}
-        Y2 = torch.cholesky_solve(E_eo.transpose(1, 2), ch)  # D_od^{-1} E_{2i}^T
+        Y1 = lm.cholesky_apply(ch, E_oe, columns=True)  # D_od^{-1} E_{2i+1}
+        Y2 = lm.cholesky_apply(ch, E_eo.transpose(1, 2), columns=True)  # D_od^{-1} E_{2i}^T
         Dnew = Dev - E_eo @ Y2
         Dnew[1:] -= (E_oe.transpose(1, 2) @ Y1)[:-1]
         Enew = -(E_eo @ Y1)[:-1]

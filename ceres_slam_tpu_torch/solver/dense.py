@@ -92,7 +92,10 @@ def _prior_terms(problem: StereoBAProblem, state: BAState):
 
 
 def ba_cost_aux(problem: StereoBAProblem, state: BAState) -> torch.Tensor:
-    """Sun + prior cost only (the stereo cost comes out of the window factor pass)."""
+    """Sun + prior cost only (the stereo cost comes out of the window factor
+    pass). Its gates are Python tests of the problem's settings: a setting
+    held as a device tensor is read from the host here (``aux_cost`` of
+    ``aux_terms`` selects on the device instead)."""
     r_sun, _, sq = _sun_terms(problem, state)
     rho = loss_mod.huber_rho(sq, problem.sun_huber) if problem.sun_huber > 0.0 else sq
     cost = torch.sum(torch.where(problem.sun.valid, rho, 0.0))
@@ -153,7 +156,9 @@ class AuxTerms(NamedTuple):
 
 def aux_terms(problem: StereoBAProblem) -> AuxTerms:
     """One problem's sun and prior terms as ``AuxTerms`` (no leading axis),
-    the settings on the problem's device in its dtype."""
+    the settings on the problem's device in its dtype. It reads the prior's
+    validity on the host and copies the settings to the device: make the
+    terms once, before a loop that a CUDA graph captures."""
     dt, dev = problem.sun.dir_c.dtype, problem.sun.dir_c.device
     pr = problem.prior
     valid = torch.tensor(bool(pr.valid), device=dev)
@@ -255,9 +260,15 @@ def stereo_sq_sum(problem: StereoBAProblem, state: BAState) -> torch.Tensor:
     return torch.sum(torch.where(stereo_valid(problem), sq, torch.zeros_like(sq)))
 
 
-def ba_cost(problem: StereoBAProblem, state: BAState) -> torch.Tensor:
-    """Total cost ``1/2 sum rho(|r|^2)`` (stereo + sun + prior), Ceres's objective."""
-    return 0.5 * stereo_sq_sum(problem, state) + ba_cost_aux(problem, state)
+def ba_cost(problem: StereoBAProblem, state: BAState, terms: AuxTerms | None = None
+            ) -> torch.Tensor:
+    """Total cost ``1/2 sum rho(|r|^2)`` (stereo + sun + prior), Ceres's objective.
+    With ``terms`` (``aux_terms(problem)``, made once, outside a loop) the
+    sun and prior settings are tensors selected with ``torch.where``, so the
+    cost never reads the device from the host, whatever the problem holds
+    (a captured loop's cost, ``solver/pcg.py``)."""
+    aux = ba_cost_aux(problem, state) if terms is None else aux_cost(terms, state)
+    return 0.5 * stereo_sq_sum(problem, state) + aux
 
 
 class BlockNormalEq(NamedTuple):

@@ -148,12 +148,19 @@ class FactorGraph:
         return problem, dense.BAState(poses=t(np.stack(self._poses)), points=t(pts))
 
     def solve(self, config: lm.SolveConfig = lm.SolveConfig(max_iters=100),
-              linear_solver: str = "dense", strategy: str = "lm"):
+              linear_solver: str = "dense", strategy: str = "lm", cg_loop: str | None = None,
+              lm_loop: str | None = None):
         """Solve and absorb the solution into the graph's variables.
 
         ``linear_solver``: ``'dense'`` | ``'schur'`` | ``'pcg'`` (Ceres'
         DENSE_NORMAL_CHOLESKY / SPARSE_SCHUR / ITERATIVE_SCHUR);
-        ``strategy`` (``'lm'`` | ``'dogleg'``) applies to ``'dense'``."""
+        ``strategy`` (``'lm'`` | ``'dogleg'``) applies to ``'dense'``;
+        ``cg_loop``, ``lm_loop`` (``'device'`` | ``'host'``) to ``'pcg'``:
+        its CG and LM loops (``pcg.solve_ba_pcg``'s ``loop`` and ``lm_loop``;
+        on the card both run there by default)."""
+        if linear_solver != "pcg" and (cg_loop or lm_loop):
+            raise ValueError(f"cg_loop and lm_loop set the pcg solver's loops, not "
+                             f"{linear_solver!r}'s")
         problem, state = self.build()
         if linear_solver == "schur":
             from ceres_slam_tpu_torch.solver import schur
@@ -162,7 +169,8 @@ class FactorGraph:
         elif linear_solver == "pcg":
             from ceres_slam_tpu_torch.solver import pcg
 
-            sol, summary = pcg.solve_ba_pcg(problem, state, config)
+            sol, summary = pcg.solve_ba_pcg(problem, state, config, loop=cg_loop,
+                                            lm_loop=lm_loop)
         elif linear_solver == "dense":
             sol, summary = dense.solve_ba(problem, state, config, strategy=strategy)
         else:

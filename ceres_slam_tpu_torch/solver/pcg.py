@@ -33,19 +33,24 @@ tables (the CPU default, as in the JAX package off the TPU), the
 reductions are ``dense.segment_sum``, and the kernels' wrappers run their
 plain versions. Masks are ``torch.where`` (ROADMAP F15).
 
-The CG loop: on CUDA, ``pcg_solve`` runs it on the card, as the JAX
-package's ``lax.while_loop``: one iteration (K3's matvec, the
-preconditioner, the updates) and the stop test ``(i < max_iters) & (|r| >
-tol |rhs|)`` are captured in a CUDA graph and run in a conditional WHILE
-node (``ops/graph_loop.DeviceWhile``), one graph launch per LM iteration;
-the host reads the iteration count once, after the loop. ``solve_ba_pcg``
-captures it once per solve (``CGGraph``): each LM iteration copies its
-blocks and factors (``loop_inputs``) into the captured ones. ``cg`` is its
-plain version, the same iteration and test with the loop on the host (the
-test read every iteration): the CPU path, the distributed layer's loop
-(``parallel/sharded_pcg.py``, whose matvec all-reduces between
-iterations) and, on the card, ``loop="host"``. Both run the same kernels
-in the same order, so they give the same bits and iteration counts.
+The loops, on CUDA, as the JAX package's ``lax.while_loop``s: by default
+``solve_ba_pcg`` runs its LM loop as one conditional WHILE node
+(``lm.device_loop``), whose body is one LM iteration: K2's assembly, the
+right-hand side, the CG loop as a WHILE node nested in the LM node
+(``inner_cg``: one iteration with K3's matvec, the preconditioner and the
+updates, and the stop test ``(i < max_iters) & (|r| > tol |rhs|)``, on
+fixed ``CGBuffers``), the back-substitution, the retraction, the trial
+cost and the control; one graph launch and one read a solve. With the LM
+loop on the host (``lm_loop="host"``), ``pcg_solve`` runs the CG loop in
+a WHILE node of its own (``device_cg``), captured once per solve
+(``CGGraph``: each LM iteration copies its blocks and factors,
+``loop_inputs``, into the captured ones), one graph launch per LM
+iteration. ``cg`` is the plain version, the same iteration and test with
+the loop on the host (the test read every iteration): the CPU path, the
+distributed layer's loop (``parallel/sharded_pcg.py``, whose matvec
+all-reduces between iterations) and, on the card, ``loop="host"``. Every
+form runs the same kernels in the same order, so they give the same bits
+and iteration counts.
 """
 
 from __future__ import annotations
@@ -168,19 +173,38 @@ def u18_vec(U18, y3):
     return lie._mv(U18.reshape(-1, 6, 3), y3)
 
 
-def build_obs_blocks(problem: dense.StereoBAProblem, state: dense.BAState, lam: float,
+def _not_in_capture(what: str) -> None:
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what} is a host round trip, which a captured loop cannot make: "
+                           "build it before the loop, as solve_ba_pcg does")
+
+
+def _aux_blocks(problem, state, terms):
+    """The sun and prior pose blocks: through ``terms`` (``dense.AuxTerms``,
+    masked, no host read) where given, else ``dense.aux_pose_blocks``."""
+    if terms is None:
+        return dense.aux_pose_blocks(problem, state)
+    return dense.aux_blocks(terms, state)
+
+
+def build_obs_blocks(problem: dense.StereoBAProblem, state: dense.BAState, lam,
                      tables: ObsTables | None = None,
-                     plan: full_batch_plan.FullBatchPlan | None = None) -> ObsBlocks:
+                     plan: full_batch_plan.FullBatchPlan | None = None,
+                     terms: dense.AuxTerms | None = None) -> ObsBlocks:
     """Per-observation factor blocks and the binned Gauss-Newton diagonals:
     with a plan, K2's sums (and K3 bound to the result); else, on the CPU,
     the factor blocks summed through the gather tables or by
-    ``dense.segment_sum``.
+    ``dense.segment_sum``. ``lam``: a float or a 0-d tensor (the LM loop's
+    carry); ``terms``: the sun and prior terms as ``dense.aux_terms`` makes
+    them (the LM loop's body passes them: no host read).
     On CUDA K2 always runs: without a plan, one is built here (a host round
-    trip of the observation tables; ``solve_ba_pcg`` builds it once)."""
+    trip of the observation tables, refused inside a capture;
+    ``solve_ba_pcg`` builds it once)."""
     if plan is None and state.poses.device.type == "cuda":
+        _not_in_capture("building the full-batch plan")
         plan = full_batch_plan.plan_for_problem(problem)
     if plan is not None:
-        return _blocks_from_plan(problem, state, lam, plan)
+        return _blocks_from_plan(problem, state, lam, plan, terms)
     p, st = problem, problem.stereo
     K, J = state.poses.shape[0], state.points.shape[0]
     dtype = state.poses.dtype
@@ -208,7 +232,7 @@ def build_obs_blocks(problem: dense.StereoBAProblem, state: dense.BAState, lam: 
         gl = dense.segment_sum(gl3, st.point_idx, J)
 
     # sun + prior touch only pose blocks
-    Hpp_aux, gp_aux = dense.aux_pose_blocks(problem, state)
+    Hpp_aux, gp_aux = _aux_blocks(problem, state, terms)
     # gauge / validity masks at block level
     free_pose, free_pt = ~p.fixed_pose_mask, p.point_valid
     zero = Hpp.new_zeros(())
@@ -220,13 +244,13 @@ def build_obs_blocks(problem: dense.StereoBAProblem, state: dense.BAState, lam: 
     return _finish(U18, Hpp, gp, Hll, gl, lam, st)
 
 
-def _blocks_from_plan(problem, state, lam, plan):
+def _blocks_from_plan(problem, state, lam, plan, terms=None):
     """K2's sums come masked; the sun and prior blocks are added under the
     gauge mask, then pinned and damped as on the other paths."""
     K, J = plan.K, plan.J
     U18, hpp36, gp, hll9, gl = stereo_factor_kernel.stereo_factor_sums(plan, state.poses,
                                                                        state.points)
-    Hpp_aux, gp_aux = dense.aux_pose_blocks(problem, state)
+    Hpp_aux, gp_aux = _aux_blocks(problem, state, terms)
     zero = Hpp_aux.new_zeros(())
     free = plan.free_pose
     Hpp = hpp36.view(K, 6, 6) + torch.where(free[:, None, None], Hpp_aux, zero)
@@ -306,7 +330,7 @@ def _block_precond(S_diag: torch.Tensor):
 
 def pcg_solve(b: ObsBlocks, rhs: torch.Tensor, max_iters: int, tol: float,
               tables: ObsTables | None = None, precond=None, loop: str | None = None,
-              graph: CGGraph | None = None):
+              graph: CGGraph | None = None, buffers: CGBuffers | None = None):
     """Preconditioned CG on the reduced camera system; returns ``(x,
     iterations)``. The default preconditioner is the exact block-Jacobi;
     ``precond`` (a callable ``r -> M^{-1} r``, e.g.
@@ -319,7 +343,12 @@ def pcg_solve(b: ObsBlocks, rhs: torch.Tensor, max_iters: int, tol: float,
     conditional WHILE node on the card (``device_cg``), ``"host"`` (the
     CPU default) in ``cg``; the two give the same bits. ``graph`` (a
     ``CGGraph``, device loop only) keeps the captured loop for the next
-    call, which copies its blocks, factors and right-hand side in."""
+    call, which copies its blocks, factors and right-hand side in.
+    ``buffers`` (a ``CGBuffers``): the CG loop on those fixed buffers
+    through ``graph_loop.while_loop`` (``inner_cg``), what the LM loop's
+    body runs: a WHILE node nested in the LM loop's node when its body is
+    captured, the same loop on the host otherwise; the iterations come
+    back as an int32 0-d tensor on the device, and ``x`` is the buffer."""
     on_cuda = b.U18.device.type == "cuda"
     if b.uy is None and on_cuda:
         raise ValueError("on CUDA the matvec runs K3: take the blocks from build_obs_blocks, "
@@ -337,6 +366,8 @@ def pcg_solve(b: ObsBlocks, rhs: torch.Tensor, max_iters: int, tol: float,
             return schur_matvec_gather(b, tables, v)
         return schur_matvec(b, v)
 
+    if buffers is not None:
+        return inner_cg(matvec, precond, rhs, max_iters, tol, buffers)
     if loop == "device":
         return device_cg(matvec, precond, rhs, max_iters, tol, counted=(schur_kernel.schur_uy,),
                          graph=graph, inputs=None if graph is None else loop_inputs(b, precond))
@@ -401,6 +432,64 @@ def cg(matvec, precond, rhs: torch.Tensor, max_iters: int, tol: float):
     return s.x, it
 
 
+class CGBuffers(NamedTuple):
+    """Fixed buffers of a CG loop: the iterate, the stop bound ``tol
+    |rhs|``, the iteration count ``i`` and the stop test ``pred`` (int32,
+    1: run again)."""
+
+    s: CGState
+    bound: torch.Tensor  # 0-d
+    i: torch.Tensor  # int32 [1]
+    pred: torch.Tensor  # int32 [1]
+
+
+def cg_buffers(like: torch.Tensor) -> CGBuffers:
+    """Zeroed ``CGBuffers`` for right-hand sides shaped as ``like``."""
+    z = torch.zeros_like(like)
+    s = CGState(z, z.clone(), z.clone(), z.clone(), z.new_zeros(()))
+    i = torch.zeros(1, dtype=torch.int32, device=like.device)
+    return CGBuffers(s, z.new_zeros(()), i, i.clone())
+
+
+def _cg_in_place(matvec, precond, bufs: CGBuffers, max_iters: int, tol: float):
+    """``(restart(rhs), body())`` of a CG loop on ``bufs``: ``restart``
+    puts the buffers at the start for ``rhs`` (``cg_start``), ``body``
+    runs one iteration in place (``cg_body``), counts it in ``i`` and
+    writes the stop test ``(i < max_iters) & (|r| > tol |rhs|)`` to
+    ``pred``."""
+    s, i, pred = bufs.s, bufs.i, bufs.pred
+
+    def test():
+        return (i < max_iters) & cg_continue(s, bufs.bound)
+
+    def body():
+        for buf, t in zip(s, cg_body(matvec, precond, s)):
+            buf.copy_(t)
+        i.add_(1)
+        pred.copy_(test())
+
+    def restart(rhs):
+        start, bound = cg_start(precond, rhs, tol)
+        for buf, t in zip((*s, bufs.bound), (*start, bound)):
+            buf.copy_(t)
+        i.zero_()
+        pred.copy_(test())
+
+    return restart, body
+
+
+def inner_cg(matvec, precond, rhs: torch.Tensor, max_iters: int, tol: float, bufs: CGBuffers):
+    """``cg`` on the fixed buffers ``bufs`` through ``graph_loop.while_loop``:
+    inside the capture of a ``DeviceWhile`` (the LM loop's node) a WHILE
+    node nested in its body, K3 counted per CG iteration the card runs;
+    elsewhere the loop on the host. Returns ``(x, iterations)``: the
+    buffer ``x`` (the next call overwrites it) and an int32 0-d tensor."""
+    restart, body = _cg_in_place(matvec, precond, bufs, max_iters, tol)
+    restart(rhs)
+    graph_loop.while_loop(body, bufs.pred, counted=(schur_kernel.schur_uy,))
+    return bufs.s.x, bufs.i[0]
+
+
 class CGLoop(NamedTuple):
     """The loop ``device_cg`` captures: ``body()`` runs one CG iteration on
     the state buffers ``s`` in place, counts it in ``i`` and writes the stop
@@ -419,29 +508,10 @@ class CGLoop(NamedTuple):
 def cg_loop(matvec, precond, rhs: torch.Tensor, max_iters: int, tol: float) -> CGLoop:
     """The state buffers and the body of the CG loop, on any device (on the
     CPU the tests iterate ``body`` while ``pred``, as the WHILE node does)."""
-    s0, bound = cg_start(precond, rhs, tol)
-    s = CGState(*(t.clone() for t in s0))  # own buffers: r0 is rhs, p0 is z0
-    i = torch.zeros(1, dtype=torch.int32, device=rhs.device)
-
-    def test():
-        return (i < max_iters) & cg_continue(s, bound)
-
-    pred = test().to(torch.int32)
-
-    def body():
-        for buf, t in zip(s, cg_body(matvec, precond, s)):
-            buf.copy_(t)
-        i.add_(1)
-        pred.copy_(test())
-
-    def restart(rhs):
-        start, b = cg_start(precond, rhs, tol)
-        for buf, t in zip((*s, bound), (*start, b)):
-            buf.copy_(t)
-        i.zero_()
-        pred.copy_(test())
-
-    return CGLoop(s, i, pred, body, restart)
+    bufs = cg_buffers(rhs)
+    restart, body = _cg_in_place(matvec, precond, bufs, max_iters, tol)
+    restart(rhs)
+    return CGLoop(bufs.s, bufs.i, bufs.pred, body, restart)
 
 
 class CGGraph:
@@ -495,24 +565,28 @@ def device_cg(matvec, precond, rhs: torch.Tensor, max_iters: int, tol: float, co
             graph.close()
 
 
-def pcg_step(problem, state, lam: float, max_cg_iters: int = 100, cg_tol: float = 1e-6,
+def pcg_step(problem, state, lam, max_cg_iters: int = 100, cg_tol: float = 1e-6,
              tables: ObsTables | None = None, tracks=None,
              plan: full_batch_plan.FullBatchPlan | None = None, loop: str | None = None,
-             graph: CGGraph | None = None):
+             graph: CGGraph | None = None, terms: dense.AuxTerms | None = None,
+             buffers: CGBuffers | None = None):
     """One damped LM linear solve via Schur + PCG. Returns ``(dx, grad_norm,
     pred_decrease, cg_iterations)``; the first three are the LM core's
-    step contract. With ``tracks`` (a ``banded.TrackInfo``) the
-    preconditioner is the banded cyclic-reduction factorization; with
-    ``plan``, and always on CUDA, K2 and K3 carry the assembly and the
-    matvecs (``build_obs_blocks`` builds the plan where none is given). On
-    CUDA the gather tables are built here where none are given (a host
-    round trip; ``solve_ba_pcg`` builds them once), so every sum outside
-    the kernels has a fixed order. ``loop``, ``graph``: ``pcg_solve``'s."""
+    step contract. ``lam``: a float or a 0-d tensor. With ``tracks`` (a
+    ``banded.TrackInfo``) the preconditioner is the banded cyclic-reduction
+    factorization; with ``plan``, and always on CUDA, K2 and K3 carry the
+    assembly and the matvecs (``build_obs_blocks`` builds the plan where
+    none is given). On CUDA the gather tables are built here where none are
+    given (a host round trip, refused inside a capture; ``solve_ba_pcg``
+    builds them once), so every sum outside the kernels has a fixed order.
+    ``loop``, ``graph``, ``buffers``: ``pcg_solve``'s; ``terms``:
+    ``build_obs_blocks``'."""
     if tables is None and state.poses.device.type == "cuda":
+        _not_in_capture("building the gather tables")
         st = problem.stereo
         tables = build_obs_tables(st.pose_idx.cpu(), st.point_idx.cpu(), state.poses.shape[0],
                                   state.points.shape[0], device=state.poses.device)
-    b = build_obs_blocks(problem, state, lam, tables=tables, plan=plan)
+    b = build_obs_blocks(problem, state, lam, tables=tables, plan=plan, terms=terms)
     precond = None
     if tracks is not None:
         from ceres_slam_tpu_torch.solver import banded
@@ -523,7 +597,7 @@ def pcg_step(problem, state, lam: float, max_cg_iters: int = 100, cg_tol: float 
     y = lie._mv(b.Cinv, b.gl)
     rhs = -(b.gp - _sum_by_pose(b, tables, u18_vec(b.U18, y[b.point_idx])))
     dp, iters = pcg_solve(b, rhs, max_cg_iters, cg_tol, tables=tables, precond=precond, loop=loop,
-                          graph=graph)
+                          graph=graph, buffers=buffers)
 
     # back-substitute landmarks: dl = -C^{-1}(gl + U^T dp)
     Utdp = _sum_by_point(b, tables, u18_t_vec(b.U18, dp[b.pose_idx]))
@@ -544,26 +618,59 @@ def step_result(b: ObsBlocks, dp: torch.Tensor, dl: torch.Tensor, Udl: torch.Ten
     return dx, grad_norm, -(g_dot_dx + 0.5 * dxHdx)
 
 
-def solve_ba_pcg(problem: dense.StereoBAProblem, state0: dense.BAState,
-                 config: lm.SolveConfig = lm.SolveConfig(), max_cg_iters: int = 100,
-                 cg_tol: float = 1e-6, tables: ObsTables | None = None, precond: str = "auto",
-                 plan: full_batch_plan.FullBatchPlan | None = None, loop: str | None = None):
-    """LM with the matrix-free Schur-PCG linear solver (the role of Ceres'
-    ITERATIVE_SCHUR). Returns ``(state, SolveSummary)`` with the CG
-    iterations of the whole solve in ``linear_iterations``.
+def lm_loop_inputs(problem: dense.StereoBAProblem, state0: dense.BAState,
+                   terms: dense.AuxTerms, tables: ObsTables | None, plan, tracks) -> tuple:
+    """Every tensor the LM loop of ``solve_ba_pcg`` reads that changes from
+    one solve to the next: the observations, the gauge and landmark masks,
+    the sun and prior terms, the gather tables, the full-batch plan (K2 and
+    K3 read it by address; not its scratch), the banded preconditioner's
+    tracks and the initial state. A later solve of an ``lm.LMGraph`` copies
+    them into the captured ones."""
+    plan_tensors = () if plan is None else tuple(
+        t for name, t in plan._asdict().items() if isinstance(t, torch.Tensor)
+        and name not in ("y", "hg"))
+    return (*lm.leaves(problem.stereo), problem.fixed_pose_mask, problem.point_valid,
+            *lm.leaves(terms), *lm.leaves(tables), *plan_tensors, *lm.leaves(tracks),
+            state0.poses, state0.points)
 
-    On CUDA the full-batch plan and the gather tables are built here
-    whenever none are given, so K2 runs every LM iteration and K3 every
-    matvec, and the CG loop runs on the card (``loop``: ``pcg_solve``'s),
-    captured once for the solve (a ``CGGraph``); on the CPU they are used
-    only if given.
 
-    ``precond``: ``'jacobi'`` (exact block-Jacobi), ``'banded'`` (the
-    cyclic-reduction factorization of the banded part of S,
-    ``solver/banded.py``) or ``'auto'``: banded when at least half of the
-    landmarks form contiguous tracks short enough for the band. The 50%
-    rule is the JAX package's; on the card it is not yet decided from
-    measurements (ROADMAP)."""
+def _lm_key(problem, max_cg_iters, cg_tol, plan, tracks) -> tuple:
+    """What the device LM loop's body holds as Python values (beside the
+    inputs' shapes): the CG settings, the camera, the prior's pose, the
+    plan's group bound (in K3's launch arguments) and the band's layout."""
+    return (max_cg_iters, cg_tol, problem.camera, int(problem.prior.pose_idx),
+            None if plan is None or plan.args is None else plan.args.max_group,
+            None if tracks is None else (tracks.L, tracks.n_super))
+
+
+def resolve_loops(device, loop: str | None, lm_loop: str | None) -> tuple:
+    """The ``(CG, LM)`` loops a solve on ``device`` runs: on CUDA both on
+    the card unless asked otherwise (elsewhere both on the host, unless
+    asked for the device LM loop, which takes the device CG loop);
+    ``loop="host"`` (the host CG loop) forces the host LM loop; the device
+    LM loop with the host CG loop cannot run and raises (so does an
+    unknown loop)."""
+    on_card = torch.device(device).type == "cuda"
+    for name, v in (("CG", loop), ("LM", lm_loop)):
+        if v not in (None, "device", "host"):
+            raise ValueError(f"unknown {name} loop: {v!r}")
+    if lm_loop == "device" and loop == "host":
+        raise ValueError("the LM loop on the card runs the CG loop as a WHILE node inside it: "
+                         "lm_loop='device' needs loop='device'; the host CG loop runs under "
+                         "lm_loop='host'")
+    loop = loop or ("device" if on_card or lm_loop == "device" else "host")
+    lm_loop = lm_loop or ("device" if loop == "device" and on_card else "host")
+    return loop, lm_loop
+
+
+def prepare(problem: dense.StereoBAProblem, state0: dense.BAState,
+            tables: ObsTables | None = None, plan=None, precond: str = "auto"):
+    """What a solve builds once, before its loop: ``(tables, plan, tracks,
+    terms)``. On CUDA the gather tables and the full-batch plan are built
+    where none are given (on the CPU they stay as given); ``tracks`` for
+    the banded preconditioner (``precond``: ``'jacobi'``, ``'banded'`` or
+    ``'auto'``: banded when at least half of the landmarks form contiguous
+    tracks short enough for the band); the sun and prior ``terms``."""
     K, J = state0.poses.shape[0], state0.points.shape[0]
     st = problem.stereo
     if state0.poses.device.type == "cuda":
@@ -583,22 +690,83 @@ def solve_ba_pcg(problem: dense.StereoBAProblem, state0: dense.BAState,
             tracks = None
     elif precond != "jacobi":
         raise ValueError(f"unknown preconditioner: {precond!r}")
+    return tables, plan, tracks, dense.aux_terms(problem)
 
-    cg_iters = []
-    on_card = state0.poses.device.type == "cuda" and loop in (None, "device")
-    graph = CGGraph() if on_card else None  # one capture of the CG loop for the solve
+
+def lm_functions(problem, tables, plan, tracks, terms, max_cg_iters: int = 100,
+                 cg_tol: float = 1e-6, loop: str | None = None, graph: CGGraph | None = None,
+                 buffers: CGBuffers | None = None):
+    """The LM core's ``(cost_fn, step_fn, retract_fn)`` of a full-batch
+    solve (``prepare``'s tables, plan, tracks and terms): the step is
+    ``pcg_step``, its CG loop ``loop`` (with ``graph``), or on ``buffers``
+    (``inner_cg``: the device LM loop's body)."""
+
+    def cost(s):
+        return dense.ba_cost(problem, s, terms)
 
     def step(s, lam):
-        dx, grad_norm, pred, iters = pcg_step(problem, s, lam, max_cg_iters, cg_tol,
-                                              tables=tables, tracks=tracks, plan=plan, loop=loop,
-                                              graph=graph)
-        cg_iters.append(iters)
-        return dx, grad_norm, pred
+        return pcg_step(problem, s, lam, max_cg_iters, cg_tol, tables=tables, tracks=tracks,
+                        plan=plan, loop=loop, graph=graph, terms=terms, buffers=buffers)
 
+    def retract(s, dx):
+        return dense._retract_state(problem, s, dx)
+
+    return cost, step, retract
+
+
+def solve_ba_pcg(problem: dense.StereoBAProblem, state0: dense.BAState,
+                 config: lm.SolveConfig = lm.SolveConfig(), max_cg_iters: int = 100,
+                 cg_tol: float = 1e-6, tables: ObsTables | None = None, precond: str = "auto",
+                 plan: full_batch_plan.FullBatchPlan | None = None, loop: str | None = None,
+                 lm_loop: str | None = None, graph: lm.LMGraph | None = None):
+    """LM with the matrix-free Schur-PCG linear solver (the role of Ceres'
+    ITERATIVE_SCHUR). Returns ``(state, SolveSummary)`` with the CG
+    iterations of the whole solve in ``linear_iterations``.
+
+    On CUDA the full-batch plan and the gather tables are built here
+    whenever none are given, so K2 runs every LM iteration and K3 every
+    matvec; on the CPU they are used only if given. The sun and prior
+    terms go through ``dense.aux_terms``, made once (``prepare``).
+
+    The loops: on CUDA, by default, the LM loop runs on the card as one
+    conditional WHILE node (``lm.device_loop``; JAX's ``lax.while_loop`` at
+    ``ceres_slam_tpu/solver/lm.py:182``), its body one LM iteration (K2's
+    assembly, the right-hand side, the CG loop as a WHILE node nested in
+    it with K3 inside, the back-substitution, the retraction, the trial
+    cost and the control): one graph launch and one read a solve.
+    ``lm_loop="host"`` runs the LM loop on the host (``lm.host_loop``)
+    around the CG loop's own node (``loop="device"``, captured once for the
+    solve in a ``CGGraph``) or around ``cg`` (``loop="host"``, which forces
+    the host LM loop); ``lm_loop="device"`` with ``loop="host"`` raises.
+    On the CPU both loops run on the host. Every form gives the same bits.
+    ``graph`` (an ``lm.LMGraph``, device LM loop only) keeps the capture
+    for the next solve of the same shape, which copies its
+    ``lm_loop_inputs`` into this solve's tensors (the problem's, the
+    tables', the plan's: they are overwritten) and restarts it.
+
+    ``precond``: ``'jacobi'`` (exact block-Jacobi), ``'banded'`` (the
+    cyclic-reduction factorization of the banded part of S,
+    ``solver/banded.py``) or ``'auto'`` (``prepare``). The 50% rule of
+    ``'auto'`` is the JAX package's; on the card it is not yet decided from
+    measurements (ROADMAP)."""
+    loop, lm_loop = resolve_loops(state0.poses.device, loop, lm_loop)
+    tables, plan, tracks, terms = prepare(problem, state0, tables, plan, precond)
+    if lm_loop == "device":
+        state0 = lm.tree_map(torch.clone, state0)  # the loop's own: a restart copies into it
+        buffers = cg_buffers(state0.poses.new_zeros((state0.poses.shape[0], 6)))
+        fns = lm_functions(problem, tables, plan, tracks, terms, max_cg_iters, cg_tol,
+                           buffers=buffers)
+        return lm.lm_solve(state0, config, *fns, loop="device",
+                           counted=(stereo_factor_kernel.stereo_factor_sums,), graph=graph,
+                           inputs=lm_loop_inputs(problem, state0, terms, tables, plan, tracks),
+                           key=_lm_key(problem, max_cg_iters, cg_tol, plan, tracks))
+    if graph is not None:
+        raise ValueError("an LMGraph keeps the device LM loop: lm_loop='host' takes none")
+    cg_graph = CGGraph() if loop == "device" else None  # one capture of the CG loop a solve
     try:
-        state, summary = lm.lm_solve(state0, config, lambda s: dense.ba_cost(problem, s), step,
-                                     lambda s, dx: dense._retract_state(problem, s, dx))
+        return lm.lm_solve(state0, config, *lm_functions(
+            problem, tables, plan, tracks, terms, max_cg_iters, cg_tol, loop, cg_graph),
+            loop="host")
     finally:
-        if graph is not None:
-            graph.close()
-    return state, summary._replace(linear_iterations=sum(cg_iters))
+        if cg_graph is not None:
+            cg_graph.close()

@@ -524,23 +524,7 @@ class Carry(NamedTuple):
     history: tuple  # ([B, max_iters] x 3, bool [B, max_iters]) or ()
 
 
-def _leaves(x) -> list:
-    """The tensors of a (nested) tuple, in order."""
-    if isinstance(x, torch.Tensor):
-        return [x]
-    if isinstance(x, tuple):
-        return [t for v in x for t in _leaves(v)]
-    return []
-
-
-def _map(fn, x):
-    """``x`` with ``fn`` applied to each tensor (through tuples)."""
-    if isinstance(x, torch.Tensor):
-        return fn(x)
-    if isinstance(x, tuple):
-        vals = [_map(fn, v) for v in x]
-        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
-    return x
+_leaves, _map = lm.leaves, lm.tree_map  # the tensors of a (nested) tuple; fn on each
 
 
 def loop_start(layout: BatchLayout, state0: dense.BAState, config: lm.SolveConfig,

@@ -13,7 +13,8 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            the port) and the device WHILE loop (csrc/graph_while.cu) with nvcc, one
            process each, all started together; the loop's build checks that
            the toolkit, the driver and PyTorch's runtime are CUDA 12.3 or
-           newer (conditional graph nodes)
+           newer (conditional graph nodes; 12.4 for a node nested in
+           another, which the full-batch LM loop builds)
   kernels  each kernel against its plain PyTorch version on the card, in
            float64 and float32, with median times per call (CUDA events
            around the wrapper, host included): K1 at the flagship window
@@ -57,15 +58,19 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            windows solved in both forms; ATE against the JAX figures; the
            pass walls, the captures' and restarts' host times), and
            full-batch BA
-           (dataset_vo --window 0, the same three runs, the CG loop in a
-           WHILE node on the card; K2 and K3 launch counts, final cost and
-           ATE against the JAX figures), then solve_ba_pcg on the same
-           problems with the CG loop on the host (cg) and on the card in
-           turns (host, device, device, host) at triangle200 float64 and
-           float32, triangle200 float64 with the banded preconditioner
-           forced and kitti1100 float64: the same LM and CG iterations and
-           the same bits in all four, K3 once per CG iteration, and the
-           CLI's final cost; and a checkpoint resume: the triangle200 float64 sun pass
+           (dataset_vo --window 0, the same three runs, with its defaults on
+           the card: the LM loop in a WHILE node, the CG loop's WHILE node
+           nested in it; K2 once per LM iteration and K3 once per CG
+           iteration, one capture, final cost and ATE against the JAX
+           figures), then solve_ba_pcg on the same problems with its loops
+           in turns (CG / LM: host / host, device / host, device / device
+           twice, the second a restart of the first's capture, device /
+           host, host / host) at triangle200 float64 and float32,
+           triangle200 float64 with the banded preconditioner forced and
+           kitti1100 float64: the same LM and CG iterations and the same
+           bits in all six, K2 once per LM iteration and K3 once per CG
+           iteration, and the CLI's final cost; and a checkpoint resume:
+           the triangle200 float64 sun pass
            (--sun-only --checkpoint PATH --checkpoint-every 25) killed in a
            child process once its checkpoint holds window 100 or later,
            then run again, resuming, which must write the uninterrupted
@@ -157,8 +162,12 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            side (host loop and WHILE node: per CG iteration device time,
            launches, syncs, copies; one LM iteration's CG solve in turns,
            the device loop captured for the call and captured once and
-           reused, as solve_ba_pcg does; the capture, build and
-           instantiation, against the reused loop's copies and restart);
+           reused, as solve_ba_pcg's host LM loop does; the capture, build
+           and instantiation, against the reused loop's copies and
+           restart); the LM loop in its WHILE node with the CG node nested:
+           device us per LM iteration (CUDA events around the node, runs of
+           3 and 12 LM iterations) and the host's launches, syncs and
+           copies a solve, which must not grow with the iterations;
            a trace of one photometric rate
            solve (device busy share, launches per LM iteration); and, after
            the phong phase, a trace of 5 LM iterations of phong200's joint
@@ -597,6 +606,85 @@ def _profile_full_batch(torch, data):
         "(median of 5): captured for the call: " + ", ".join(
             f"{k} {statistics.median(v):.3f}" for k, v in parts.items())
         + f"; reused: copies and restart {statistics.median(restart):.3f}, then the run")
+    _profile_lm_node(torch, problem, state, tables, plan, node_us)
+
+
+def _lm_node_ms(torch, problem, state, tables, plan, n, max_cg_iters):
+    """The LM node of ``n`` LM iterations (run_full_budget) at
+    ``max_cg_iters``: captured by a first solve, then the device time of
+    its launch after a restart (CUDA events, median of 5 after one
+    discarded), its CG iterations, and one restarted solve under the
+    profiler."""
+    from ceres_slam_tpu_torch.solver import lm, pcg
+    from ceres_slam_tpu_torch.solver.lm import SolveConfig
+
+    cfg = SolveConfig(max_iters=n, run_full_budget=True)
+    graph = lm.LMGraph()
+
+    def solve():
+        return pcg.solve_ba_pcg(problem, state, cfg, max_cg_iters=max_cg_iters, tables=tables,
+                                plan=plan, precond="jacobi", graph=graph)
+
+    _, summ = solve()
+    t = _trace(torch, solve)
+    _, lp, node = next(iter(graph.loops.values()))
+    times = []
+    for _ in range(6):
+        lp.restart()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        node.launch()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    graph.close()
+    if summ.iterations != n:
+        fail(f"kitti1100 LM node, run_full_budget {n}: {summ.iterations} LM iterations")
+    return statistics.median(times[1:]), summ.linear_iterations, t
+
+
+def _profile_lm_node(torch, problem, state, tables, plan, cg_us):
+    """kitti1100's LM loop in its WHILE node with the CG node nested
+    (float64, block-Jacobi, from the CLI's initial guess), runs of 3 and of
+    12 LM iterations (run_full_budget), each captured once and restarted
+    (``_lm_node_ms``): the difference over 9 per LM iteration beside the
+    CG iterations it holds, at solve_ba_pcg's 100 CG iterations at most
+    and at 1 (the LM body outside CG, less one CG iteration; ``cg_us``: a
+    CG iteration in the CG loop's own node); the host's launches, syncs
+    and copies a solve must not grow with the LM iterations. Then the LM
+    body's kernels (eager, one CG iteration) by device time."""
+    from ceres_slam_tpu_torch.ops.full_batch_trace import kernel_ms
+    from ceres_slam_tpu_torch.solver import lm, pcg
+
+    for max_cg in (100, 1):
+        res = {n: _lm_node_ms(torch, problem, state, tables, plan, n, max_cg) for n in (3, 12)}
+        per_lm = (res[12][0] - res[3][0]) / 9 * 1e3
+        cg = (res[12][1] - res[3][1]) / 9
+        host = {k: res[12][2][k] - res[3][2][k] for k in ("launches", "syncs", "copies")}
+        log(f"[profile] full batch kitti1100 f64, LM loop in its WHILE node (CG node nested, at "
+            f"most {max_cg} CG iterations): node {res[3][0]:.3f} ms for 3 LM iterations "
+            f"({res[3][1]} CG), {res[12][0]:.3f} ms for 12 ({res[12][1]} CG): {per_lm:.1f} us of "
+            f"device time per LM iteration (CUDA events), {cg:.1f} CG iterations in it "
+            f"({cg * cg_us:.1f} us at {cg_us:.2f} us each), the rest {per_lm - cg * cg_us:.1f} "
+            f"us; per solve (profiled, restarted) 3 / 12 iterations: "
+            f"{res[3][2]['launches']:g} / {res[12][2]['launches']:g} launches, "
+            f"{res[3][2]['graph_launches']:g} / {res[12][2]['graph_launches']:g} graph launches, "
+            f"{res[3][2]['syncs']:g} / {res[12][2]['syncs']:g} syncs, {res[3][2]['copies']:g} / "
+            f"{res[12][2]['copies']:g} copies, wall {res[3][2]['wall_us'] / 1e3:.2f} / "
+            f"{res[12][2]['wall_us'] / 1e3:.2f} ms")
+        if any(host.values()):
+            fail(f"kitti1100 LM node: host work grows with the LM iterations: {host} for 9 more")
+    cfg = lm.SolveConfig(max_iters=1, run_full_budget=True)
+    cost, step, retract = pcg.lm_functions(
+        problem, *pcg.prepare(problem, state, tables, plan, "jacobi"), max_cg_iters=1,
+        loop="host")
+    carry = lm.lm_start(state, cfg, cost)
+    by_name, kernels = kernel_ms(lambda: lm.lm_body(step, cost, retract, cfg, carry))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log(f"[profile] full batch kitti1100 f64, one LM iteration eagerly (1 CG iteration): "
+        f"{sum(by_name.values()) * 1e3:.1f} us of device time in {kernels:g} kernels; the "
+        "largest: " + ", ".join(f"{n} {t * 1e3:.1f} us" for n, t in top))
 
 
 def _node_us_per_iteration(torch, b, precond, rhs):
@@ -1235,7 +1323,7 @@ def _run_full(data, seq, dtype, device, kernels):
     k2, k3 = kernels["K2"].stereo_factor_sums, kernels["K3"].schur_uy
     k2.launches = k3.launches = 0
     stats = dataset_vo.main([base + "_vo.csv", "--window", "0", "--dtype", dtype,
-                             "--device", device])
+                             "--device", device])  # on the card: both loops there, nested
     launches = {"K2": k2.launches, "K3": k3.launches}
     gt = csvio.read_poses_csv(base + "_gt_poses.csv")
     for out in (stats["poses"], stats["map"]):
@@ -1315,18 +1403,23 @@ def _slice_window(data, kernels, smi):
 
 
 def _slice_full(data, kernels):
-    """Full-batch BA through dataset_vo (the CG loop on the card); returns
-    K2's and K3's launches, the triangle200 float64 poses and that run's
-    final cost, and each run's final cost."""
+    """Full-batch BA through dataset_vo (its defaults on the card: the LM
+    loop in a WHILE node with the CG loop's nested in it); K2 must launch
+    once per LM iteration and K3 once per CG iteration. Returns K2's and
+    K3's launches, the triangle200 float64 poses and that run's final
+    cost, and each run's final cost."""
     total = {"K2": 0, "K3": 0}
     keep, costs = None, {}
     for seq, dtype in (("triangle200", "float64"), ("triangle200", "float32"),
                        ("kitti1100", "float64")):
         stats, launches, poses, ate = _run_full(data, seq, dtype, "cuda", kernels)
         lm_it, cg_it = stats["lm_iterations"], stats["cg_iterations"]
-        if launches["K2"] < lm_it or launches["K3"] < cg_it or not cg_it:
+        if launches["K2"] != lm_it or launches["K3"] != cg_it or not cg_it:
             fail(f"{seq} full batch {dtype}: {launches} launches for {lm_it} LM and {cg_it} "
                  "CG iterations")
+        if stats["lm_graph_captures"] != 1:
+            fail(f"{seq} full batch {dtype}: {stats['lm_graph_captures']} captures of the LM "
+                 "loop, not 1 (the device LM loop is dataset_vo's default on the card)")
         for name in total:
             total[name] += launches[name]
         cost_ref, ate_ref = JAX_FULL[seq]
@@ -1340,7 +1433,8 @@ def _slice_full(data, kernels):
             f"{stats['ransac_s']:.2f} s, solve {stats['solve_s']:.2f} s, total "
             f"{stats['total_s']:.2f} s; {lm_it} LM iterations, {cg_it} CG iterations "
             f"({cg_it / max(lm_it, 1):.1f} per LM iteration); launches K2 {launches['K2']}, "
-            f"K3 {launches['K3']}")
+            f"K3 {launches['K3']}; LM loop in the WHILE node, captured "
+            f"{stats['lm_graph_captures']} time(s)")
         if not (cost_dev <= rtol and abs(ate - ate_ref) <= ate_atol):
             fail(f"{seq} full batch {dtype}: cost {stats['final_cost']:.6e} / ATE {ate:.6f} "
                  f"vs JAX {cost_ref:.6e} / {ate_ref:.4f}")
@@ -1352,22 +1446,29 @@ def _slice_full(data, kernels):
 
 LOOP_TURNS = (("triangle200", "float64", "jacobi"), ("triangle200", "float32", "jacobi"),
               ("triangle200", "float64", "banded"), ("kitti1100", "float64", "jacobi"))
+# (CG loop, LM loop) in turns: both on the host, the LM loop on the host
+# around the CG loop's node, the LM loop's node with the CG node nested
+# (twice: the second a restart of the first's capture), then back
+LOOP_FORMS = (("host", "host"), ("device", "host"), ("device", "device"), ("device", "device"),
+              ("device", "host"), ("host", "host"))
 
 
 def _loop_turns(data, kernels, seq, dtype, precond, cli_cost):
     """solve_ba_pcg on ``seq``'s full problem, from the CLI's initial guess
-    and with its settings, with the CG loop on the host (``cg``) and on the
-    card (the WHILE node) in turns: host, device, device, host. Every run
-    must give the same LM and CG iterations and the same bits (poses,
-    points, final cost); K3 must launch once per CG iteration. The
-    block-Jacobi float64 runs must give the CLI's final cost (its solve ran
-    the device loop) and the banded one the same minimum (rtol 1e-6).
-    Returns K2's and K3's launches."""
+    and with its settings, with its loops in turns (``LOOP_FORMS``): the CG
+    loop on the host (``cg``) or in its WHILE node, the LM loop on the host
+    or in its WHILE node with the CG node nested in it (one ``LMGraph``:
+    the second device run restarts the first's capture). Every run must
+    give the same LM and CG iterations and the same bits (poses, points,
+    final cost); K2 must launch once per LM iteration and K3 once per CG
+    iteration. The block-Jacobi float64 runs must give the CLI's final
+    cost (its solve ran the device loops) and the banded one the same
+    minimum (rtol 1e-6). Returns K2's and K3's launches."""
     import torch
 
     from ceres_slam_tpu_torch.apps import common
     from ceres_slam_tpu_torch.problems.dataset import DatasetProblem
-    from ceres_slam_tpu_torch.solver import dense, pcg
+    from ceres_slam_tpu_torch.solver import dense, lm, pcg
     from ceres_slam_tpu_torch.solver.lm import SolveConfig
 
     ds = DatasetProblem.read_csv(os.path.join(data, f"{seq}_vo.csv"))
@@ -1379,33 +1480,43 @@ def _loop_turns(data, kernels, seq, dtype, precond, cli_cost):
     tol = common.solver_tolerance(dtype, 1)
     config = SolveConfig(max_iters=1000, nonmonotonic=True, ftol=tol, xtol=tol)
     k2, k3 = kernels["K2"].stereo_factor_sums, kernels["K3"].schur_uy
-    total, runs = {"K2": 0, "K3": 0}, []
-    for loop in ("host", "device", "device", "host"):
+    total, runs, graph = {"K2": 0, "K3": 0}, [], lm.LMGraph()
+    g0 = dict(lm.GRAPH_STATS)
+    for cg_loop, lm_loop in LOOP_FORMS:
         k2.launches = k3.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sol, summ = pcg.solve_ba_pcg(problem, state, config, precond=precond, loop=loop)
+        sol, summ = pcg.solve_ba_pcg(problem, state, config, precond=precond, loop=cg_loop,
+                                     lm_loop=lm_loop, graph=graph if lm_loop == "device" else None)
         torch.cuda.synchronize()
-        runs.append((loop, sol, summ, time.perf_counter() - t0))
+        runs.append(((cg_loop, lm_loop), sol, summ, time.perf_counter() - t0))
         total["K2"] += k2.launches
         total["K3"] += k3.launches
-        if k3.launches != summ.linear_iterations or k2.launches < summ.iterations:
-            fail(f"{seq} {dtype} {precond} loop {loop}: K2 {k2.launches}, K3 {k3.launches} "
-                 f"launches for {summ.iterations} LM and {summ.linear_iterations} CG iterations")
+        if k3.launches != summ.linear_iterations or k2.launches != summ.iterations:
+            fail(f"{seq} {dtype} {precond} CG loop {cg_loop}, LM loop {lm_loop}: K2 "
+                 f"{k2.launches}, K3 {k3.launches} launches for {summ.iterations} LM and "
+                 f"{summ.linear_iterations} CG iterations")
+    graph.close()
+    captures = lm.GRAPH_STATS["captures"] - g0["captures"]
+    restarts = lm.GRAPH_STATS["restarts"] - g0["restarts"]
     _, ref, rs, _ = runs[0]
     same = all(s.iterations == rs.iterations and s.linear_iterations == rs.linear_iterations
                and s.final_cost == rs.final_cost and torch.equal(x.poses, ref.poses)
                and torch.equal(x.points, ref.points) for _, x, s, _ in runs)
-    walls = {lp: [w for l2, _, _, w in runs if l2 == lp] for lp in ("host", "device")}
+    walls = {form: [w for f2, _, _, w in runs if f2 == form] for form in dict.fromkeys(LOOP_FORMS)}
     dev = abs(rs.final_cost - cli_cost) / cli_cost
-    log(f"[slice] {seq} full batch {dtype} {precond}, CG loop host / device in turns: "
-        f"{rs.iterations} LM, {rs.linear_iterations} CG iterations, cost {rs.final_cost:.9e} "
-        f"({dev:.2e} from the CLI's device-loop solve), "
-        f"{'bit-equal' if same else 'DIFFERENT'} poses, points and costs in all four runs; "
-        f"solve s host {' '.join(f'{w:.3f}' for w in walls['host'])}, device "
-        f"{' '.join(f'{w:.3f}' for w in walls['device'])}")
+    log(f"[slice] {seq} full batch {dtype} {precond}, loops in turns (CG/LM: host/host, "
+        f"device/host, device/device x2, device/host, host/host): {rs.iterations} LM, "
+        f"{rs.linear_iterations} CG iterations, cost {rs.final_cost:.9e} ({dev:.2e} from the "
+        f"CLI's device-loop solve), {'bit-equal' if same else 'DIFFERENT'} poses, points and "
+        f"costs in all {len(runs)} runs; LM loop captures {captures}, restarts {restarts}; "
+        "solve s " + ", ".join(f"{c}/{m} " + " ".join(f"{w:.3f}" for w in ws)
+                               for (c, m), ws in walls.items()))
     if not same:
-        fail(f"{seq} {dtype} {precond}: the device CG loop and the host loop disagree")
+        fail(f"{seq} {dtype} {precond}: the loops' forms disagree")
+    if (captures, restarts) != (1, 1):
+        fail(f"{seq} {dtype} {precond}: {captures} captures and {restarts} restarts of the LM "
+             "loop, not 1 and 1")
     if not (dev <= 1e-6 if precond == "banded" or dtype == "float32" else dev == 0.0):
         fail(f"{seq} {dtype} {precond}: cost {rs.final_cost:.9e} vs the CLI's {cli_cost:.9e}")
     return total

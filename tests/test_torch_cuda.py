@@ -976,3 +976,165 @@ def test_window_node_makes_no_host_work_per_iteration(tmp_path):
                      sum("Synchronize" in x for x in host),
                      sum(x.startswith("cudaMemcpy") for x in host))
     assert counts[3] == counts[12], counts
+
+
+# The full-batch LM loop in a WHILE node with the CG loop's nested in it
+# (solver/lm.py, solver/pcg.py): the host LM loop's bits, K2 once per LM
+# iteration and K3 once per CG iteration the card ran, and no host work
+# per LM iteration.
+
+def _lm_problem(dtype, seed=16):
+    plan, poses, points = stereo_factor_kernel.random_inputs(12992, 448, 200, dtype, "cuda",
+                                                             seed=seed)
+    return _problem_of(plan, poses), dense.BAState(poses, points)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["f64", "f32", "banded"])
+def test_lm_node_equals_host_lm_loop(case):
+    """``solve_ba_pcg`` with the LM loop in the WHILE node (the CG loop's
+    node nested in it) against ``lm_loop="host"`` around the CG loop's own
+    node and around the host CG loop, at triangle200's full-batch shape:
+    the same LM and CG iterations, summary (the history included), poses
+    and points bit for bit; a second solve through the same ``LMGraph``
+    restarts the capture and gives the same bits; in every run K2 launches
+    once per LM iteration and K3 once per CG iteration."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dtype = torch.float32 if case == "f32" else torch.float64
+    problem, state = _lm_problem(dtype)
+    precond = "banded" if case == "banded" else "jacobi"
+    cfg = lm.SolveConfig(max_iters=10, nonmonotonic=True, ftol=1e-9, xtol=1e-12,
+                         record_history=True)
+    k2, k3 = stereo_factor_kernel.stereo_factor_sums, schur_kernel.schur_uy
+    graph, stats = lm.LMGraph(), lm.GRAPH_STATS
+    before = (stats["captures"], stats["restarts"])
+    runs = []
+    for cg_loop, lm_loop in (("host", "host"), ("device", "host"), ("device", "device"),
+                             ("device", "device")):
+        n2, n3 = k2.launches, k3.launches
+        sol, summ = pcg.solve_ba_pcg(problem, state, cfg, precond=precond, loop=cg_loop,
+                                     lm_loop=lm_loop, graph=graph if lm_loop == "device" else None)
+        torch.cuda.synchronize()
+        assert (k2.launches - n2, k3.launches - n3) == (summ.iterations, summ.linear_iterations)
+        assert summ.linear_iterations > summ.iterations > 2
+        runs.append((sol, summ))
+    assert (stats["captures"] - before[0], stats["restarts"] - before[1]) == (1, 1)
+    graph.close()
+    ref, rs = runs[0]
+    for sol, summ in runs[1:]:
+        for a, b in zip(summ, rs):
+            np.testing.assert_array_equal(a, b)
+        assert torch.equal(sol.poses, ref.poses) and torch.equal(sol.points, ref.points)
+
+
+@pytest.mark.cuda
+def test_lm_node_makes_no_host_work_per_iteration():
+    """A restarted LM loop in the WHILE node under torch.profiler with 3
+    and with 12 LM iterations (run_full_budget; ~20 CG iterations each):
+    the same host launches, syncs and copies, so none per LM iteration nor
+    per CG iteration inside the nodes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    problem, state = _lm_problem(torch.float64)
+    st = problem.stereo
+    tables = pcg.build_obs_tables(st.pose_idx.cpu(), st.point_idx.cpu(), 200, 448, device="cuda")
+    plan = full_batch_plan.plan_for_problem(problem)
+    counts = {}
+    for n in (3, 12):
+        cfg = lm.SolveConfig(max_iters=n, run_full_budget=True)
+        graph = lm.LMGraph()
+
+        def solve():
+            return pcg.solve_ba_pcg(problem, state, cfg, tables=tables, plan=plan,
+                                    precond="jacobi", graph=graph)
+
+        solve()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            _, summ = solve()
+            torch.cuda.synchronize()
+        graph.close()
+        assert summ.iterations == n and summ.linear_iterations > n
+        host = [e.name for e in prof.events() if e.device_type != DeviceType.CUDA]
+        counts[n] = (sum(x.startswith("cudaLaunchKernel") for x in host),
+                     sum("Synchronize" in x for x in host),
+                     sum(x.startswith("cudaMemcpy") for x in host))
+    assert counts[3] == counts[12], counts
+
+
+@pytest.mark.cuda
+def test_nested_device_while_counts():
+    """A WHILE node nested in another's body (``graph_loop.while_loop``
+    inside a ``DeviceWhile``'s capture): the outer loop runs 4 times, the
+    inner one i times in the outer iteration i, 10 in all, which the card
+    counts beside the outer loop's; each counted wrapper gets its counts
+    per iteration of its own loop. A second run gives the same."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ceres_slam_tpu_torch.ops import graph_loop
+
+    def outer_kernel():
+        outer_kernel.launches += 1
+
+    def inner_kernel():
+        inner_kernel.launches += 1
+
+    outer_kernel.launches = inner_kernel.launches = 0
+    z = lambda: torch.zeros(1, dtype=torch.int32, device="cuda")  # noqa: E731
+    i, j, total, pred, pred_in = z(), z(), z(), z(), z()
+
+    def inner():
+        inner_kernel()
+        j.add_(1)
+        total.add_(1)
+        pred_in.copy_(j < i)
+
+    def outer():
+        outer_kernel()
+        i.add_(1)
+        j.zero_()
+        pred_in.copy_(j < i)
+        graph_loop.while_loop(inner, pred_in, counted=(inner_kernel,))
+        pred.copy_(i < 4)
+
+    pred.fill_(1)
+    loop = graph_loop.DeviceWhile(outer, pred, counted=(outer_kernel,))
+    assert (outer_kernel.launches, inner_kernel.launches) == (0, 0)
+    assert loop.run() == 4 and loop.inner_iterations == [10]
+    assert (int(i), int(total)) == (4, 10)
+    assert (outer_kernel.launches, inner_kernel.launches) == (4, 10)
+    i.zero_(), total.zero_(), pred.fill_(1)
+    assert loop.run() == 4 and loop.inner_iterations == [10] and int(total) == 10
+    loop.close()
+
+
+@pytest.mark.cuda
+def test_nested_while_needs_cuda_12_4(monkeypatch):
+    """Where the toolkit, the driver or PyTorch's runtime is older than
+    CUDA 12.4, a loop nested in a device loop is refused with the reason
+    (no host loop instead), and the next device loop still builds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ceres_slam_tpu_torch.ops import graph_loop
+
+    graph_loop.build()
+    real = graph_loop.versions()
+    pred, inner = (torch.ones(1, dtype=torch.int32, device="cuda") for _ in range(2))
+
+    def body():
+        inner.fill_(0)
+        graph_loop.while_loop(lambda: inner.fill_(0), inner)
+        pred.fill_(0)
+
+    monkeypatch.setattr(graph_loop, "versions", lambda: {**real, "driver": (12, 3)})
+    with pytest.raises(RuntimeError, match=r"12\.4 or newer \(nested conditional graph nodes\)"):
+        graph_loop.DeviceWhile(body, pred)
+    monkeypatch.setattr(graph_loop, "versions", lambda: real)
+    pred.fill_(1)
+    loop = graph_loop.DeviceWhile(body, pred)
+    assert loop.run() == 1 and loop.inner_iterations == [0]
+    loop.close()
