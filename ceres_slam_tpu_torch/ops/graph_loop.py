@@ -354,6 +354,15 @@ def _check_pred(pred: torch.Tensor, what: str) -> None:
                          f"{tuple(pred.shape)}")
 
 
+def not_in_capture(what: str, where: str) -> None:
+    """Raise if the current stream is capturing: ``what`` is a host round
+    trip, which a captured loop cannot make (``where`` builds it before the
+    loop)."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what} is a host round trip, which a captured loop cannot make: "
+                           f"build it before the loop, as {where} does")
+
+
 def while_loop(body: Callable[[], None], pred: torch.Tensor, counted: Iterable = ()) -> None:
     """``while pred: body()``, with ``pred`` an int32 of one element that
     ``body`` writes. Inside the body of a ``DeviceWhile`` being captured,

@@ -14,6 +14,9 @@ solves run on ``device``. Every window's problem is padded to one budget
 of observations and vertices, as in the JAX package (there so that XLA
 reuses one program): the padding changes no value, and it keeps each
 window's size, and so ``auto``'s choice of linear solver, equal to JAX's.
+Here it also gives every window of a pass one shape, and with its gather
+tables padded to one width (``_table_widths``), the pass's LM loops on the
+card are captured once a stage and restarted for every later window.
 """
 
 from __future__ import annotations
@@ -215,14 +218,36 @@ class DatasetProblemPhong:
             max_vtx = max(max_vtx, np.unique(self.vertex_ids[sel]).size)
         return _round_up(max_obs), _round_up(max_vtx)
 
+    def _window_obs(self, k1: int, k2: int):
+        """Window ``[k1, k2)``'s observations, its active vertices (global
+        ids) and each observation's vertex slot among them."""
+        sel = np.concatenate(self._state_obs[k1:k2])
+        slots, local_v = np.unique(self.vertex_ids[sel], return_inverse=True)
+        return sel, slots, local_v
+
+    def _table_widths(self, window: int) -> dict:
+        """The gather tables' widths shared by every window of a pass
+        (``phong.table_widths``, the largest over the windows; the vertices
+        initialized as they are now), so that the pass's LM loops capture
+        once per stage and restart for every later window."""
+        widths = {}
+        for k1 in range(0, self.num_states - window + 1):
+            k2 = min(k1 + window, self.num_states)
+            sel, slots, local_v = self._window_obs(k1, k2)
+            valid = self.initialized_vertex[slots][local_v]
+            ids = phong_mod.table_ids(self.state_ids[sel] - k1, local_v, self.material_ids[sel],
+                                      valid, k2 - k1, slots.size, self.num_materials)
+            for k, w in phong_mod.table_widths(ids).items():
+                widths[k] = max(w, widths.get(k, 1))
+        return widths
+
     def build_window_problem(self, k1: int, k2: int, n_obs_pad: int, n_vtx_pad: int):
         """The padded problem and state of window ``[k1, k2)`` on ``device``:
         the window's active vertices (in slots ``[0, n_vtx_pad)``), the
         global materials, textures and light. Returns ``(problem, state,
         slots)``, ``slots`` the global ids of the active vertices."""
         Kw = k2 - k1
-        sel = np.concatenate(self._state_obs[k1:k2])
-        slots, local_v = np.unique(self.vertex_ids[sel], return_inverse=True)
+        sel, slots, local_v = self._window_obs(k1, k2)
         n_obs, n_vtx = sel.size, slots.size
         if n_obs > n_obs_pad or n_vtx > n_vtx_pad:
             raise ValueError("window pad budget too small")
@@ -273,30 +298,44 @@ class DatasetProblemPhong:
         self.light = sol.light.cpu().numpy().astype(np.float64)
 
     def solve_full(self, window: int = 0, use_light: bool = True, multistage: bool = False,
-                   config: lm_mod.SolveConfig | None = None, linear_solver: str = "auto"):
+                   config: lm_mod.SolveConfig | None = None, linear_solver: str = "auto",
+                   lm_loop: str | None = None):
         """The ``dataset_ba_phong`` pipeline: the full-trajectory initial
         guess, then windowed (``window`` poses) or full-batch (0) staged
-        solves. Returns every stage's ``SolveSummary``."""
+        solves. ``lm_loop``: ``phong.solve_phong_ba``'s (``"device"``, the
+        default on the card: each stage one WHILE node; ``"host"``). The
+        pass keeps one ``lm.LMGraph``: every window is padded to one budget
+        and its tables to one width, so the first window captures each
+        stage once and every later window restarts those captures. Returns
+        every stage's ``SolveSummary``."""
         config = config or lm_mod.SolveConfig(max_iters=100)
+        lm_loop = phong_mod.resolve_lm_loop(self._device, lm_loop)
         K = self.num_states
         window = window or K
         n_obs_pad, n_vtx_pad = self._window_budget(window)
+        widths = None
         if window < K:
             # the reference initializes the whole chain before the window
             # loop; each window then re-initializes only its newest frame
             self.compute_initial_guess()
+            widths = self._table_widths(window)
+        graph = lm_mod.LMGraph() if lm_loop == "device" else None
         summaries = []
-        for k1 in range(0, K - window + 1):
-            k2 = min(k1 + window, K)
-            if k1 > 0:
-                self.compute_initial_guess(k2 - 1, k2)
-            else:
-                self.compute_initial_guess(k1, k2)
-            problem, state, slots = self.build_window_problem(k1, k2, n_obs_pad, n_vtx_pad)
-            sol, stage_summaries = phong_mod.solve_phong_staged(
-                problem, state, config, use_light=use_light,
-                directional=self.directional_light, multistage=multistage,
-                linear_solver=linear_solver)
-            self.absorb_window_solution(k1, k2, sol, slots)
-            summaries.extend(stage_summaries)
+        try:
+            for k1 in range(0, K - window + 1):
+                k2 = min(k1 + window, K)
+                if k1 > 0:
+                    self.compute_initial_guess(k2 - 1, k2)
+                else:
+                    self.compute_initial_guess(k1, k2)
+                problem, state, slots = self.build_window_problem(k1, k2, n_obs_pad, n_vtx_pad)
+                sol, stage_summaries = phong_mod.solve_phong_staged(
+                    problem, state, config, use_light=use_light,
+                    directional=self.directional_light, multistage=multistage,
+                    linear_solver=linear_solver, lm_loop=lm_loop, graph=graph, widths=widths)
+                self.absorb_window_solution(k1, k2, sol, slots)
+                summaries.extend(stage_summaries)
+        finally:
+            if graph is not None:
+                graph.close()
         return summaries

@@ -401,7 +401,8 @@ def cholesky_apply(L: torch.Tensor, b: torch.Tensor, columns: bool = False) -> t
     solves, as the JAX package applies its factors. Unlike a batched
     ``torch.cholesky_solve`` it never synchronizes with the host on CUDA, so
     a CUDA graph can capture it (``solver/pcg.py``'s CG loop, the window
-    loops of ``solver/window.py``)."""
+    loops of ``solver/window.py``, ``dense_cholesky_step``, the Phong
+    vertex-Schur step)."""
     y = torch.linalg.solve_triangular(L, b if columns else b[..., None], upper=False)
     x = torch.linalg.solve_triangular(L.mT, y, upper=True)
     return x if columns else x[..., 0]
@@ -463,13 +464,15 @@ def dogleg_solve(state0, config: SolveConfig, cost_fn: Callable, normal_eq_fn: C
 
 
 def dense_cholesky_step(normal_eq_fn: Callable):
-    """Standard damped dense step: ``(H + lam diag(H)) dx = -g``."""
+    """Standard damped dense step: ``(H + lam diag(H)) dx = -g``, the factor
+    applied by two triangular solves (JAX's ``cho_solve``; ``cholesky_apply``),
+    so a captured loop can run it."""
 
     def step(state, lam):
         H, g = normal_eq_fn(state)
         diag = torch.clamp(torch.diagonal(H), 1e-12, 1e32)
         L = _cholesky_or_nan(H + lam * torch.diag(diag))
-        dx = torch.cholesky_solve(-g[:, None], L)[:, 0]
+        dx = cholesky_apply(L, -g)
         pred = -(g @ dx + 0.5 * dx @ (H @ dx))
         return dx, g.abs().max(), pred
 

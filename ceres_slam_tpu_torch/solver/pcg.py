@@ -173,12 +173,6 @@ def u18_vec(U18, y3):
     return lie._mv(U18.reshape(-1, 6, 3), y3)
 
 
-def _not_in_capture(what: str) -> None:
-    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
-        raise RuntimeError(f"{what} is a host round trip, which a captured loop cannot make: "
-                           "build it before the loop, as solve_ba_pcg does")
-
-
 def _aux_blocks(problem, state, terms):
     """The sun and prior pose blocks: through ``terms`` (``dense.AuxTerms``,
     masked, no host read) where given, else ``dense.aux_pose_blocks``."""
@@ -201,7 +195,7 @@ def build_obs_blocks(problem: dense.StereoBAProblem, state: dense.BAState, lam,
     trip of the observation tables, refused inside a capture;
     ``solve_ba_pcg`` builds it once)."""
     if plan is None and state.poses.device.type == "cuda":
-        _not_in_capture("building the full-batch plan")
+        graph_loop.not_in_capture("building the full-batch plan", "solve_ba_pcg")
         plan = full_batch_plan.plan_for_problem(problem)
     if plan is not None:
         return _blocks_from_plan(problem, state, lam, plan, terms)
@@ -582,7 +576,7 @@ def pcg_step(problem, state, lam, max_cg_iters: int = 100, cg_tol: float = 1e-6,
     ``loop``, ``graph``, ``buffers``: ``pcg_solve``'s; ``terms``:
     ``build_obs_blocks``'."""
     if tables is None and state.poses.device.type == "cuda":
-        _not_in_capture("building the gather tables")
+        graph_loop.not_in_capture("building the gather tables", "solve_ba_pcg")
         st = problem.stereo
         tables = build_obs_tables(st.pose_idx.cpu(), st.point_idx.cpu(), state.poses.shape[0],
                                   state.points.shape[0], device=state.poses.device)

@@ -10,28 +10,29 @@ never formed.
 
 The JAX package's slotted assembly reduces with one-hot matrix products
 (the TPU's matrix unit). Here every reduction is a gather through a table
-that ``build_phong_layout`` builds on the host once per problem, and a sum
+that ``build_phong_layout`` builds on the host once per solve, before its
+loop (``phong.build_tables``, a pass's widths where given), and a sum
 over the table's fixed slot axis: by vertex, by pose, and by (vertex,
 pose) pair for the coupling ``W``; the Phong and texture columns of the
 intensity rows are an indexed write (one material a row), and the reduced
 pose blocks a block-diagonal write. So the card gives the same bits every
 run (ROADMAP F14). The Schur correction ``[6J, D_r]^T [6J, D_r]`` is one
-plain matrix product in the working precision (TF32 off, F2).
+plain matrix product in the working precision (TF32 off, F2). The
+factors are applied by triangular solves (``lm.cholesky_apply``): the step
+never reads the device from the host, so the LM loop's WHILE node can
+capture it (``phong.solve_phong_ba(lm_loop="device")``).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ceres_slam_tpu_torch.solver import lm
 from ceres_slam_tpu_torch.solver.dense import gather_sum
-from ceres_slam_tpu_torch.solver.phong import (PhongBAProblem, PhongState, _free_vector,
-                                               _gathered_terms, obs_valid, phong_cost,
-                                               phong_retract)
-from ceres_slam_tpu_torch.solver.window import gather_table
+from ceres_slam_tpu_torch.solver.phong import (SCHUR_KEYS, PhongBAProblem, PhongState,
+                                               _gathered_terms, build_tables, free_vector)
 
 
 class PhongLayout(NamedTuple):
@@ -45,18 +46,13 @@ class PhongLayout(NamedTuple):
     by_pair: torch.Tensor  # [J*K, D] int64
 
 
-def build_phong_layout(problem: PhongBAProblem) -> PhongLayout:
+def build_phong_layout(problem: PhongBAProblem, widths: dict | None = None) -> PhongLayout:
     """Host-side: group the valid observations by vertex, by pose and by
-    (vertex, pose) pair (the tables live on the problem's device)."""
-    o = problem.obs
-    K, J = problem.fixed_pose_mask.shape[0], problem.vertex_valid.shape[0]
-    valid = obs_valid(problem).cpu().numpy()
-    vid, pid = o.vertex_idx.cpu().numpy(), o.pose_idx.cpu().numpy()
-
-    def put(ids, n):
-        return torch.as_tensor(gather_table(np.where(valid, ids, -1), n)).to(o.uvd.device)
-
-    return PhongLayout(put(vid, J), put(pid, K), put(vid * K + pid, J * K))
+    (vertex, pose) pair (``phong.build_tables``; the tables live on the
+    problem's device), each ``widths[key]`` wide where given (a pass's
+    ``phong.table_widths``). Under a capture this raises."""
+    t = build_tables(problem, None, keys=SCHUR_KEYS, widths=widths)
+    return PhongLayout(*(t[k] for k in SCHUR_KEYS))
 
 
 def _pad_rows(Jv3, rows: str):
@@ -71,10 +67,9 @@ def _outer(a, b):
     return (a.transpose(1, 2) @ b).reshape(a.shape[0], -1)
 
 
-def _mask_blocks(problem, state, use_light, freeze_geometry, Hv, gv, W, Hr, gr):
-    """Zero the rows and columns of the dimensions the stage holds fixed."""
-    K, J = state.poses.shape[0], state.points.shape[0]
-    free = _free_vector(problem, state, use_light, freeze_geometry)
+def _mask_blocks(free, K, J, Hv, gv, W, Hr, gr):
+    """Zero the rows and columns of the dimensions the stage holds fixed
+    (``free``: its ``phong.free_vector``)."""
     off_pt = 6 * K
     free_v = torch.cat([free[off_pt:off_pt + 3 * J].reshape(J, 3),
                         free[off_pt + 3 * J:off_pt + 6 * J].reshape(J, 3)], dim=-1)
@@ -89,13 +84,15 @@ def _mask_blocks(problem, state, use_light, freeze_geometry, Hv, gv, W, Hr, gr):
 
 def phong_schur_blocks(problem: PhongBAProblem, state: PhongState, use_light: bool,
                        directional: bool, freeze_geometry: bool,
-                       layout: PhongLayout | None = None):
+                       layout: PhongLayout | None = None, free: torch.Tensor | None = None):
     """The block normal equations without the dense ``[D, D]`` H:
     ``(Hv [J, 6, 6], gv [J, 6], W [J, 6, D_r], Hr [D_r, D_r], gr [D_r])``,
     the vertex block ``[position | normal]`` and the reduced vector ``[6K
     poses | 3M Phong | M textures | 3 light]``, masked (diagonal pinning
-    happens in the step). Without a ``layout`` one is built here."""
+    happens in the step). Without a ``layout`` or a ``free`` vector they
+    are built here (host work: a loop builds them before it)."""
     layout = layout if layout is not None else build_phong_layout(problem)
+    free = free_vector(problem, state, use_light, freeze_geometry) if free is None else free
     o = problem.obs
     K, J, M = state.poses.shape[0], state.points.shape[0], state.phong.shape[0]
     N = o.uvd.shape[0]
@@ -162,21 +159,25 @@ def phong_schur_blocks(problem: PhongBAProblem, state: PhongState, use_light: bo
     Hr = torch.cat([torch.cat([Hpp_dense, cross_flat], dim=1),
                     torch.cat([cross_flat.T, rest_H], dim=1)], dim=0)
     gr = torch.cat([gp.reshape(-1), rest_g])
-    return _mask_blocks(problem, state, use_light, freeze_geometry, Hv, gv, W, Hr, gr)
+    return _mask_blocks(free, K, J, Hv, gv, W, Hr, gr)
 
 
 def phong_schur_step(problem: PhongBAProblem, use_light: bool, directional: bool,
-                     freeze_geometry: bool, layout: PhongLayout | None = None):
+                     freeze_geometry: bool, layout: PhongLayout | None = None,
+                     free: torch.Tensor | None = None):
     """An LM ``step(state, lam) -> (dx, grad_norm, pred_decrease)`` that
     solves the damped normal equations by vertex-block Schur elimination;
     ``dx`` is in ``phong_retract``'s full layout. Without a ``layout`` one
-    is built once, here."""
+    is built once, here; ``free``: the stage's ``phong.free_vector``
+    (without one, built at each call). The factors are applied by
+    triangular solves (``lm.cholesky_apply``, JAX's ``cho_solve``): no
+    step reads the device from the host, so a captured loop can run it."""
     layout = layout if layout is not None else build_phong_layout(problem)
 
     def step(state: PhongState, lam):
         K, J = state.poses.shape[0], state.points.shape[0]
         Hv, gv, W, Hr, gr = phong_schur_blocks(problem, state, use_light, directional,
-                                               freeze_geometry, layout=layout)
+                                               freeze_geometry, layout=layout, free=free)
         Dr = Hr.shape[0]
         # LM damping on the block diagonals, then unit-pin zero diagonals
         dv = torch.diagonal(Hv, dim1=-2, dim2=-1)
@@ -186,13 +187,13 @@ def phong_schur_step(problem: PhongBAProblem, use_light: bool, directional: bool
 
         # eliminate the vertex blocks: X = Av^{-1} [W | gv] (Av is SPD by
         # construction; a failed factorization gives NaN, a rejected step)
-        X = torch.cholesky_solve(torch.cat([W, gv[:, :, None]], dim=-1),
-                                 lm._cholesky_or_nan(Av))
+        X = lm.cholesky_apply(lm._cholesky_or_nan(Av), torch.cat([W, gv[:, :, None]], dim=-1),
+                              columns=True)
         Xw, xg = X[:, :, :-1], X[:, :, -1]
         Wf = W.reshape(6 * J, Dr)
         S = Ar - Wf.T @ Xw.reshape(6 * J, Dr)
         g_s = gr - Wf.T @ xg.reshape(-1)
-        dxr = torch.cholesky_solve(-g_s[:, None], lm._cholesky_or_nan(S))[:, 0]
+        dxr = lm.cholesky_apply(lm._cholesky_or_nan(S), -g_s)
         dxv = -(xg + (Xw @ dxr[:, None])[..., 0])
 
         # predicted decrease of the undamped model
@@ -214,7 +215,7 @@ def solve_phong_ba_schur(problem: PhongBAProblem, state0: PhongState,
                          layout: PhongLayout | None = None):
     """One LM solve by vertex-Schur elimination: the minimum of
     ``phong.solve_phong_ba``, past the dense solver's size."""
-    step = phong_schur_step(problem, use_light, directional, freeze_geometry, layout=layout)
-    return lm.lm_solve(state0, config, lambda s: phong_cost(problem, s, use_light, directional),
-                       step, lambda s, dx: phong_retract(problem, s, dx, use_light, directional,
-                                                         freeze_geometry))
+    from ceres_slam_tpu_torch.solver import phong
+
+    return phong.solve_phong_ba(problem, state0, config, use_light, directional,
+                                freeze_geometry, linear_solver="schur", layout=layout)

@@ -99,8 +99,14 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            J=1,000 vertices, ~31k observations, 3 materials, a point light)
            --multistage in float64 and float32 (auto picks the vertex-Schur
            solver), phong60 --dirlight (directional light) and phong30
-           --window 5, each stage's final cost and the ATE against the JAX
-           figures; LM iterations/s with the card's name and power limit
+           --window 5, each with each stage's LM loop in its conditional
+           WHILE node and on the host in turns (--lm-loop device, host; the
+           next case host, device): the same LM iterations per stage and
+           byte-identical _poses.csv, _map.csv and _lights.csv in both
+           forms, one capture a stage restarted for every later window
+           (phong30: 1 capture, 25 restarts), each stage's final cost and
+           the ATE against the JAX figures; LM iterations/s of both forms
+           with the card's name and power limit
   graph    the FactorGraph API (solver/graph.py) in float64: triangle200
            built from the VO initial guess (every state a pose, pose 0
            fixed; every initialized landmark a point; every observation a
@@ -170,8 +176,13 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            copies a solve, which must not grow with the iterations;
            a trace of one photometric rate
            solve (device busy share, launches per LM iteration); and, after
-           the phong phase, a trace of 5 LM iterations of phong200's joint
-           stage (float64, vertex-Schur), and after the blowup phase a trace
+           the phong phase, phong200's joint stage (float64, vertex-Schur)
+           in both LM loop forms: 5 LM iterations of the host loop traced,
+           and the WHILE node restarted for 5 and 15 LM iterations (host
+           launches, graph launches, syncs and copies a solve, which must
+           not grow with the iterations; the node's device us per LM
+           iteration by CUDA events; the device busy share of both forms;
+           unprofiled walls in turns), and after the blowup phase a trace
            of 10 blow-up solves, and after the batch phase (the slice phase)
            a trace of one step of the grid (kitti1100's two flagship passes),
            window 20 of its chains solved together, with the trust-region
@@ -1198,7 +1209,7 @@ def phase_profile(torch, jobs, dense: bool, phong: bool, data, smi, blowup: bool
         cfg = SolveConfig(max_iters=20, ftol=0.0, gtol=0.0, run_full_budget=True)
         _profile_solve(torch, lambda: photometric.solve_photometric(problem, state0, cfg))
     if phong:
-        _profile_phong(torch, data)
+        _profile_phong(torch, data, smi)
     if grid:
         _profile_grid_step(torch, data, smi)
     if flagship:
@@ -1213,11 +1224,20 @@ def phase_profile(torch, jobs, dense: bool, phong: bool, data, smi, blowup: bool
             f"{t['syncs'] / 10:g} syncs, {t['copies'] / 10:g} copies")
 
 
-def _profile_phong(torch, data):
-    """5 LM iterations (run_full_budget) of phong200's joint stage, float64,
-    vertex-Schur, from the VO initial guess, under the profiler."""
+def _profile_phong(torch, data, smi):
+    """phong200's joint stage (float64, vertex-Schur, from the VO initial
+    guess, run_full_budget) in both LM loop forms. The host loop: 5 LM
+    iterations under the profiler (wall, device busy, kernels, launches,
+    syncs, copies). The WHILE node, captured by a first solve in an
+    LMGraph and restarted after: solves of 5 and of 15 LM iterations under
+    the profiler, whose host launches, graph launches, syncs and copies
+    must be equal (none per LM iteration); the node's device us per LM
+    iteration from CUDA events around its launch (15 less 5, over 10;
+    the profiler sees a node's first pass only), and the device busy
+    share with the node's later passes counted at that rate; the walls of
+    unprofiled solves of 15 LM iterations in both forms, in turns."""
     from ceres_slam_tpu_torch.problems.dataset_phong import DatasetProblemPhong
-    from ceres_slam_tpu_torch.solver import phong, phong_schur
+    from ceres_slam_tpu_torch.solver import lm, phong, phong_schur
     from ceres_slam_tpu_torch.solver.lm import SolveConfig
 
     ds = DatasetProblemPhong.read_csv(os.path.join(data, "phong200.csv"))
@@ -1225,18 +1245,77 @@ def _profile_phong(torch, data):
     problem, state, _ = ds.build_window_problem(0, ds.num_states,
                                                 *ds._window_budget(ds.num_states))
     layout = phong_schur.build_phong_layout(problem)
-    cfg = SolveConfig(max_iters=5, ftol=0.0, gtol=0.0, run_full_budget=True)
+    graphs = {n: lm.LMGraph() for n in (5, 15)}
 
-    def solve():
-        return phong.solve_phong_ba(problem, state, cfg, linear_solver="schur", layout=layout)
+    def solve(n, loop):
+        cfg = SolveConfig(max_iters=n, ftol=0.0, gtol=0.0, run_full_budget=True)
+        return phong.solve_phong_ba(problem, state, cfg, linear_solver="schur", layout=layout,
+                                    lm_loop=loop, graph=graphs[n] if loop == "device" else None)
 
-    solve()
-    t = _trace(torch, solve)
-    log(f"[profile] phong200 joint stage float64, 5 LM iterations (vertex-Schur): wall "
-        f"{t['wall_us'] / 5e3:.2f} ms per iteration (profiled), device busy "
+    solve(5, "host")
+    t = _trace(torch, lambda: solve(5, "host"))
+    log(f"[profile] phong200 joint stage float64, 5 LM iterations (vertex-Schur), LM loop host "
+        f"({smi}): wall {t['wall_us'] / 5e3:.2f} ms per iteration (profiled), device busy "
         f"{t['device_us'] / 5e3:.2f} ms ({100 * t['device_us'] / t['wall_us']:.2f}%), "
         f"{t['kernels'] / 5:g} device kernels, {t['launches'] / 5:g} launches, "
-        f"{t['syncs'] / 5:g} syncs, {t['copies'] / 5:g} copies per LM iteration")
+        f"{t['syncs'] / 5:g} syncs, {t['copies'] / 5:g} copies per LM iteration; per solve "
+        f"{t['launches']:g} launches, {t['graph_launches']:g} graph launches, {t['syncs']:g} "
+        f"syncs, {t['copies']:g} copies")
+    res = {}
+    for n in (5, 15):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, summ = solve(n, "device")  # the capture
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        if summ.iterations != n:
+            fail(f"phong200 LM node, run_full_budget {n}: {summ.iterations} LM iterations")
+        tr = _trace(torch, lambda: solve(n, "device"))
+        _, lp, node = next(iter(graphs[n].loops.values()))
+        times = []
+        for _ in range(6):
+            lp.restart()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            node.launch()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        res[n] = (statistics.median(times[1:]), tr, first)
+    per_it = (res[15][0] - res[5][0]) / 10 * 1e3
+    keys = ("launches", "graph_launches", "syncs", "copies")
+    grow = {k: res[15][1][k] - res[5][1][k] for k in keys}
+    walls = {"host": [], "device": []}
+    for _ in range(3):
+        for loop in ("device", "host", "host", "device"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solve(15, loop)
+            torch.cuda.synchronize()
+            walls[loop].append(time.perf_counter() - t0)
+    for g in graphs.values():
+        g.close()
+    tr = res[5][1]
+    log(f"[profile] phong200 joint stage float64 (vertex-Schur), LM loop in its WHILE node "
+        f"({smi}): node {res[5][0]:.3f} ms for 5 LM iterations, {res[15][0]:.3f} ms for 15: "
+        f"{per_it:.1f} us of device time per LM iteration (CUDA events); per solve (profiled, "
+        f"restarted) 5 / 15 iterations: " + ", ".join(
+            f"{res[5][1][k]:g} / {res[15][1][k]:g} {k.replace('_', ' ')}" for k in keys)
+        + "; per LM iteration " + ", ".join(f"{grow[k] / 10:g} {k.replace('_', ' ')}"
+                                            for k in keys)
+        + f"; wall of the 5-iteration solve {tr['wall_us'] / 1e3:.2f} ms (profiled), device "
+        f"busy {tr['device_us'] / 1e3:.2f} ms by the profiler "
+        f"({100 * tr['device_us'] / tr['wall_us']:.2f}%), the node {res[5][0]:.2f} ms by CUDA "
+        f"events ({100e3 * res[5][0] / tr['wall_us']:.2f}%); first solve with its capture "
+        f"{res[5][2]:.3f} / {res[15][2]:.3f} s")
+    log(f"[profile] phong200 joint stage float64, 15 LM iterations, unprofiled walls in turns "
+        f"(median of 6, min-max): " + "; ".join(
+            f"LM loop {k} {statistics.median(v) * 1e3:.2f} ms ({min(v) * 1e3:.2f}-"
+            f"{max(v) * 1e3:.2f}), {15 / statistics.median(v):.2f} LM iterations/s"
+            for k, v in walls.items()))
+    if any(grow.values()):
+        fail(f"phong200 LM node: host work grows with the LM iterations: {grow} for 10 more")
 
 
 def _make_sims(data):
@@ -1942,46 +2021,80 @@ PHONG_RUNS = (("phong200 float64", "phong200.csv", ["--multistage"], "float64"),
 
 
 def phase_phong(data, smi):
-    """dataset_ba_phong on the card: each stage's final cost and the ATE
-    against the JAX figures, and LM iterations per second."""
-    import numpy as np
-
+    """dataset_ba_phong on the card, every case with each stage's LM loop in
+    its WHILE node and on the host, in turns (device, host, device; the
+    next case host, device, host): the same LM iterations per stage and
+    byte-identical _poses.csv, _map.csv and _lights.csv in every run; one
+    capture a stage, restarted for every later window, in each run of the
+    node's form; each stage's final cost and the ATE against the JAX
+    figures; LM iterations per second of every run."""
     from ceres_slam_tpu_torch.apps import dataset_ba_phong
-    from ceres_slam_tpu_torch.utils import csvio, metrics
 
     _make_phong_sims(data)
-    for label, name, argv, dtype in PHONG_RUNS:
+    for i, (label, name, argv, dtype) in enumerate(PHONG_RUNS):
         path = os.path.join(data, name)
-        stats = dataset_ba_phong.main([path, *argv, "--dtype", dtype, "--device", "cuda"])
-        for out in (stats["poses"], stats["map"], stats["lights"]):
-            if not os.path.exists(out):
-                fail(f"{label}: {out} was not written")
-        poses = csvio.read_poses_csv(stats["poses"])
-        gt = csvio.read_poses_csv(path.replace("_f32", "").rsplit(".", 1)[0] + "_gt_poses.csv")
-        if poses.shape != gt.shape or not np.all(np.isfinite(poses)):
-            fail(f"{label}: poses not finite or of shape {gt.shape}")
-        ate = metrics.ate_translation(poses, gt)
-        ref_costs, ref_ate = JAX_PHONG[label]
-        rtol, ate_atol = PHONG_BOUNDS[label]
-        stages = stats["stages"]
-        if label == "phong30 window5":
-            if len(stages) != PHONG_WINDOWS:
-                fail(f"{label}: {len(stages)} window solves, not {PHONG_WINDOWS}")
-            stages = stages[-1:]
-        costs = [st["final_cost"] for st in stages]
-        devs = [abs(c - r) / r for c, r in zip(costs, ref_costs)]
-        log(f"[phong] {label}: {stats['observations']} observations, stages (iterations, final "
-            f"cost, JAX's) " + ", ".join(
-                f"({st['iterations']}, {c:.9e}, {r:.9e}, {d:.2e} off)"
-                for st, c, r, d in zip(stages, costs, ref_costs, devs))
-            + f"; ATE {ate:.6f} m (JAX {ref_ate:.6f}); bounds rtol {rtol:g}, ATE +-{ate_atol:g} m")
-        log(f"[phong] {label} on {smi}: {stats['lm_iterations']} LM iterations in "
-            f"{stats['solve_s']:.3f} s of solve = {stats['it_s']:.2f} LM iterations/s; load "
-            f"{stats['load_s']:.2f} s, initial guess {stats['init_s']:.2f} s, total "
-            f"{stats['total_s']:.2f} s")
-        if len(costs) != len(ref_costs) or max(devs) > rtol or abs(ate - ref_ate) > ate_atol:
-            fail(f"{label}: costs {costs} / ATE {ate:.6f} outside the bounds of JAX's "
-                 f"{ref_costs} / {ref_ate:.6f}")
+        keys = 3 if "--multistage" in argv else 1  # stages a window, each its own capture
+        first = None
+        for loop in ("device", "host", "device") if i % 2 == 0 else ("host", "device", "host"):
+            stats = dataset_ba_phong.main([path, *argv, "--dtype", dtype, "--device", "cuda",
+                                           "--lm-loop", loop])
+            _check_phong(label, path, stats, loop, smi)
+            run = ([st["iterations"] for st in stats["stages"]],
+                   [open(stats[k], "rb").read() for k in ("poses", "map", "lights")])
+            first = first or run
+            if run[0] != first[0]:
+                fail(f"{label}: LM iterations per stage {run[0]} with the LM loop {loop}, "
+                     f"{first[0]} in the first run")
+            for k, a, b in zip(("poses", "map", "lights"), run[1], first[1]):
+                if a != b:
+                    fail(f"{label}: the LM loop {loop} wrote other {k} bytes than the first run")
+            got = (stats["lm_graph_captures"], stats["lm_graph_restarts"])
+            want = (keys, len(stats["stages"]) - keys) if loop == "device" else (0, 0)
+            if got != want:
+                fail(f"{label}: LM loop {loop}: captures and restarts {got}, not {want}")
+        log(f"[phong] {label}: the node and the host loop agree in turns: {sum(first[0])} LM "
+            f"iterations, byte-identical poses, map and lights; {keys} capture(s) and "
+            f"{len(first[0]) - keys} restarts a node run (a capture a stage, restarted for "
+            "every later window)")
+
+
+def _check_phong(label, path, stats, loop, smi):
+    """One dataset_ba_phong run's outputs: the files written, finite poses,
+    each stage's final cost and the ATE within PHONG_BOUNDS of JAX_PHONG;
+    logs the LM iterations per second."""
+    import numpy as np
+
+    from ceres_slam_tpu_torch.utils import csvio, metrics
+
+    for out in (stats["poses"], stats["map"], stats["lights"]):
+        if not os.path.exists(out):
+            fail(f"{label}: {out} was not written")
+    poses = csvio.read_poses_csv(stats["poses"])
+    gt = csvio.read_poses_csv(path.replace("_f32", "").rsplit(".", 1)[0] + "_gt_poses.csv")
+    if poses.shape != gt.shape or not np.all(np.isfinite(poses)):
+        fail(f"{label}: poses not finite or of shape {gt.shape}")
+    ate = metrics.ate_translation(poses, gt)
+    ref_costs, ref_ate = JAX_PHONG[label]
+    rtol, ate_atol = PHONG_BOUNDS[label]
+    stages = stats["stages"]
+    if label == "phong30 window5":
+        if len(stages) != PHONG_WINDOWS:
+            fail(f"{label}: {len(stages)} window solves, not {PHONG_WINDOWS}")
+        stages = stages[-1:]
+    costs = [st["final_cost"] for st in stages]
+    devs = [abs(c - r) / r for c, r in zip(costs, ref_costs)]
+    log(f"[phong] {label}, LM loop {loop}: {stats['observations']} observations, stages "
+        f"(iterations, final cost, JAX's) " + ", ".join(
+            f"({st['iterations']}, {c:.9e}, {r:.9e}, {d:.2e} off)"
+            for st, c, r, d in zip(stages, costs, ref_costs, devs))
+        + f"; ATE {ate:.6f} m (JAX {ref_ate:.6f}); bounds rtol {rtol:g}, ATE +-{ate_atol:g} m")
+    log(f"[phong] {label}, LM loop {loop}, on {smi}: {stats['lm_iterations']} LM iterations in "
+        f"{stats['solve_s']:.3f} s of solve = {stats['it_s']:.2f} LM iterations/s; load "
+        f"{stats['load_s']:.2f} s, initial guess {stats['init_s']:.2f} s, total "
+        f"{stats['total_s']:.2f} s")
+    if len(costs) != len(ref_costs) or max(devs) > rtol or abs(ate - ref_ate) > ate_atol:
+        fail(f"{label}: costs {costs} / ATE {ate:.6f} outside the bounds of JAX's "
+             f"{ref_costs} / {ref_ate:.6f}")
 
 
 def _run_dense(label, argv, device, k4):

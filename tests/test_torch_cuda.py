@@ -1138,3 +1138,108 @@ def test_nested_while_needs_cuda_12_4(monkeypatch):
     loop = graph_loop.DeviceWhile(body, pred)
     assert loop.run() == 1 and loop.inner_iterations == [0]
     loop.close()
+
+
+# The Phong BA LM loop in a WHILE node (solver/phong.py, solver/phong_schur.py):
+# each stage one node, the host loop's bits, no host work per LM iteration,
+# and a later window of a pass restarting the capture of the first.
+
+def _phong_pass(tmp_path, device, solver, dtype="float64"):
+    """The 12-state Phong sim's problems: the full batch (vertex-Schur) or
+    windows 0 and 3 of its ``--window 5`` pass (dense), from the VO initial
+    guess, with the pass's table widths."""
+    from ceres_slam_tpu_torch.problems.dataset_phong import DatasetProblemPhong
+    from ceres_slam_tpu_torch.utils import sim
+
+    path = str(tmp_path / "phong12.csv")
+    if not (tmp_path / "phong12.csv").exists():
+        sim.write_phong_track_csv(sim.generate_phong(num_states=12, num_points=200, seed=7), path)
+    ds = DatasetProblemPhong.read_csv(path)
+    ds.device, ds.dtype = device, dtype
+    ds.compute_initial_guess()
+    window = ds.num_states if solver == "schur" else 5
+    budget = ds._window_budget(window)
+    widths = ds._table_widths(window)
+    starts = [0] if solver == "schur" else [0, 3]
+    return [ds.build_window_problem(k1, k1 + window, *budget)[:2] for k1 in starts], widths
+
+
+def _same_solve(a, b):
+    (sa, ma), (sb, mb) = a, b
+    for x, y in zip(ma, mb):
+        np.testing.assert_array_equal(x, y)
+    for x, y in zip(sa, sb):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("solver", ["schur", "dense"])
+def test_phong_node_equals_host_loop(tmp_path, solver, dtype):
+    """``solve_phong_staged`` (3 stages) with each stage's LM loop in a WHILE
+    node against the host loop, on phong12: the same iterations, summaries
+    (the history included) and state bit for bit; one capture a stage. A
+    second window of the pass through the same ``LMGraph`` restarts the
+    three captures (no new one) and again gives the host loop's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ceres_slam_tpu_torch.solver import phong
+
+    problems, widths = _phong_pass(tmp_path, "cuda", solver, dtype)
+    if solver == "schur":
+        problems = problems * 2  # the restart on the same problem
+    cfg = lm.SolveConfig(max_iters=30, ftol=1e-8, record_history=True)
+    graph, stats = lm.LMGraph(), lm.GRAPH_STATS
+    for i, (problem, state) in enumerate(problems):
+        before = (stats["captures"], stats["restarts"])
+        runs = {loop: phong.solve_phong_staged(
+            problem, state, cfg, multistage=True, linear_solver=solver, lm_loop=loop,
+            graph=graph if loop == "device" else None, widths=widths)
+            for loop in ("host", "device")}
+        torch.cuda.synchronize()
+        assert (stats["captures"] - before[0], stats["restarts"] - before[1]) == (
+            (3, 0) if i == 0 else (0, 3))
+        (sh, mh), (sd, md) = runs["host"], runs["device"]
+        assert len(mh) == len(md) == 3 and all(m.iterations >= 1 for m in mh)
+        for a, b in zip(md, mh):
+            _same_solve((sd, a), (sh, b))
+    graph.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["schur", "dense"])
+def test_phong_node_makes_no_host_work_per_iteration(tmp_path, solver):
+    """A restarted Phong joint-stage LM loop in its WHILE node under
+    torch.profiler with 3 and with 12 LM iterations (run_full_budget): the
+    same host launches, syncs and copies, so none per LM iteration."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ceres_slam_tpu_torch.solver import phong
+
+    [(problem, state), *_], widths = _phong_pass(tmp_path, "cuda", solver)
+    tables = phong.solve_tables(problem, state, solver, widths)
+    kw = {"layout" if solver == "schur" else "tables": tables}
+    counts = {}
+    for n in (3, 12):
+        cfg = lm.SolveConfig(max_iters=n, run_full_budget=True)
+        graph = lm.LMGraph()
+
+        def solve():
+            return phong.solve_phong_ba(problem, state, cfg, linear_solver=solver, graph=graph,
+                                        **kw)
+
+        solve()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            _, summ = solve()
+            torch.cuda.synchronize()
+        graph.close()
+        assert summ.iterations == n
+        host = [e.name for e in prof.events() if e.device_type != DeviceType.CUDA]
+        counts[n] = (sum(x.startswith("cudaLaunchKernel") for x in host),
+                     sum("Synchronize" in x for x in host),
+                     sum(x.startswith("cudaMemcpy") for x in host))
+    assert counts[3] == counts[12], counts
