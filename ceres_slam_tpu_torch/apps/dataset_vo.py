@@ -17,9 +17,12 @@ device --cg-loop device``, the default there); ``--lm-loop host`` runs
 the LM loop on the host around the CG loop's node, ``--cg-loop host`` the
 CG loop on the host too (it needs ``--lm-loop host``, which it implies
 when ``--lm-loop`` is not given; ``--lm-loop device --cg-loop host``
-raises). On the CPU both loops run on the host. Every form writes the
-same bytes. The switches set the Schur-PCG solve's loops only; another
-solver refuses them.
+raises). The dense solver (``--linear-solver dense``, and ``auto`` at
+window scale) runs its LM loop as one WHILE node on the card too, captured
+once for the pass and restarted for every later window (``--lm-loop
+device``, the default there; ``--lm-loop host`` iterates it on the host).
+On the CPU every loop runs on the host. Every form writes the same bytes.
+The window solver refuses both switches, the dense solver ``--cg-loop``.
 
 The float32 tolerance is chosen by the window count (the JAX app passes
 the state count; ROADMAP F5). Full batch is one window either way.
@@ -43,8 +46,8 @@ def build_parser():
                    help="auto selects by problem size: dense at window scale, "
                         "explicit Schur to 128 poses, Schur-PCG beyond")
     p.add_argument("--lm-loop", choices=["device", "host"], default=None,
-                   help="Schur-PCG: the LM loop as a WHILE node on the card (the default "
-                        "there) or on the host")
+                   help="Schur-PCG and dense: the LM loop as a WHILE node on the card (the "
+                        "default there) or on the host")
     p.add_argument("--cg-loop", choices=["device", "host"], default=None,
                    help="Schur-PCG: the CG loop as a WHILE node on the card (the default "
                         "there; nested in the LM loop's node under --lm-loop device) or on "

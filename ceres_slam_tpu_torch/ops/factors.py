@@ -25,6 +25,21 @@ def inv_sqrt_psd(M: torch.Tensor) -> torch.Tensor:
     return (V * (1.0 / torch.sqrt(w))[..., None, :]) @ V.transpose(-1, -2)
 
 
+def chol_whiten(C: torch.Tensor) -> torch.Tensor:
+    """A whitening of symmetric positive definite ``C [..., d, d]`` with no
+    host read, so a captured loop can make it: ``S = L^-1`` with ``C = L
+    L^T`` (``cholesky_ex``, and ``L^-1`` by a triangular solve against the
+    identity); all NaN where the factorization fails. ``S^T S = C^-1``, as
+    with ``inv_sqrt_psd``, so a factor whitened by either has the same cost
+    and normal equations; ``S`` itself is another matrix (lower triangular,
+    not the symmetric square root of the JAX package's ``inv_sqrt_psd``).
+    ``torch.linalg.eigh`` checks its result on the host on CUDA."""
+    L, info = torch.linalg.cholesky_ex(C)
+    eye = torch.eye(C.shape[-1], dtype=C.dtype, device=C.device).expand_as(C)
+    S = torch.linalg.solve_triangular(L, eye, upper=False)
+    return torch.where((info == 0)[..., None, None], S, torch.full_like(S, math.nan))
+
+
 def _whiten(S: torch.Tensor, r: torch.Tensor, *jacs):
     return (lie._mv(S, r),) + tuple(S @ J for J in jacs)
 

@@ -251,6 +251,15 @@ class DatasetProblem:
                 pose = max(pose, max(s.size for s in self._state_obs[k1: k1 + window]))
         return pair, pose
 
+    def _dense_widths(self, window: int):
+        """Widths ``(by pose, by landmark, by pair)`` of the dense solve's
+        gather tables (``dense.block_tables``) shared by every window: the
+        most observations of one pose, of one landmark and of one (pose,
+        landmark) pair in any window. A pass pads to them, so every window
+        has one shape and the LM loop one capture."""
+        pair, pose = self._table_widths(window)
+        return pose, self._window_budget(window)[2], pair
+
     def build_window_problem(self, k1: int, k2: int, n_obs_pad: int, n_pts_pad: int,
                              prior: dense.PosePrior | None = None,
                              sun: dense.SunObs | None = None, sun_huber: float = 0.0,
@@ -358,9 +367,13 @@ class DatasetProblem:
         pass (a ``window.WindowGraph``). ``cg_loop``, ``lm_loop``: the
         Schur-PCG solve's loops (``pcg.solve_ba_pcg``'s ``loop`` and
         ``lm_loop``; on the card both default to ``device``, the LM loop a
-        WHILE node with the CG loop's nested in it, captured once for the
-        pass in an ``lm.LMGraph``); another solver takes neither. Returns
-        the per-window ``SolveSummary`` list."""
+        WHILE node with the CG loop's nested in it); ``lm_loop`` also sets
+        the dense solve's LM loop (``dense.solve_ba``: a WHILE node on the
+        card by default, its gather tables at the pass's widths,
+        ``_dense_widths``). Either solver's LM loop on the card is captured
+        once for the pass in an ``lm.LMGraph`` and restarted for every
+        later window. The window solver takes neither switch, the dense one
+        no ``cg_loop``. Returns the per-window ``SolveSummary`` list."""
         from ceres_slam_tpu_torch.solver import pcg
 
         config = config or lm.SolveConfig(max_iters=100)
@@ -372,9 +385,12 @@ class DatasetProblem:
             solver = self.auto_linear_solver(window, n_pts_pad)
         if solver not in ("dense", "window", "pcg"):
             raise ValueError(f"unknown linear solver: {linear_solver!r}")
-        if solver != "pcg" and (cg_loop or lm_loop):
-            raise ValueError(f"cg_loop and lm_loop set the Schur-PCG solve's loops; the "
-                             f"{solver} solver takes neither")
+        if solver == "window" and (cg_loop or lm_loop):
+            raise ValueError("cg_loop and lm_loop set the Schur-PCG and dense solves' loops; "
+                             "the window solver takes neither")
+        if solver == "dense" and cg_loop:
+            raise ValueError("cg_loop sets the Schur-PCG solve's CG loop; the dense solver "
+                             "takes none")
         summaries = []
         graph = None
         if solver == "window":
@@ -383,6 +399,11 @@ class DatasetProblem:
                 graph = window_mod.WindowGraph()
         elif solver == "pcg":
             cg_loop, lm_loop = pcg.resolve_loops(self._device, cg_loop, lm_loop)
+            if lm_loop == "device":
+                graph = lm.LMGraph()
+        else:
+            widths = self._dense_widths(window)
+            lm_loop = lm.resolve_loop(self._device, lm_loop)
             if lm_loop == "device":
                 graph = lm.LMGraph()
         try:
@@ -402,7 +423,8 @@ class DatasetProblem:
                                                     lm_loop=lm_loop, graph=graph)
                 else:
                     problem = dense.to_device(problem, self._device)
-                    sol, summary = dense.solve_ba(problem, state, config)
+                    sol, summary = dense.solve_ba(problem, state, config, lm_loop=lm_loop,
+                                                  graph=graph, widths=widths)
                 self.absorb_window_solution(k1, k2, sol, slots)
                 summaries.append(summary)
                 self.reset_points()

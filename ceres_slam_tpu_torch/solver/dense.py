@@ -10,21 +10,32 @@ invalid row may hold an uninitialized landmark at the origin seen from a
 pose at the origin (z = 0), whose residual is not finite, and eagerly
 ``NaN * 0`` is NaN (ROADMAP F9, F15). Sums by pose, landmark or pair go
 through a gather table and a reduction over a fixed axis
-(``segment_sum``), so they are bit-reproducible on the card too (F14).
-The dense solve (``solve_ba``, LM or Powell's dogleg) is for windows and
-small batches; ``solver/schur.py`` eliminates the landmarks and
-``solver/pcg.py`` covers full-batch BA. The tangent covariance of a pose is
-a Cholesky solve against unit columns (``_marginal_block``).
+(``segment_sum``, or ``gather_sum`` through a solve's ``BlockTables``), so
+they are bit-reproducible on the card too (F14). The dense solve
+(``solve_ba``, LM or Powell's dogleg) is for windows and small batches;
+``solver/schur.py`` eliminates the landmarks and ``solver/pcg.py`` covers
+full-batch BA. The tangent covariance of a pose is a Cholesky factor
+applied to unit columns (``_marginal_block``).
+
+On the card the LM solve runs its loop as one conditional WHILE node
+(``lm_minimize(lm_loop="device")``, JAX's ``lax.while_loop``): its body
+reads nothing on the host, because the gather tables (``block_tables``)
+and the sun and prior terms (``aux_terms``) are made once, before the
+loop, and ``dense_loop_inputs`` lists every tensor it reads, which a later
+solve of one shape copies into the captured ones (``lm.LMGraph``).
+``lm_loop="host"`` (the CPU's form) iterates the same body on the host:
+the same bits. The dogleg strategy is a host loop (``lm.dogleg_solve``).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ceres_slam_tpu_torch.models.stereo_camera import StereoCamera
-from ceres_slam_tpu_torch.ops import factors, lie
+from ceres_slam_tpu_torch.ops import factors, graph_loop, lie
 from ceres_slam_tpu_torch.solver import lm
 from ceres_slam_tpu_torch.solver import loss as loss_mod
 
@@ -246,6 +257,37 @@ def segment_sum(per_obs: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tenso
     return gather_sum(segment_table(idx, n), rows).reshape((n,) + per_obs.shape[1:])
 
 
+class BlockTables(NamedTuple):
+    """The gather tables of ``stereo_block_contrib``'s sums, over the valid
+    observations (``stereo_valid``) in increasing row order: by pose, by
+    landmark, and by (pose, landmark) pair (bin ``k J + j``). Row b lists
+    bin b's rows, padded with ``N``, which reads the zero row
+    ``gather_sum`` appends."""
+
+    pose: torch.Tensor  # [K, Dp]
+    point: torch.Tensor  # [J, Dl]
+    pair: torch.Tensor  # [K J, Dw]
+
+
+def block_tables(problem: StereoBAProblem, widths: tuple | None = None) -> BlockTables:
+    """The problem's ``BlockTables`` on its device, ``widths`` ``(pose,
+    landmark, pair)`` wide where given (a pass's: every window of it one
+    shape), else as wide as the largest bin. A host round trip: a solve
+    builds them before its loop, and under a capture this raises."""
+    from ceres_slam_tpu_torch.solver.window import gather_table
+
+    graph_loop.not_in_capture("building the dense gather tables", "dense.solve_ba")
+    st = problem.stereo
+    K, J = problem.fixed_pose_mask.shape[0], problem.point_valid.shape[0]
+    valid = stereo_valid(problem).cpu().numpy()
+    k = np.where(valid, st.pose_idx.cpu().numpy(), -1)
+    j = np.where(valid, st.point_idx.cpu().numpy(), -1)
+    ids = ((k, K), (j, J), (np.where(valid, k * J + j, -1), K * J))
+    widths = widths or (None,) * 3
+    return BlockTables(*(torch.as_tensor(gather_table(i, n, w)).to(st.uvd.device)
+                         for (i, n), w in zip(ids, widths)))
+
+
 def stereo_valid(problem: StereoBAProblem) -> torch.Tensor:
     """``[N]`` bool: the observation is valid and its landmark initialized."""
     return problem.stereo.valid & problem.point_valid[problem.stereo.point_idx]
@@ -283,9 +325,11 @@ class BlockNormalEq(NamedTuple):
 
 
 def stereo_block_contrib(camera: StereoCamera, stereo: StereoObs, point_valid: torch.Tensor,
-                         state: BAState) -> BlockNormalEq:
-    """Stereo-factor contribution in block form (fixed-order segment sums
-    by pose, by landmark and by (pose, landmark) pair)."""
+                         state: BAState, tables: BlockTables | None = None) -> BlockNormalEq:
+    """Stereo-factor contribution in block form (fixed-order sums by pose,
+    by landmark and by (pose, landmark) pair) through ``tables``
+    (``block_tables``, built before a loop), or through tables of every
+    row built here (``segment_table``, a host read) where none are given."""
     K, J = state.poses.shape[0], state.points.shape[0]
     r, J_pose, J_pt = factors.stereo_reprojection(
         camera, state.poses[stereo.pose_idx], state.points[stereo.point_idx], stereo.uvd,
@@ -295,34 +339,52 @@ def stereo_block_contrib(camera: StereoCamera, stereo: StereoObs, point_valid: t
     J_pose = torch.where(valid[:, None, None], J_pose, torch.zeros_like(J_pose))
     J_pt = torch.where(valid[:, None, None], J_pt, torch.zeros_like(J_pt))
     JpT, JlT = J_pose.transpose(1, 2), J_pt.transpose(1, 2)
-    seg = segment_sum
+    if tables is None:
+        tables = BlockTables(segment_table(stereo.pose_idx, K),
+                             segment_table(stereo.point_idx, J),
+                             segment_table(stereo.pose_idx * J + stereo.point_idx, K * J))
+
+    def seg(x, t):
+        return gather_sum(t, x.reshape(x.shape[0], -1)).reshape((t.shape[0],) + x.shape[1:])
+
     return BlockNormalEq(
-        Hpp=seg(JpT @ J_pose, stereo.pose_idx, K),
-        Hll=seg(JlT @ J_pt, stereo.point_idx, J),
-        W=seg(JpT @ J_pt, stereo.pose_idx * J + stereo.point_idx, K * J).reshape(K, J, 6, 3),
-        gp=seg(lie._mv(JpT, r), stereo.pose_idx, K),
-        gl=seg(lie._mv(JlT, r), stereo.point_idx, J),
+        Hpp=seg(JpT @ J_pose, tables.pose),
+        Hll=seg(JlT @ J_pt, tables.point),
+        W=seg(JpT @ J_pt, tables.pair).reshape(K, J, 6, 3),
+        gp=seg(lie._mv(JpT, r), tables.pose),
+        gl=seg(lie._mv(JlT, r), tables.point),
     )
 
 
 def blocks_to_dense(blocks: BlockNormalEq):
     """The dense tangent ``(H [D, D], g [D])`` of the block system, pose k at
-    rows ``6k..6k+5`` and landmark j at ``6K + 3j..6K + 3j + 2``."""
+    rows ``6k..6k+5`` and landmark j at ``6K + 3j..6K + 3j + 2``. The
+    diagonal blocks are written through a view of the diagonal blocks of
+    ``H``: a fixed number of copies, whatever K and J."""
     K, J = blocks.Hpp.shape[0], blocks.Hll.shape[0]
     H = torch.zeros((6 * K + 3 * J, 6 * K + 3 * J), dtype=blocks.Hpp.dtype,
                     device=blocks.Hpp.device)
-    H[: 6 * K, : 6 * K] = torch.block_diag(*blocks.Hpp)
-    H[6 * K:, 6 * K:] = torch.block_diag(*blocks.Hll)
+    torch.diagonal(H[: 6 * K, : 6 * K].view(K, 6, K, 6), dim1=0, dim2=2).copy_(
+        blocks.Hpp.permute(1, 2, 0))
+    torch.diagonal(H[6 * K:, 6 * K:].unflatten(0, (J, 3)).unflatten(2, (J, 3)),
+                   dim1=0, dim2=2).copy_(blocks.Hll.permute(1, 2, 0))
     W = blocks.W.permute(0, 2, 1, 3).reshape(6 * K, 3 * J)
     H[: 6 * K, 6 * K:] = W
     H[6 * K:, : 6 * K] = W.T
     return H, torch.cat([blocks.gp.reshape(-1), blocks.gl.reshape(-1)])
 
 
-def ba_block_normal_equations(problem: StereoBAProblem, state: BAState) -> BlockNormalEq:
-    """Full block-sparse Gauss-Newton system (stereo + sun + prior)."""
-    blocks = stereo_block_contrib(problem.camera, problem.stereo, problem.point_valid, state)
-    Hpp_aux, gp_aux = aux_pose_blocks(problem, state)
+def ba_block_normal_equations(problem: StereoBAProblem, state: BAState,
+                              tables: BlockTables | None = None,
+                              terms: AuxTerms | None = None) -> BlockNormalEq:
+    """Full block-sparse Gauss-Newton system (stereo + sun + prior). With
+    ``tables`` (``block_tables``) and ``terms`` (``aux_terms``), both made
+    once before a loop, it never reads the device from the host (the
+    terms' pose blocks are gauge-masked: a fixed pose's are zeros)."""
+    blocks = stereo_block_contrib(problem.camera, problem.stereo, problem.point_valid, state,
+                                  tables)
+    Hpp_aux, gp_aux = (aux_pose_blocks(problem, state) if terms is None
+                       else aux_blocks(terms, state))
     return blocks._replace(Hpp=blocks.Hpp + Hpp_aux, gp=blocks.gp + gp_aux)
 
 
@@ -330,50 +392,118 @@ def apply_gauge_mask(problem: StereoBAProblem, H: torch.Tensor, g: torch.Tensor)
     """Constant-parameter masking (zero rows and columns of fixed poses and
     invalid landmarks) and a unit diagonal wherever the diagonal is zero —
     the tangent equivalent of ``SetParameterBlockConstant``."""
-    free = torch.cat([(~problem.fixed_pose_mask).repeat_interleave(6),
-                      problem.point_valid.repeat_interleave(3)])
+    free = torch.cat([(~problem.fixed_pose_mask)[:, None].expand(-1, 6).reshape(-1),
+                      problem.point_valid[:, None].expand(-1, 3).reshape(-1)])
     H = torch.where(free[:, None] & free[None, :], H, 0.0)
     diag = torch.diagonal(H)
     return H + torch.diag((diag == 0.0).to(H.dtype)), torch.where(free, g, 0.0)
 
 
-def ba_normal_equations(problem: StereoBAProblem, state: BAState):
-    """The gauge-masked dense tangent normal equations ``(H, g)``."""
-    H, g = blocks_to_dense(ba_block_normal_equations(problem, state))
+def ba_normal_equations(problem: StereoBAProblem, state: BAState,
+                        tables: BlockTables | None = None, terms: AuxTerms | None = None):
+    """The gauge-masked dense tangent normal equations ``(H, g)``
+    (``tables``, ``terms``: ``ba_block_normal_equations``')."""
+    H, g = blocks_to_dense(ba_block_normal_equations(problem, state, tables, terms))
     return apply_gauge_mask(problem, H, g)
 
 
+def lm_functions(problem: StereoBAProblem, tables: BlockTables, terms: AuxTerms):
+    """The LM core's ``(cost_fn, step_fn, retract_fn)`` of the dense solve
+    over the solve's ``tables`` and ``terms``: none of them reads the device
+    from the host, so the device loop can capture them."""
+    def normal_eq(s):
+        return ba_normal_equations(problem, s, tables, terms)
+
+    def cost(s):
+        return ba_cost(problem, s, terms)
+
+    def retract(s, dx):
+        return _retract_state(problem, s, dx)
+
+    return cost, lm.dense_cholesky_step(normal_eq), retract
+
+
+def dense_loop_inputs(problem: StereoBAProblem, state0: BAState, terms: AuxTerms,
+                      tables: BlockTables) -> tuple:
+    """Every tensor the LM loop of the dense or Schur solve reads that can
+    differ between two solves of one shape: the observations, the gauge
+    and landmark masks, the sun and prior terms, the gather tables and the
+    initial state. A later solve of an ``lm.LMGraph`` copies them into the
+    captured ones."""
+    return (*lm.leaves(problem.stereo), problem.fixed_pose_mask, problem.point_valid,
+            *lm.leaves(terms), *tables, state0.poses, state0.points)
+
+
+def loop_key(problem: StereoBAProblem, solver: str) -> tuple:
+    """What the device LM loop's body holds as Python values (beside the
+    inputs' shapes): the linear solver, the camera and the prior's pose."""
+    return (solver, problem.camera, int(problem.prior.pose_idx))
+
+
+def minimize(problem: StereoBAProblem, state0: BAState, config: lm.SolveConfig, solver: str,
+             functions, lm_loop: str | None, graph: lm.LMGraph | None, widths: tuple | None):
+    """The LM solve of the dense (``solver="dense"``) or Schur solver:
+    ``functions(tables, terms)`` gives the LM core's functions over the
+    gather tables (``widths`` wide) and the sun and prior terms, both made
+    here, once, before the loop. ``lm_loop``, ``graph``: ``lm_minimize``'s."""
+    lm_loop = lm.resolve_loop(state0.poses.device, lm_loop)
+    if lm_loop == "host" and graph is not None:
+        raise ValueError("an LMGraph keeps the device LM loop: lm_loop='host' takes none")
+    tables = block_tables(problem, widths)
+    terms = aux_terms(problem)
+    if lm_loop == "host":
+        return lm.lm_solve(state0, config, *functions(tables, terms), loop="host")
+    state0 = lm.tree_map(torch.clone, state0)  # the loop's own: a restart copies into it
+    return lm.lm_solve(state0, config, *functions(tables, terms), loop="device", graph=graph,
+                       inputs=dense_loop_inputs(problem, state0, terms, tables),
+                       key=loop_key(problem, solver))
+
+
 def lm_minimize(problem: StereoBAProblem, state0: BAState, config: lm.SolveConfig,
-                normal_eq_fn=ba_normal_equations):
-    """LM with the dense damped Cholesky step of ``normal_eq_fn``."""
-    return lm.lm_solve(
-        state0, config, lambda s: ba_cost(problem, s),
-        lm.dense_cholesky_step(lambda s: normal_eq_fn(problem, s)),
-        lambda s, dx: _retract_state(problem, s, dx))
+                lm_loop: str | None = None, graph: lm.LMGraph | None = None,
+                widths: tuple | None = None):
+    """LM with the dense damped Cholesky step of the normal equations.
+    ``lm_loop``: ``"device"`` (the default on CUDA) runs the loop as one
+    WHILE node on the card (``lm.device_loop``), kept in ``graph`` (an
+    ``lm.LMGraph``) for the next solve of the same shape, which copies its
+    ``dense_loop_inputs`` into this one's tensors (they are overwritten)
+    and restarts it; ``"host"`` (the default elsewhere) iterates on the
+    host and takes no ``graph``. Both give the same bits. ``widths``: the
+    gather tables' (``block_tables``), a pass's."""
+    return minimize(problem, state0, config, "dense", lambda t, a: lm_functions(problem, t, a),
+                    lm_loop, graph, widths)
 
 
 def solve_ba(problem: StereoBAProblem, state0: BAState,
-             config: lm.SolveConfig = lm.SolveConfig(), strategy: str = "lm"):
+             config: lm.SolveConfig = lm.SolveConfig(), strategy: str = "lm",
+             lm_loop: str | None = None, graph: lm.LMGraph | None = None,
+             widths: tuple | None = None):
     """Minimize the BA cost on the dense system (``ceres::Solve`` with
     DENSE_SCHUR's role at window scale): ``strategy`` ``'lm'``
-    (Levenberg-Marquardt) or ``'dogleg'`` (Powell's dogleg, the reference's
-    ceres::DOGLEG). Returns ``(state, SolveSummary)``."""
+    (Levenberg-Marquardt; ``lm_loop``, ``graph``, ``widths``:
+    ``lm_minimize``'s) or ``'dogleg'`` (Powell's dogleg, the reference's
+    ceres::DOGLEG; a host loop, so ``lm_loop="device"`` raises). Returns
+    ``(state, SolveSummary)``."""
     if strategy == "dogleg":
+        if lm_loop == "device" or graph is not None:
+            raise ValueError("the dogleg strategy runs on the host (lm.dogleg_solve): it takes "
+                             "no device LM loop")
         return lm.dogleg_solve(state0, config, lambda s: ba_cost(problem, s),
                                lambda s: ba_normal_equations(problem, s),
                                lambda s, dx: _retract_state(problem, s, dx))
     if strategy != "lm":
         raise ValueError(f"unknown strategy: {strategy!r}")
-    return lm_minimize(problem, state0, config)
+    return lm_minimize(problem, state0, config, lm_loop=lm_loop, graph=graph, widths=widths)
 
 
 def _marginal_block(H: torch.Tensor, base: int, d: int = 6) -> torch.Tensor:
-    """``(H^-1)[base:base+d, base:base+d]`` by a Cholesky solve against the
-    ``d`` unit columns ``base..base+d-1``; all NaN when ``H`` is not
-    positive definite."""
+    """``(H^-1)[base:base+d, base:base+d]``: the Cholesky factor applied to
+    the ``d`` unit columns ``base..base+d-1`` by two triangular solves
+    (``lm.cholesky_apply``, which a captured loop can run); all NaN when
+    ``H`` is not positive definite."""
     E = torch.zeros((H.shape[0], d), dtype=H.dtype, device=H.device)
     E[base:base + d] = torch.eye(d, dtype=H.dtype, device=H.device)
-    return torch.cholesky_solve(E, lm._cholesky_or_nan(H))[base:base + d]
+    return lm.cholesky_apply(lm._cholesky_or_nan(H), E, columns=True)[base:base + d]
 
 
 def solve_ba_with_covariance(problem: StereoBAProblem, state0: BAState, pose_idx: int,

@@ -19,7 +19,9 @@ batched problem the solvers take, on ``device`` (default ``cuda``; pass
 Observations keep the order they were added in; ``build()`` pads them to a
 multiple of 32 with invalid rows at pose 0 and landmark 0. On CUDA the
 ``pcg`` solver builds the full-batch plan of that order and runs the
-kernels K2 and K3 (``solver/pcg.py``).
+kernels K2 and K3 (``solver/pcg.py``); every LM solve (``dense``,
+``schur``, ``pcg``) runs its loop as a conditional WHILE node on the card
+by default (``lm_loop``); the dogleg strategy is a host loop.
 """
 
 from __future__ import annotations
@@ -155,24 +157,26 @@ class FactorGraph:
         ``linear_solver``: ``'dense'`` | ``'schur'`` | ``'pcg'`` (Ceres'
         DENSE_NORMAL_CHOLESKY / SPARSE_SCHUR / ITERATIVE_SCHUR);
         ``strategy`` (``'lm'`` | ``'dogleg'``) applies to ``'dense'``;
-        ``cg_loop``, ``lm_loop`` (``'device'`` | ``'host'``) to ``'pcg'``:
-        its CG and LM loops (``pcg.solve_ba_pcg``'s ``loop`` and ``lm_loop``;
-        on the card both run there by default)."""
-        if linear_solver != "pcg" and (cg_loop or lm_loop):
-            raise ValueError(f"cg_loop and lm_loop set the pcg solver's loops, not "
-                             f"{linear_solver!r}'s")
+        ``lm_loop`` (``'device'`` | ``'host'``): the LM loop of every
+        solver, a WHILE node on the card by default there (the dogleg is a
+        host loop: ``lm_loop='device'`` with it raises); ``cg_loop`` applies
+        to ``'pcg'``: its CG loop (``pcg.solve_ba_pcg``'s ``loop``, on the
+        card by default too)."""
+        if linear_solver != "pcg" and cg_loop:
+            raise ValueError(f"cg_loop sets the pcg solver's CG loop, not {linear_solver!r}'s")
         problem, state = self.build()
         if linear_solver == "schur":
             from ceres_slam_tpu_torch.solver import schur
 
-            sol, summary = schur.solve_ba_schur(problem, state, config)
+            sol, summary = schur.solve_ba_schur(problem, state, config, lm_loop=lm_loop)
         elif linear_solver == "pcg":
             from ceres_slam_tpu_torch.solver import pcg
 
             sol, summary = pcg.solve_ba_pcg(problem, state, config, loop=cg_loop,
                                             lm_loop=lm_loop)
         elif linear_solver == "dense":
-            sol, summary = dense.solve_ba(problem, state, config, strategy=strategy)
+            sol, summary = dense.solve_ba(problem, state, config, strategy=strategy,
+                                          lm_loop=lm_loop)
         else:
             raise ValueError(f"unknown linear solver: {linear_solver!r}")
         self._solution = (problem, sol)

@@ -15,10 +15,21 @@ iteration (the plain version, the CPU's form, ``loop="host"``);
 ``device_loop`` captures it once and runs it in a conditional WHILE node
 on the card (``ops/graph_loop.DeviceWhile``), one graph launch for the
 solve; the step may run a loop of its own inside (Schur-PCG's CG loop, a
-nested WHILE node). ``finish`` reads the summary once. The window
+nested WHILE node). ``finish`` reads the summary once. ``inner_lm`` runs
+a whole LM solve inside a loop of the caller's (``apps/blowup.py``'s chain:
+a WHILE node nested in the chain's node on the card). The window
 solver's block-carrying loops (``solver/window.py``, ``solver/dogleg.py``)
-apply the same rules to B windows at once. ``dogleg_solve`` is still a
-host loop whose control reads four scalars an iteration.
+apply the same rules to B windows at once.
+
+On the card these ``lm_solve`` callers run the device loop: Schur-PCG
+(``solver/pcg.py``), the dense and Schur solves (``solver/dense.py``,
+``solver/schur.py``), the pose graph (``solver/pose_graph.py``, and
+``blowup``'s chain through ``inner_lm``) and Phong (``solver/phong.py``).
+These still run ``host_loop`` there: photometric alignment
+(``solver/photometric.py``) and the sharded LM loops
+(``parallel/sharded_ba.py``, ``parallel/sharded_pcg.py``).
+``dogleg_solve`` is still a host loop whose control reads four scalars an
+iteration.
 """
 
 from __future__ import annotations
@@ -280,6 +291,32 @@ def lm_loop(state0, config: SolveConfig, cost_fn: Callable, step_fn: Callable,
         copy_in(lm_start(state0, config, cost_fn))
 
     return LMLoop(carry, pred, body, restart)
+
+
+def inner_lm(lp: LMLoop) -> None:
+    """A whole LM solve on ``lp``'s buffers, for the body of a loop of the
+    caller's: ``restart()`` (from the initial state's tensors as they are
+    now), then ``lp.body`` while ``lp.pred`` through ``graph_loop.
+    while_loop``: inside a ``DeviceWhile`` capture a WHILE node nested in
+    the caller's node, elsewhere iterated on the host with the stop test
+    read every iteration (``host_loop``'s bits). The result stays on the
+    device, in ``lp.carry``; the next call overwrites it."""
+    lp.restart()
+    graph_loop.while_loop(lp.body, lp.pred)
+
+
+def resolve_loop(device, loop: str | None, name: str = "LM loop",
+                 switch: str = "lm_loop") -> str:
+    """The loop (``name``, set by ``switch``) a solve on ``device`` runs: a
+    WHILE node on the card (``"device"``, the default on CUDA) or the host
+    loop (``"host"``, the default elsewhere). The device loop off the card
+    raises, as does an unknown loop: nothing falls back."""
+    if loop not in (None, "device", "host"):
+        raise ValueError(f"unknown {name}: {loop!r}")
+    on_card = torch.device(device).type == "cuda"
+    if loop == "device" and not on_card:
+        raise ValueError(f"the device {name} runs on the card: use {switch}='host'")
+    return loop or ("device" if on_card else "host")
 
 
 # the captures and restarts of every LMGraph of the process, and their host seconds

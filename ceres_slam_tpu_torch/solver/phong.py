@@ -295,17 +295,7 @@ def phong_retract(problem: PhongBAProblem, state: PhongState, dx: torch.Tensor, 
     return PhongState(poses, points, normals, phong, textures, light)
 
 
-def resolve_lm_loop(device, lm_loop: str | None) -> str:
-    """The LM loop a solve on ``device`` runs: a WHILE node on the card
-    (``"device"``, the default on CUDA) or the host loop (``"host"``, the
-    default elsewhere). The device loop off the card raises, as does an
-    unknown loop: nothing falls back."""
-    if lm_loop not in (None, "device", "host"):
-        raise ValueError(f"unknown LM loop: {lm_loop!r}")
-    on_card = torch.device(device).type == "cuda"
-    if lm_loop == "device" and not on_card:
-        raise ValueError("the device LM loop runs on the card: use lm_loop='host'")
-    return lm_loop or ("device" if on_card else "host")
+resolve_lm_loop = lm.resolve_loop
 
 
 def solve_tables(problem: PhongBAProblem, state: PhongState, linear_solver: str,

@@ -14,6 +14,13 @@ table over the 6x6 blocks that any factor touches, whose sums are then
 written to distinct blocks of H. Every sum is in a fixed order, so the
 card gives the same bits every run (ROADMAP F14); masks are
 ``torch.where`` (F15).
+
+Nothing in the LM iteration reads the device from the host (the tables
+are built before the loop), so on the card ``solve_pose_graph`` runs the
+loop as one conditional WHILE node (``lm_loop="device"``, the default
+there), and ``apps/blowup.py`` nests it in its chain's node
+(``lm.inner_lm`` on ``lm_functions``), rewriting the prior's tensors in
+place between solves; ``pose_graph_loop_inputs`` lists what the body reads.
 """
 
 from __future__ import annotations
@@ -123,27 +130,55 @@ def pose_graph_normal_equations(problem: PoseGraphProblem, poses: torch.Tensor,
     H = poses.new_zeros((K, 6, K, 6))
     H[tables.block_row, :, tables.block_col, :] = blocks  # distinct blocks: no accumulation
     H = H.reshape(6 * K, 6 * K)
-    free = (~problem.fixed_pose_mask).repeat_interleave(6)
+    free = (~problem.fixed_pose_mask)[:, None].expand(-1, 6).reshape(-1)
     H = torch.where(free[:, None] & free[None, :], H, 0.0)
     H = H + torch.diag((torch.diagonal(H) == 0.0).to(H.dtype))
     return H, torch.where(free, g, 0.0)
 
 
-def solve_pose_graph(problem: PoseGraphProblem, poses0: torch.Tensor,
-                     config: lm.SolveConfig = lm.SolveConfig(),
-                     tables: PoseGraphTables | None = None):
-    """LM on the dense tangent system; returns ``(poses, SolveSummary)``.
-    The tables are built once here when none are given."""
-    tables = pose_graph_tables(problem) if tables is None else tables
+def lm_functions(problem: PoseGraphProblem, tables: PoseGraphTables):
+    """The LM core's ``(cost_fn, step_fn, retract_fn)`` over the problem's
+    tables: none of them reads the device from the host."""
     fixed = problem.fixed_pose_mask
 
     def retract(poses, dx):
         return lie.se3_retract(poses, torch.where(fixed[:, None], 0.0, dx.reshape(-1, 6)))
 
-    return lm.lm_solve(poses0, config, lambda p: pose_graph_cost(problem, p),
-                       lm.dense_cholesky_step(
-                           lambda p: pose_graph_normal_equations(problem, p, tables)),
-                       retract)
+    return (lambda p: pose_graph_cost(problem, p),
+            lm.dense_cholesky_step(lambda p: pose_graph_normal_equations(problem, p, tables)),
+            retract)
+
+
+def pose_graph_loop_inputs(problem: PoseGraphProblem, poses0: torch.Tensor,
+                           tables: PoseGraphTables) -> tuple:
+    """Every tensor the LM loop reads that can differ between two solves of
+    one shape: the factors (the measurements, stiffnesses, indices and
+    masks, the priors' too), the gauge mask, the tables and the initial
+    poses. A later solve of an ``lm.LMGraph`` copies them into the
+    captured ones."""
+    return (*lm.leaves(problem), *tables, poses0)
+
+
+def solve_pose_graph(problem: PoseGraphProblem, poses0: torch.Tensor,
+                     config: lm.SolveConfig = lm.SolveConfig(),
+                     tables: PoseGraphTables | None = None, lm_loop: str | None = None,
+                     graph: lm.LMGraph | None = None):
+    """LM on the dense tangent system; returns ``(poses, SolveSummary)``.
+    The tables are built once here when none are given. ``lm_loop``:
+    ``"device"`` (the default on CUDA) runs the loop as one WHILE node,
+    kept in ``graph`` (an ``lm.LMGraph``) for the next solve of the same
+    shape, which copies its ``pose_graph_loop_inputs`` into this one's
+    tensors (they are overwritten); ``"host"`` (the default elsewhere)
+    iterates on the host. Both give the same bits."""
+    lm_loop = lm.resolve_loop(poses0.device, lm_loop)
+    if lm_loop == "host" and graph is not None:
+        raise ValueError("an LMGraph keeps the device LM loop: lm_loop='host' takes none")
+    tables = pose_graph_tables(problem) if tables is None else tables
+    if lm_loop == "host":
+        return lm.lm_solve(poses0, config, *lm_functions(problem, tables), loop="host")
+    poses0 = poses0.clone()  # the loop's own: a restart copies into it
+    return lm.lm_solve(poses0, config, *lm_functions(problem, tables), loop="device",
+                       graph=graph, inputs=pose_graph_loop_inputs(problem, poses0, tables))
 
 
 def pose_graph_covariance(problem: PoseGraphProblem, poses: torch.Tensor, pose_idx: int,

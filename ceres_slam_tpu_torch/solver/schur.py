@@ -15,7 +15,11 @@ medium-sized full batches (``solver/pcg.py`` covers the large ones).
 
 Where the JAX module multiplies by the gauge masks, this one selects with
 ``torch.where`` (ROADMAP F15), and the damped pose blocks are added to S
-through a view of its diagonal blocks, with no scatter.
+through a view of its diagonal blocks, with no scatter. The reduced system
+is solved by two triangular solves (``lm.cholesky_apply``), so on the card
+the LM loop runs as one conditional WHILE node (``solve_ba_schur``) over
+the gather tables and the sun and prior terms made before the loop, as
+the dense solve's (``dense.minimize``).
 """
 
 from __future__ import annotations
@@ -26,10 +30,11 @@ from ceres_slam_tpu_torch.solver import dense, lm
 from ceres_slam_tpu_torch.solver.window import _damp, _inv3x3, _pin
 
 
-def schur_step(problem: dense.StereoBAProblem, blocks: dense.BlockNormalEq, lam: float):
-    """Solve the damped system by landmark elimination. Returns ``(dx
-    [6K+3J], grad_norm, pred_decrease)``, the predicted decrease of the
-    undamped model computed blockwise (``dx.g + 0.5 dx.H dx``)."""
+def schur_step(problem: dense.StereoBAProblem, blocks: dense.BlockNormalEq, lam):
+    """Solve the damped system by landmark elimination (``lam`` a float or
+    a 0-d tensor). Returns ``(dx [6K+3J], grad_norm, pred_decrease)``, the
+    predicted decrease of the undamped model computed blockwise (``dx.g +
+    0.5 dx.H dx``)."""
     K, J = blocks.Hpp.shape[0], blocks.Hll.shape[0]
     free_pose = ~problem.fixed_pose_mask
     free_pt = problem.point_valid
@@ -46,7 +51,7 @@ def schur_step(problem: dense.StereoBAProblem, blocks: dense.BlockNormalEq, lam:
     torch.diagonal(S.view(K, 6, K, 6), dim1=0, dim2=2).add_(_damp(Hpp, lam).permute(1, 2, 0))
 
     rhs = -(gp.reshape(-1) - WC @ gl.reshape(-1))
-    dp = torch.cholesky_solve(rhs[:, None], lm._cholesky_or_nan(S))[:, 0]
+    dp = lm.cholesky_apply(lm._cholesky_or_nan(S), rhs)
     dl = -torch.einsum("jab,jb->ja", Cinv, gl + (Wf.T @ dp).reshape(J, 3))
 
     grad_norm = torch.maximum(gp.abs().max(), gl.abs().max())
@@ -57,12 +62,26 @@ def schur_step(problem: dense.StereoBAProblem, blocks: dense.BlockNormalEq, lam:
     return torch.cat([dp, dl.reshape(-1)]), grad_norm, -(g_dot_dx + 0.5 * dxHdx)
 
 
-def solve_ba_schur(problem: dense.StereoBAProblem, state0: dense.BAState,
-                   config: lm.SolveConfig = lm.SolveConfig()):
-    """LM with the Schur-complement linear solver: ``dense.solve_ba``'s
-    minimum, cheaper when J >> K. Returns ``(state, SolveSummary)``."""
+def lm_functions(problem: dense.StereoBAProblem, tables: dense.BlockTables,
+                 terms: dense.AuxTerms):
+    """The LM core's ``(cost_fn, step_fn, retract_fn)`` of the Schur solve
+    over the solve's gather tables and sun and prior terms: none of them
+    reads the device from the host."""
     def step(state, lam):
-        return schur_step(problem, dense.ba_block_normal_equations(problem, state), lam)
+        return schur_step(problem, dense.ba_block_normal_equations(problem, state, tables, terms),
+                          lam)
 
-    return lm.lm_solve(state0, config, lambda s: dense.ba_cost(problem, s), step,
-                       lambda s, dx: dense._retract_state(problem, s, dx))
+    cost, _, retract = dense.lm_functions(problem, tables, terms)
+    return cost, step, retract
+
+
+def solve_ba_schur(problem: dense.StereoBAProblem, state0: dense.BAState,
+                   config: lm.SolveConfig = lm.SolveConfig(), lm_loop: str | None = None,
+                   graph: lm.LMGraph | None = None, widths: tuple | None = None):
+    """LM with the Schur-complement linear solver: ``dense.solve_ba``'s
+    minimum, cheaper when J >> K. ``lm_loop``, ``graph``, ``widths``:
+    ``dense.lm_minimize``'s (on the card the loop is a WHILE node by
+    default, elsewhere the host loop: the same bits). Returns ``(state,
+    SolveSummary)``."""
+    return dense.minimize(problem, state0, config, "schur",
+                          lambda t, a: lm_functions(problem, t, a), lm_loop, graph, widths)

@@ -114,12 +114,22 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            solved with dense, schur, pcg (K2 and K3 through the full-batch
            plan of that row order) and dense + dogleg, the final costs
            against each other and the JAX figures, covariance(1) against
-           the CPU's; kitti1100 (N 124,480, J 16,640) with pcg against the
+           the CPU's; dense and schur with their LM loop in its WHILE node
+           (the default on the card, one capture a solve), then on the host
+           and in the node again: the same iterations and bits, the walls
+           in turns; kitti1100 (N 124,480, J 16,640) with pcg against the
            JAX figure, K2's and K3's launches printed (pcg's CG loop runs
-           in the WHILE node on the card)
+           in the WHILE node on the card); then triangle200's dataset_vo
+           --window 2 --linear-solver dense (199 windows) with --lm-loop
+           device, host, device: byte-identical CSVs, the same LM
+           iterations, in the node one capture and 198 restarts
   blowup   the covariance blow-up experiment (apps/blowup.py) at the
-           reference's 1,000 poses on the card: the max relative deviation
-           from the closed form against the JAX figure, the wall, solves/s
+           reference's 1,000 poses on the card, the chain in its WHILE node
+           (each step's LM loop a node nested in it), on the host and in
+           the node again: bit-identical covariances and LM iterations, each
+           run's max relative deviation from the closed form against the
+           JAX figure, the wall, solves/s, LM iterations and captures of
+           each form, the node's device time (CUDA events)
   live_vo  live stereo VO (apps/stereo_vo.py): 100 frames rendered by the
            port at 319x1056 with KITTI's sequence-00 camera scaled by 0.85
            (the JAX package does not track at 375x1242: its Harris
@@ -182,8 +192,11 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            launches, graph launches, syncs and copies a solve, which must
            not grow with the iterations; the node's device us per LM
            iteration by CUDA events; the device busy share of both forms;
-           unprofiled walls in turns), and after the blowup phase a trace
-           of 10 blow-up solves, and after the batch phase (the slice phase)
+           unprofiled walls in turns), and after the blowup phase the chain
+           in both forms: 10 solves of the host form traced, and the node
+           at 11 and 31 poses traced (host launches, graph launches, syncs
+           and copies, which must be equal, with one graph launch) and
+           timed by CUDA events (device us a chain step, busy share), and after the batch phase (the slice phase)
            a trace of one step of the grid (kitti1100's two flagship passes),
            window 20 of its chains solved together, with the trust-region
            loop on the host and in the WHILE node: launches, graph launches,
@@ -204,6 +217,7 @@ float64). Imports nothing of JAX or ``ceres_slam_tpu``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -1215,13 +1229,50 @@ def phase_profile(torch, jobs, dense: bool, phong: bool, data, smi, blowup: bool
     if flagship:
         _profile_flagship_step(torch, data, smi)
     if blowup:
-        from ceres_slam_tpu_torch.apps import blowup as blowup_app
+        _profile_blowup(torch, smi)
 
-        t = _trace(torch, lambda: blowup_app.run(11, verbose=False, device="cuda"))
-        log(f"[profile] blowup, 10 solves, per solve: wall {t['wall_us'] / 1e4:.2f} ms (profiled), "
-            f"device busy {t['device_us'] / 1e4:.3f} ms ({100 * t['device_us'] / t['wall_us']:.2f}%), "
-            f"{t['kernels'] / 10:g} device kernels, {t['launches'] / 10:g} launches, "
-            f"{t['syncs'] / 10:g} syncs, {t['copies'] / 10:g} copies")
+
+def _profile_blowup(torch, smi):
+    """The blow-up chain in both forms. The host form: 10 solves under the
+    profiler (wall, device busy, kernels, launches, syncs, copies a solve).
+    The WHILE node: chains of 11 and 31 poses under the profiler, whose
+    host launches, graph launches, syncs and copies must be equal (none per
+    chain step or LM iteration) with one graph launch; the node's device us
+    a chain step from CUDA events around its launch (31 less 11 poses, over
+    20 steps; median of 3 chains each) and its busy share of the
+    unprofiled wall."""
+    from ceres_slam_tpu_torch.apps import blowup as blowup_app
+
+    def chain(n, loop="device"):
+        return blowup_app.run_chain(n, device="cuda", chain_loop=loop)
+
+    chain(11, "host")
+    t = _trace(torch, lambda: chain(11, "host"))
+    log(f"[profile] blowup, chain loop host ({smi}), 10 solves, per solve: wall "
+        f"{t['wall_us'] / 1e4:.2f} ms (profiled), device busy {t['device_us'] / 1e4:.3f} ms "
+        f"({100 * t['device_us'] / t['wall_us']:.2f}%), {t['kernels'] / 10:g} device kernels, "
+        f"{t['launches'] / 10:g} launches, {t['syncs'] / 10:g} syncs, {t['copies'] / 10:g} copies")
+    keys = ("launches", "graph_launches", "syncs", "copies")
+    res = {}
+    for n in (11, 31):
+        chain(n)
+        tr = _trace(torch, lambda: chain(n))
+        stats = [chain(n)[3] for _ in range(3)]
+        res[n] = (tr, statistics.median(st["node_ms"] for st in stats),
+                  statistics.median(st["wall_s"] for st in stats))
+    per_step = (res[31][1] - res[11][1]) / 20 * 1e3
+    grow = {k: res[31][0][k] - res[11][0][k] for k in keys}
+    log(f"[profile] blowup, chain loop in its WHILE node ({smi}): 11 / 31 poses (profiled): " +
+        ", ".join(f"{res[11][0][k]:g} / {res[31][0][k]:g} {k.replace('_', ' ')}" for k in keys)
+        + f"; the node {res[11][1]:.3f} / {res[31][1]:.3f} ms (CUDA events, median of 3): "
+        f"{per_step:.1f} us of device time a chain step; unprofiled wall {res[11][2] * 1e3:.2f} / "
+        f"{res[31][2] * 1e3:.2f} ms, the node {100 * res[11][1] / (res[11][2] * 1e3):.2f}% / "
+        f"{100 * res[31][1] / (res[31][2] * 1e3):.2f}% of it; device busy by the profiler "
+        f"{100 * res[31][0]['device_us'] / res[31][0]['wall_us']:.2f}% at 31 poses")
+    if any(grow.values()):
+        fail(f"blowup node: host work grows with the chain's steps: {grow} for 20 more")
+    if res[11][0]["graph_launches"] != 1:
+        fail(f"blowup node: {res[11][0]['graph_launches']:g} graph launches for the chain, not 1")
 
 
 def _profile_phong(torch, data, smi):
@@ -1876,22 +1927,90 @@ def _graph_dataset(data, seq, device):
     return ds
 
 
-def _graph_solve(ds, linear_solver, strategy, device, kernels):
-    """One FactorGraph solve with K2's and K3's launches counted from 0."""
+def _graph_solve(ds, linear_solver, strategy, device, kernels, lm_loop=None):
+    """One FactorGraph solve with K2's and K3's launches counted from 0 (and
+    the LM loop captures it made)."""
     import torch
+
+    from ceres_slam_tpu_torch.solver import lm
 
     k2, k3 = kernels["K2"].stereo_factor_sums, kernels["K3"].schur_uy
     g = ds.factor_graph(device)
     k2.launches = k3.launches = 0
+    captures = lm.GRAPH_STATS["captures"]
     t0 = time.perf_counter()
-    _, summ = g.solve(linear_solver=linear_solver, strategy=strategy)
+    _, summ = g.solve(linear_solver=linear_solver, strategy=strategy, lm_loop=lm_loop)
     if device == "cuda":
         torch.cuda.synchronize()
-    return g, summ, time.perf_counter() - t0, {"K2": k2.launches, "K3": k3.launches}
+    return g, summ, time.perf_counter() - t0, {"K2": k2.launches, "K3": k3.launches,
+                                               "captures": lm.GRAPH_STATS["captures"] - captures}
 
 
-def phase_graph(kernels, data):
-    """FactorGraph on the card; returns K2's and K3's launches, and the
+def _graph_turns(ds, linear_solver, kernels, first, wall, smi):
+    """A triangle200 FactorGraph solve (dense or schur) whose default run
+    (``first``, the LM loop in its WHILE node) is followed by the host loop
+    and the node again: the same iterations, summary, poses and points bit
+    for bit, one capture a node run; the walls of both forms."""
+    import numpy as np
+
+    g0, summ0 = first
+    walls = {"device": [wall], "host": []}
+    for loop in ("host", "device"):
+        g, summ, w, launches = _graph_solve(ds, linear_solver, "lm", "cuda", kernels, loop)
+        walls[loop].append(w)
+        same = (summ == summ0 and np.array_equal(np.stack(g._poses), np.stack(g0._poses))
+                and np.array_equal(np.stack(g._points), np.stack(g0._points)))
+        if not same or launches["captures"] != (loop == "device"):
+            fail(f"triangle200 FactorGraph({linear_solver}) with lm_loop={loop}: not the default "
+                 f"run's bits ({summ.iterations} vs {summ0.iterations} iterations) or "
+                 f"{launches['captures']} captures")
+    log(f"[graph] triangle200 {linear_solver} lm, the LM loop device / host / device in turns "
+        f"({smi}): the same {summ0.iterations} iterations and bits; solve walls " + "; ".join(
+            f"{k} " + ", ".join(f"{x:.3f}" for x in v) + " s" for k, v in walls.items()))
+
+
+GRAPH_DENSE_TURNS = ("device", "host", "device")
+
+
+def _dense_window_pass(data, smi):
+    """dataset_vo --window 2 --linear-solver dense on triangle200 with the
+    LM loop in its WHILE node and on the host in turns: byte-identical
+    CSVs and the same LM iterations; in the node one capture for the pass
+    and a restart for every later window."""
+    from ceres_slam_tpu_torch.apps import dataset_vo
+    from ceres_slam_tpu_torch.utils import csvio, metrics
+
+    gt = csvio.read_poses_csv(os.path.join(data, "triangle200_gt_poses.csv"))
+    runs = []
+    for i, loop in enumerate(GRAPH_DENSE_TURNS):
+        path = os.path.join(data, f"dense_window_{i}", "triangle200_vo.csv")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        shutil.copy(os.path.join(data, "triangle200_vo.csv"), path)
+        with open(path[:-4] + "_stdout.txt", "w") as out, contextlib.redirect_stdout(out):
+            st = dataset_vo.main([path, "--window", "2", "--linear-solver", "dense",
+                                  "--lm-loop", loop])  # its 199 window lines go to the file
+        ate = metrics.ate_translation(csvio.read_poses_csv(st["poses"]), gt)
+        log(f"[graph] triangle200 dataset_vo --window 2 --linear-solver dense --lm-loop {loop} "
+            f"({smi}): {st['windows']} windows, {st['lm_iterations']} LM iterations, solve "
+            f"{st['solve_s']:.3f} s ({st['lm_iterations'] / st['solve_s']:.1f} LM it/s), load "
+            f"{st['load_s']:.2f} s, RANSAC {st['ransac_s']:.2f} s; LM loop captures "
+            f"{st['lm_graph_captures']}, restarts {st['lm_graph_restarts']}; ATE {ate:.4f} m")
+        want = (1, st["windows"] - 1) if loop == "device" else (0, 0)
+        if (st["lm_graph_captures"], st["lm_graph_restarts"]) != want:
+            fail(f"dense window pass, --lm-loop {loop}: {st['lm_graph_captures']} captures and "
+                 f"{st['lm_graph_restarts']} restarts, not {want}")
+        out = tuple(open(st[k], "rb").read() for k in ("poses", "map"))
+        runs.append((loop, out, st["lm_iterations"]))
+    for loop, out, its in runs[1:]:
+        if out != runs[0][1] or its != runs[0][2]:
+            fail(f"dense window pass: --lm-loop {loop} wrote other bytes or ran {its} LM "
+                 f"iterations ({runs[0][0]}: {runs[0][2]})")
+
+
+def phase_graph(kernels, data, smi):
+    """FactorGraph on the card (dense and schur with the LM loop in its node
+    and on the host in turns), then the dense LM loop of dataset_vo's
+    window pass in both forms; returns K2's and K3's launches, and the
     triangle200 pcg solve's poses."""
     import numpy as np
 
@@ -1904,6 +2023,11 @@ def phase_graph(kernels, data):
         costs = []
         for (linear_solver, strategy), (ref_it, ref_cost) in JAX_GRAPH[seq].items():
             g, summ, wall, launches = _graph_solve(ds, linear_solver, strategy, "cuda", kernels)
+            if (seq, strategy) == ("triangle200", "lm") and linear_solver in ("dense", "schur"):
+                if launches["captures"] != 1:
+                    fail(f"FactorGraph({linear_solver}) at its default: {launches['captures']} "
+                         "LM loop captures, not 1 (the WHILE node)")
+                _graph_turns(ds, linear_solver, kernels, (g, summ), wall, smi)
             for name in total:
                 total[name] += launches[name]
             dev = abs(summ.final_cost - ref_cost) / ref_cost
@@ -1937,28 +2061,50 @@ def phase_graph(kernels, data):
         spread = (max(costs) - min(costs)) / min(costs)
         if spread > GRAPH_RTOL[seq]:
             fail(f"{seq}: the solvers' final costs spread {spread:.2e}")
+    _dense_window_pass(data, smi)
     return total, keep
 
 
+BLOWUP_TURNS = ("device", "host", "device")
+
+
 def phase_blowup(smi):
-    """apps/blowup.py at the reference's 1,000 poses on the card."""
+    """apps/blowup.py at the reference's 1,000 poses on the card, the chain
+    in its WHILE node and on the host in turns: bit-identical covariances
+    and LM iterations, each run's deviation from the closed form against
+    the JAX figure."""
     import numpy as np
     import torch
 
     from ceres_slam_tpu_torch.apps import blowup
 
-    t0 = time.perf_counter()
-    covs, _, rel_err = blowup.run(1000, verbose=False, device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    dev = float(rel_err.max())
-    log(f"[blowup] 1000 poses on {smi}: max relative deviation from the closed form {dev:.3e} "
-        f"(JAX {JAX_BLOWUP_DEV:.3e}, bound +-{BLOWUP_ATOL:g}); {len(covs)} solves in {wall:.3f} s "
-        f"= {len(covs) / wall:.1f} solves/s; trace of the last covariance "
-        f"{np.trace(covs[-1]):.6e}")
-    if not (np.all(np.isfinite(covs)) and abs(dev - JAX_BLOWUP_DEV) <= BLOWUP_ATOL):
-        fail(f"blowup: max relative deviation {dev:.3e} vs JAX {JAX_BLOWUP_DEV:.3e}")
-
+    runs = []
+    for loop in BLOWUP_TURNS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        covs, manuals, iters, st = blowup.run_chain(1000, device="cuda", chain_loop=loop)
+        wall = time.perf_counter() - t0
+        rel_err = np.abs(covs - manuals).max(axis=(1, 2)) / np.abs(manuals).max(axis=(1, 2))
+        dev = float(rel_err.max())
+        node = ("" if st["node_ms"] is None else
+                f"; the node {st['node_ms']:.3f} ms of device time by CUDA events for "
+                f"{st['steps'] - 1} steps ({st['node_ms'] * 1e3 / (st['steps'] - 1):.1f} us a "
+                f"step), {100 * st['node_ms'] / (wall * 1e3):.2f}% of the wall; capture and build "
+                f"{st['capture_s']:.3f} s")
+        log(f"[blowup] 1000 poses, chain loop {loop} on {smi}: max relative deviation from the "
+            f"closed form {dev:.3e} (JAX {JAX_BLOWUP_DEV:.3e}, bound +-{BLOWUP_ATOL:g}); "
+            f"{st['steps']} solves, {st['lm_iterations']} LM iterations in {wall:.3f} s = "
+            f"{st['steps'] / wall:.1f} solves/s; captures {st['captures']}{node}; trace of the "
+            f"last covariance {np.trace(covs[-1]):.6e}")
+        if not (np.all(np.isfinite(covs)) and abs(dev - JAX_BLOWUP_DEV) <= BLOWUP_ATOL):
+            fail(f"blowup ({loop}): max relative deviation {dev:.3e} vs JAX {JAX_BLOWUP_DEV:.3e}")
+        if st["steps"] != 999 or st["captures"] != (loop == "device"):
+            fail(f"blowup ({loop}): {st['steps']} steps, {st['captures']} captures")
+        runs.append((loop, covs, iters))
+    for loop, covs, iters in runs[1:]:
+        if not (np.array_equal(covs, runs[0][1]) and np.array_equal(iters, runs[0][2])):
+            fail(f"blowup: the chain loop {loop} differs from {runs[0][0]} (covariances or LM "
+                 "iterations)")
 
 
 def phase_live_vo(data, smi):
@@ -2737,7 +2883,7 @@ def main():
     if "phong" in phases:
         phase_phong(data, smi)
     if "graph" in phases:
-        graph_launches, graph_poses = phase_graph(kernels, data)
+        graph_launches, graph_poses = phase_graph(kernels, data, smi)
         for name, n in graph_launches.items():
             launches[name] += n
     if "blowup" in phases:

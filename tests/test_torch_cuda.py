@@ -1243,3 +1243,152 @@ def test_phong_node_makes_no_host_work_per_iteration(tmp_path, solver):
                      sum("Synchronize" in x for x in host),
                      sum(x.startswith("cudaMemcpy") for x in host))
     assert counts[3] == counts[12], counts
+
+
+# The dense-system LM loops in WHILE nodes (solver/dense.py, solver/schur.py,
+# solver/pose_graph.py) and blowup's chain as one node with each step's LM loop
+# nested in it (apps/blowup.py): the host forms' bits, no host work per step.
+
+def _host_counts(fn):
+    """Host launches, graph launches, syncs and copies of one call of ``fn``
+    under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    host = [e.name for e in prof.events() if e.device_type != DeviceType.CUDA]
+    return (sum(x.startswith("cudaLaunchKernel") for x in host),
+            sum(x.startswith("cudaGraphLaunch") for x in host),
+            sum("Synchronize" in x for x in host),
+            sum(x.startswith("cudaMemcpy") for x in host))
+
+
+@pytest.mark.cuda
+def test_blowup_chain_node_equals_host_form():
+    """``blowup.run_chain(31)`` with the chain in its WHILE node (each
+    step's LM loop a node nested in it) against the host form: every
+    covariance, closed form and step's LM iteration count bit for bit, one
+    capture; the deviation from the closed form below 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ceres_slam_tpu_torch.apps import blowup
+
+    node = blowup.run_chain(31, device="cuda", chain_loop="device")
+    host = blowup.run_chain(31, device="cuda", chain_loop="host")
+    for a, b in zip(node[:3], host[:3]):
+        np.testing.assert_array_equal(a, b)
+    assert node[3]["captures"] == 1 and host[3]["captures"] == 0
+    assert node[3]["steps"] == host[3]["steps"] == 30
+    covs, manuals = node[0], node[1]
+    rel = np.abs(covs - manuals).max(axis=(1, 2)) / np.abs(manuals).max(axis=(1, 2))
+    assert rel.max() < 1e-6
+
+
+@pytest.mark.cuda
+def test_blowup_chain_node_makes_no_host_work_per_step():
+    """The chain in its node at 11 and at 31 poses under torch.profiler:
+    the same host launches, graph launches, syncs and copies, so none per
+    chain step nor per LM iteration inside it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ceres_slam_tpu_torch.apps import blowup
+
+    blowup.run_chain(11, device="cuda")
+    counts = {n: _host_counts(lambda: blowup.run_chain(n, device="cuda")) for n in (11, 31)}
+    assert counts[11] == counts[31], counts
+    assert counts[11][1] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("solver", ["dense", "schur"])
+def test_dense_node_equals_host_loop(solver, dtype):
+    """``dense.solve_ba`` / ``schur.solve_ba_schur`` with the LM loop in its
+    WHILE node against the host loop on two problems of one shape (tables
+    at common widths): the same summaries (the history included) and
+    state bit for bit; the second problem restarts the first's capture."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ceres_slam_tpu_torch.solver import schur
+
+    solve = dense.solve_ba if solver == "dense" else schur.solve_ba_schur
+    problems = []
+    for seed in (20, 21):
+        plan, poses, points = stereo_factor_kernel.random_inputs(1001, 77, 13, dtype, "cuda",
+                                                                 seed=seed)
+        problems.append((_problem_of(plan, poses), dense.BAState(poses, points)))
+    widths = tuple(max(t) for t in zip(*[[x.shape[1] for x in dense.block_tables(p)]
+                                         for p, _ in problems]))
+    cfg = lm.SolveConfig(max_iters=10, nonmonotonic=True, ftol=1e-9, xtol=1e-12,
+                         record_history=True)
+    graph, stats = lm.LMGraph(), lm.GRAPH_STATS
+    for i, (problem, state) in enumerate(problems):
+        before = (stats["captures"], stats["restarts"])
+        node = solve(problem, state, cfg, lm_loop="device", graph=graph, widths=widths)
+        host = solve(problem, state, cfg, lm_loop="host", widths=widths)
+        torch.cuda.synchronize()
+        assert (stats["captures"] - before[0], stats["restarts"] - before[1]) == (
+            (1, 0) if i == 0 else (0, 1))
+        assert host[1].iterations > 2
+        _same_solve(node, host)
+    graph.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["dense", "schur"])
+def test_factor_graph_defaults_to_the_node(solver):
+    """``FactorGraph(dense|schur).solve()`` at its default on the card runs
+    the LM loop in a WHILE node (one capture) and gives ``lm_loop='host'``'s
+    bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    stats = lm.GRAPH_STATS
+    before = stats["captures"]
+    a = _stereo_graph("cuda").solve(linear_solver=solver)
+    assert stats["captures"] - before == 1
+    b = _stereo_graph("cuda").solve(linear_solver=solver, lm_loop="host")
+    assert stats["captures"] - before == 1
+    _same_solve(a, b)
+
+
+@pytest.mark.cuda
+def test_pose_graph_node_equals_host_loop():
+    """``solve_pose_graph`` with its LM loop in a WHILE node against the host
+    loop on an 8-pose graph (a repeated edge, a reversed pair): the same
+    poses and summary bit for bit; a second solve through the same
+    ``LMGraph`` from another start restarts the capture."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ceres_slam_tpu_torch.ops import lie
+    from ceres_slam_tpu_torch.solver import pose_graph
+
+    rng = np.random.default_rng(6)
+    K = 8
+    poses = lie.se3_exp(torch.as_tensor(rng.normal(0, 0.3, (K, 6)))).cuda()
+    edges = [(k, k + 1) for k in range(K - 1)] + [(1, 2), (2, 1), (3, 5), (3, 5)]
+    i1 = torch.tensor([e[0] for e in edges]).cuda()
+    i2 = torch.tensor([e[1] for e in edges]).cuda()
+    n = len(edges)
+    meas = lie.se3_retract(lie.se3_compose(poses[i2], lie.se3_inverse(poses[i1])),
+                           torch.as_tensor(rng.normal(0, 0.02, (n, 6))).cuda())
+    eye6 = torch.eye(6, dtype=torch.float64, device="cuda")
+    problem = pose_graph.PoseGraphProblem(
+        rel=pose_graph.RelPoseFactors(i1, i2, meas, 5.0 * eye6.expand(n, 6, 6),
+                                      torch.ones(n, dtype=torch.bool, device="cuda")),
+        priors=pose_graph.PriorFactors(torch.zeros(1, dtype=torch.int64, device="cuda"),
+                                       poses[:1], 100.0 * eye6[None],
+                                       torch.ones(1, dtype=torch.bool, device="cuda")),
+        fixed_pose_mask=torch.zeros(K, dtype=torch.bool, device="cuda"))
+    cfg = lm.SolveConfig(max_iters=20, record_history=True)
+    graph, stats = lm.LMGraph(), lm.GRAPH_STATS
+    before = (stats["captures"], stats["restarts"])
+    for scale in (0.05, 0.1):
+        x0 = lie.se3_retract(poses, torch.as_tensor(rng.normal(0, scale, (K, 6))).cuda())
+        node = pose_graph.solve_pose_graph(problem, x0, cfg, lm_loop="device", graph=graph)
+        host = pose_graph.solve_pose_graph(problem, x0, cfg, lm_loop="host")
+        assert host[1].iterations > 2
+        _same_solve(((node[0],), node[1]), ((host[0],), host[1]))
+    assert (stats["captures"] - before[0], stats["restarts"] - before[1]) == (1, 1)
+    graph.close()

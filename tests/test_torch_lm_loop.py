@@ -331,7 +331,7 @@ def test_cli_loop_switches(vo_file, tmp_path):
     """``dataset_vo --window 0 --linear-solver pcg`` on the CPU: ``--lm-loop
     host --cg-loop host`` writes the default run's bytes (the host loops
     are the CPU's form); the device loops raise there, as does ``--lm-loop
-    device --cg-loop host`` anywhere and either switch with another
+    device --cg-loop host`` anywhere and either switch with the window
     solver; argparse refuses other values."""
     path = str(tmp_path / "tri_vo.csv")
     with open(vo_file) as src, open(path, "w") as dst:
@@ -351,7 +351,7 @@ def test_cli_loop_switches(vo_file, tmp_path):
         with pytest.raises(ValueError, match=match):
             dataset_vo.main(argv + extra)
     with pytest.raises(ValueError, match="takes neither"):
-        dataset_vo.main([path, "--window", "0", "--linear-solver", "dense", "--device", "cpu",
+        dataset_vo.main([path, "--window", "0", "--linear-solver", "window", "--device", "cpu",
                          "--lm-loop", "host"])
     with pytest.raises(SystemExit):
         dataset_vo.main(argv + ["--lm-loop", "scan"])
