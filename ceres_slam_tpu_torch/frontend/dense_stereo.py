@@ -14,15 +14,29 @@ test program). Plain PyTorch: the JAX package has no kernel here.
 - winner-take-all with sub-pixel parabola refinement, a uniqueness test
   and a left-right consistency check give the validity mask.
 
+The JAX package compiles the whole matcher into one program
+(``@jax.jit match_disparity``, its scans ``lax.scan``s). Here its trip
+counts are static (D shifts, W-1 and H-1 scan steps), so on the card the
+whole matcher is captured once as one plain CUDA graph (``MatcherGraph``,
+~13,000 nodes at 240x320 with 4 directions) and replayed for every pair
+of the same shape and settings (``loop="device"``, the default there):
+its body reads only the two input buffers, into which a pair is copied,
+and constants made before the capture. ``loop="host"`` (the CPU's form)
+issues the same body's launches one by one: the same bits.
+
 ``torch.argmin`` keeps the first minimum, as ``jnp.argmin`` does, and
 ``torch.round`` rounds half to even, as ``jnp.round`` does.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ceres_slam_tpu_torch.ops import graph_loop
 
 # cost sentinel for impossible matches: large enough to lose every
 # comparison, small enough that a 4-direction SGM sum stays finite in f32
@@ -84,7 +98,8 @@ def _cost_volume(left, right, max_disp: int, block: int, prefilter_cap):
     gr = gr.clamp(-cap, cap)
     feats_r = torch.stack([gr, right])  # [2, H, W]
     u = torch.arange(W, device=left.device).expand(H, W)
-    big = torch.tensor(_BIG, dtype=left.dtype, device=left.device)
+    # a fill, not a copy from the host: a capture cannot make that copy
+    big = torch.full((), _BIG, dtype=left.dtype, device=left.device)
     vol = torch.empty((max_disp, H, W), dtype=left.dtype, device=left.device)
     for d in range(max_disp):
         # right[y, u-d]: move content right by d; lanes u < d are invalid
@@ -159,38 +174,134 @@ def _wta(S: torch.Tensor, uniqueness: float):
     return disp, valid
 
 
+class MatchSettings(NamedTuple):
+    """The matcher's settings (``match_disparity``'s keywords)."""
+
+    max_disp: int = 64
+    block: int = 5
+    p1: float = 0.03
+    p2: float = 0.12
+    uniqueness: float = 0.05
+    lr_threshold: float = 1.0
+    directions: int = 4
+    prefilter_cap: float = 0.25
+
+
+def matcher_body(left: torch.Tensor, right: torch.Tensor, settings: MatchSettings):
+    """The whole matcher as a function of no arguments over the input
+    buffers ``left`` and ``right`` (``[H, W]``, the matcher's dtype), which
+    it reads as they are when it runs: ``fn() -> (disparity, valid)``. Its
+    constants (the SGM penalties) are made here, before any capture."""
+    o = settings
+    p1 = torch.full((), o.p1, dtype=left.dtype, device=left.device)
+    p2 = torch.full((), o.p2, dtype=left.dtype, device=left.device)
+
+    def fn():
+        vol = _cost_volume(left, right, o.max_disp, o.block, o.prefilter_cap)
+        S = _sgm_aggregate(vol, p1, p2, o.directions)
+        disp, valid = _wta(S, o.uniqueness)
+        # left-right consistency: the right image's cost volume is a shear
+        # of the left's (cost_R[y, u, d] = cost_L[y, u+d, d]); a pixel
+        # survives iff its match maps back within lr_threshold.
+        D, H, W = S.shape
+        u = torch.arange(W, device=S.device)
+        ud = u + torch.arange(D, device=S.device)[:, None]  # [D, W]
+        S_r = S.gather(2, ud.clamp(0, W - 1)[:, None, :].expand(D, H, W))
+        S_r = torch.where((ud <= W - 1)[:, None, :], S_r, _BIG)
+        disp_r, valid_r = _wta(S_r, o.uniqueness)
+        # map left pixel u -> right pixel u - d
+        ur = (u - torch.round(disp).to(torch.int64)).clamp(0, W - 1)
+        d_back = disp_r.gather(1, ur)
+        vr_back = valid_r.gather(1, ur)
+        lr_ok = (disp - d_back).abs() <= o.lr_threshold
+        return disp, valid & lr_ok & vr_back
+
+    return fn
+
+
+# the captures of every MatcherGraph of the process, and their host seconds
+MATCH_STATS = {"captures": 0, "capture_s": 0.0, "instantiate_s": 0.0}
+
+
+class MatcherGraph:
+    """The matcher captured once per shape, dtype and settings as one plain
+    CUDA graph (``graph_loop.DeviceGraph``) and replayed for every pair of
+    that key: a pair is copied into the capture's input buffers, the graph
+    replays, and its outputs are copied out. ``close()`` frees every
+    capture; ``MATCH_STATS`` counts the captures and times them and their
+    instantiations."""
+
+    def __init__(self):
+        self.graphs: dict = {}
+
+    def match(self, left: torch.Tensor, right: torch.Tensor, settings: MatchSettings):
+        """``(disparity, valid)`` of one pair (new tensors). A capture that
+        fails raises."""
+        key = (tuple(left.shape), left.dtype, left.device, settings)
+        if key not in self.graphs:
+            self.graphs[key] = self._capture(left, right, settings)
+        bufs, graph, out = self.graphs[key]
+        bufs[0].copy_(left)
+        bufs[1].copy_(right)
+        graph.replay()
+        return tuple(t.clone() for t in out)
+
+    @staticmethod
+    def _capture(left, right, settings):
+        """The key's input buffers, graph and outputs. The body runs once
+        eagerly first, on the capture stream, its result dropped: it loads
+        the kernels' modules, which a capture cannot."""
+        device = left.get_device()
+        bufs = (left.clone(), right.clone())
+        fn, out = matcher_body(*bufs, settings), []
+        stream = graph_loop.capture_stream(device)
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            fn()
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = graph_loop.DeviceGraph(lambda: out.extend(fn()), device)
+        MATCH_STATS["captures"] += 1
+        MATCH_STATS["capture_s"] += graph.capture_s
+        MATCH_STATS["instantiate_s"] += graph.instantiate_s
+        return bufs, graph, out
+
+    def close(self) -> None:
+        for _, graph, _ in self.graphs.values():
+            graph.close()
+        self.graphs = {}
+
+
 def match_disparity(left: torch.Tensor, right: torch.Tensor, max_disp: int = 64,
                     block: int = 5, p1: float = 0.03, p2: float = 0.12,
                     uniqueness: float = 0.05, lr_threshold: float = 1.0,
-                    directions: int = 4, prefilter_cap: float = 0.25):
+                    directions: int = 4, prefilter_cap: float = 0.25,
+                    loop: str | None = None, graph: MatcherGraph | None = None):
     """Semi-global stereo matching of ``[H, W]`` grayscale images in [0, 1]:
     ``(left, right) -> (disparity, valid)`` of the LEFT image, with
     sub-pixel refinement and confidence masking (the cv::StereoSGBM(0, 64,
-    15) role). Runs in the inputs' dtype, at least float32."""
+    15) role). Runs in the inputs' dtype, at least float32. ``loop``:
+    ``"device"`` (the default on CUDA) replays the matcher's CUDA graph,
+    kept in ``graph`` (a ``MatcherGraph``) for the next pair of the same
+    key, or captured for this pair alone without one; ``"host"`` (the
+    default elsewhere) launches its kernels one by one and takes no
+    ``graph``. Both run one body and give the same bits."""
     dtype = torch.promote_types(left.dtype, torch.float32)
     left, right = left.to(dtype), right.to(dtype)
-    p1 = torch.tensor(p1, dtype=dtype, device=left.device)
-    p2 = torch.tensor(p2, dtype=dtype, device=left.device)
-
-    vol = _cost_volume(left, right, max_disp, block, prefilter_cap)
-    S = _sgm_aggregate(vol, p1, p2, directions)
-    disp, valid = _wta(S, uniqueness)
-
-    # left-right consistency: the right image's cost volume is a shear of
-    # the left's (cost_R[y, u, d] = cost_L[y, u+d, d]); a pixel survives
-    # iff its match maps back within lr_threshold.
-    D, H, W = S.shape
-    u = torch.arange(W, device=S.device)
-    ud = u + torch.arange(D, device=S.device)[:, None]  # [D, W]
-    S_r = S.gather(2, ud.clamp(0, W - 1)[:, None, :].expand(D, H, W))
-    S_r = torch.where((ud <= W - 1)[:, None, :], S_r, _BIG)
-    disp_r, valid_r = _wta(S_r, uniqueness)
-    # map left pixel u -> right pixel u - d
-    ur = (u - torch.round(disp).to(torch.int64)).clamp(0, W - 1)
-    d_back = disp_r.gather(1, ur)
-    vr_back = valid_r.gather(1, ur)
-    lr_ok = (disp - d_back).abs() <= lr_threshold
-    return disp, valid & lr_ok & vr_back
+    settings = MatchSettings(int(max_disp), int(block), float(p1), float(p2), float(uniqueness),
+                             float(lr_threshold), int(directions), float(prefilter_cap))
+    loop = graph_loop.resolve_loop(left.device, loop, "matcher loop", "match_loop")
+    if loop == "host":
+        if graph is not None:
+            raise ValueError("a MatcherGraph keeps the device matcher: match_loop='host' takes "
+                             "none")
+        return matcher_body(left, right, settings)()
+    own = graph is None
+    graph = MatcherGraph() if own else graph
+    try:
+        return graph.match(left, right, settings)
+    finally:
+        if own:
+            graph.close()
 
 
 def load_gray(path: str) -> torch.Tensor:

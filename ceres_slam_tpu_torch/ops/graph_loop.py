@@ -185,15 +185,19 @@ class CapturedCounts:
 class DeviceGraph:
     """``fn()`` captured once in a plain CUDA graph (no loop) and replayed on
     the current stream, on the pool every capture on ``device`` shares: a
-    window loop's restart (``solver/window.py``) is one replay. ``counted``
-    as ``DeviceWhile``'s: each replay adds the capture's counts once."""
+    window loop's restart (``solver/window.py``) and the dense matcher
+    (``frontend/dense_stereo.py``) are one replay each. ``counted`` as
+    ``DeviceWhile``'s: each replay adds the capture's counts once. A capture
+    that fails raises; ``capture_s`` and ``instantiate_s`` are the host
+    seconds of the capture and of its instantiation."""
 
     def __init__(self, fn: Callable[[], None], device: int, counted: Iterable = ()):
         if "create" not in _fns:
             build()
         counts = CapturedCounts(counted)
         pool = _pool(device)
-        self.graph = torch.cuda.CUDAGraph()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        t0 = time.perf_counter()
         with torch.cuda.device(device), torch.cuda.stream(capture_stream(device)):
             self.graph.capture_begin(pool=pool)
             try:
@@ -204,6 +208,9 @@ class DeviceGraph:
             finally:
                 counts.end()
             self.graph.capture_end()
+            t1 = time.perf_counter()
+            self.graph.instantiate()
+        self.capture_s, self.instantiate_s = t1 - t0, time.perf_counter() - t1
         self.counts, self.fn = counts, fn  # the graph reads what fn's closure holds
 
     def replay(self) -> None:
@@ -352,6 +359,21 @@ def _check_pred(pred: torch.Tensor, what: str) -> None:
     if pred.dtype != torch.int32 or pred.numel() != 1 or not pred.is_contiguous():
         raise ValueError(f"pred must be one contiguous int32, got {pred.dtype} of shape "
                          f"{tuple(pred.shape)}")
+
+
+def resolve_loop(device, loop: str | None, name: str = "LM loop",
+                 switch: str = "lm_loop") -> str:
+    """The form of a loop (``name``, set by ``switch``) on ``device``: on the
+    card (``"device"``, the default on CUDA: a WHILE node, or a captured
+    graph) or on the host (``"host"``, the default elsewhere). The device
+    form off the card raises, as does an unknown form: nothing falls
+    back."""
+    if loop not in (None, "device", "host"):
+        raise ValueError(f"unknown {name}: {loop!r}")
+    on_card = torch.device(device).type == "cuda"
+    if loop == "device" and not on_card:
+        raise ValueError(f"the device {name} runs on the card: use {switch}='host'")
+    return loop or ("device" if on_card else "host")
 
 
 def not_in_capture(what: str, where: str) -> None:

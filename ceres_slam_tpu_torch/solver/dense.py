@@ -22,9 +22,10 @@ On the card the LM solve runs its loop as one conditional WHILE node
 reads nothing on the host, because the gather tables (``block_tables``)
 and the sun and prior terms (``aux_terms``) are made once, before the
 loop, and ``dense_loop_inputs`` lists every tensor it reads, which a later
-solve of one shape copies into the captured ones (``lm.LMGraph``).
-``lm_loop="host"`` (the CPU's form) iterates the same body on the host:
-the same bits. The dogleg strategy is a host loop (``lm.dogleg_solve``).
+solve of one shape copies into the captured ones (``lm.LMGraph``). The
+dogleg strategy (``lm.dogleg_solve``) runs the same way, over the same
+tables and terms. ``lm_loop="host"`` (the CPU's form) iterates the same
+body on the host: the same bits.
 """
 
 from __future__ import annotations
@@ -423,6 +424,14 @@ def lm_functions(problem: StereoBAProblem, tables: BlockTables, terms: AuxTerms)
     return cost, lm.dense_cholesky_step(normal_eq), retract
 
 
+def dogleg_functions(problem: StereoBAProblem, tables: BlockTables, terms: AuxTerms):
+    """The dogleg loop's ``(cost_fn, normal_eq_fn, retract_fn)`` over the
+    solve's ``tables`` and ``terms`` (``lm_functions``' with the normal
+    equations in the step's place)."""
+    cost, _, retract = lm_functions(problem, tables, terms)
+    return cost, lambda s: ba_normal_equations(problem, s, tables, terms), retract
+
+
 def dense_loop_inputs(problem: StereoBAProblem, state0: BAState, terms: AuxTerms,
                       tables: BlockTables) -> tuple:
     """Every tensor the LM loop of the dense or Schur solve reads that can
@@ -441,22 +450,25 @@ def loop_key(problem: StereoBAProblem, solver: str) -> tuple:
 
 
 def minimize(problem: StereoBAProblem, state0: BAState, config: lm.SolveConfig, solver: str,
-             functions, lm_loop: str | None, graph: lm.LMGraph | None, widths: tuple | None):
-    """The LM solve of the dense (``solver="dense"``) or Schur solver:
-    ``functions(tables, terms)`` gives the LM core's functions over the
+             functions, lm_loop: str | None, graph: lm.LMGraph | None, widths: tuple | None,
+             run=lm.lm_solve):
+    """The LM solve of the dense (``solver="dense"``) or Schur solver, or
+    with ``run=lm.dogleg_solve`` the dense dogleg (``solver="dogleg"``):
+    ``functions(tables, terms)`` gives the loop's functions over the
     gather tables (``widths`` wide) and the sun and prior terms, both made
     here, once, before the loop. ``lm_loop``, ``graph``: ``lm_minimize``'s."""
-    lm_loop = lm.resolve_loop(state0.poses.device, lm_loop)
+    name = "dogleg loop" if solver == "dogleg" else "LM loop"
+    lm_loop = lm.resolve_loop(state0.poses.device, lm_loop, name)
     if lm_loop == "host" and graph is not None:
-        raise ValueError("an LMGraph keeps the device LM loop: lm_loop='host' takes none")
+        raise ValueError(f"an LMGraph keeps the device {name}: lm_loop='host' takes none")
     tables = block_tables(problem, widths)
     terms = aux_terms(problem)
     if lm_loop == "host":
-        return lm.lm_solve(state0, config, *functions(tables, terms), loop="host")
+        return run(state0, config, *functions(tables, terms), loop="host")
     state0 = lm.tree_map(torch.clone, state0)  # the loop's own: a restart copies into it
-    return lm.lm_solve(state0, config, *functions(tables, terms), loop="device", graph=graph,
-                       inputs=dense_loop_inputs(problem, state0, terms, tables),
-                       key=loop_key(problem, solver))
+    return run(state0, config, *functions(tables, terms), loop="device", graph=graph,
+               inputs=dense_loop_inputs(problem, state0, terms, tables),
+               key=loop_key(problem, solver))
 
 
 def lm_minimize(problem: StereoBAProblem, state0: BAState, config: lm.SolveConfig,
@@ -480,17 +492,15 @@ def solve_ba(problem: StereoBAProblem, state0: BAState,
              widths: tuple | None = None):
     """Minimize the BA cost on the dense system (``ceres::Solve`` with
     DENSE_SCHUR's role at window scale): ``strategy`` ``'lm'``
-    (Levenberg-Marquardt; ``lm_loop``, ``graph``, ``widths``:
-    ``lm_minimize``'s) or ``'dogleg'`` (Powell's dogleg, the reference's
-    ceres::DOGLEG; a host loop, so ``lm_loop="device"`` raises). Returns
+    (Levenberg-Marquardt) or ``'dogleg'`` (Powell's dogleg, the reference's
+    ceres::DOGLEG, ``lm.dogleg_solve``); for both, ``lm_loop``, ``graph``
+    and ``widths`` are ``lm_minimize``'s: the loop runs as one WHILE node
+    on the card by default, on the host with ``lm_loop="host"``. Returns
     ``(state, SolveSummary)``."""
     if strategy == "dogleg":
-        if lm_loop == "device" or graph is not None:
-            raise ValueError("the dogleg strategy runs on the host (lm.dogleg_solve): it takes "
-                             "no device LM loop")
-        return lm.dogleg_solve(state0, config, lambda s: ba_cost(problem, s),
-                               lambda s: ba_normal_equations(problem, s),
-                               lambda s, dx: _retract_state(problem, s, dx))
+        return minimize(problem, state0, config, "dogleg",
+                        lambda t, a: dogleg_functions(problem, t, a), lm_loop, graph, widths,
+                        run=lm.dogleg_solve)
     if strategy != "lm":
         raise ValueError(f"unknown strategy: {strategy!r}")
     return lm_minimize(problem, state0, config, lm_loop=lm_loop, graph=graph, widths=widths)

@@ -20,8 +20,8 @@ Observations keep the order they were added in; ``build()`` pads them to a
 multiple of 32 with invalid rows at pose 0 and landmark 0. On CUDA the
 ``pcg`` solver builds the full-batch plan of that order and runs the
 kernels K2 and K3 (``solver/pcg.py``); every LM solve (``dense``,
-``schur``, ``pcg``) runs its loop as a conditional WHILE node on the card
-by default (``lm_loop``); the dogleg strategy is a host loop.
+``schur``, ``pcg``) and the dense dogleg run their loop as a conditional
+WHILE node on the card by default (``lm_loop``).
 """
 
 from __future__ import annotations
@@ -157,9 +157,9 @@ class FactorGraph:
         ``linear_solver``: ``'dense'`` | ``'schur'`` | ``'pcg'`` (Ceres'
         DENSE_NORMAL_CHOLESKY / SPARSE_SCHUR / ITERATIVE_SCHUR);
         ``strategy`` (``'lm'`` | ``'dogleg'``) applies to ``'dense'``;
-        ``lm_loop`` (``'device'`` | ``'host'``): the LM loop of every
-        solver, a WHILE node on the card by default there (the dogleg is a
-        host loop: ``lm_loop='device'`` with it raises); ``cg_loop`` applies
+        ``lm_loop`` (``'device'`` | ``'host'``): the trust-region loop of
+        every solver and strategy, a WHILE node on the card by default
+        there (``'device'`` raises elsewhere); ``cg_loop`` applies
         to ``'pcg'``: its CG loop (``pcg.solve_ba_pcg``'s ``loop``, on the
         card by default too)."""
         if linear_solver != "pcg" and cg_loop:

@@ -1,4 +1,4 @@
-"""Levenberg-Marquardt trust-region loop, its configuration and report.
+"""Levenberg-Marquardt and dogleg trust-region loops, their configuration and report.
 
 Port of ``ceres_slam_tpu/solver/lm.py`` (``SolveConfig``, ``SolveSummary``,
 ``lm_solve``, ``dogleg_solve``, ``dense_cholesky_step``). The JAX loop is a
@@ -17,19 +17,22 @@ on the card (``ops/graph_loop.DeviceWhile``), one graph launch for the
 solve; the step may run a loop of its own inside (Schur-PCG's CG loop, a
 nested WHILE node). ``finish`` reads the summary once. ``inner_lm`` runs
 a whole LM solve inside a loop of the caller's (``apps/blowup.py``'s chain:
-a WHILE node nested in the chain's node on the card). The window
-solver's block-carrying loops (``solver/window.py``, ``solver/dogleg.py``)
-apply the same rules to B windows at once.
+a WHILE node nested in the chain's node on the card). Powell's dogleg
+(``dogleg_solve``) follows the same rules: ``DoglegCarry`` (the iterate,
+the trust radius, the cost, the gradient norm, the count, the done flag,
+the initial cost), ``dogleg_body`` and ``dogleg_loop``, iterated on the
+host or run in the same kind of node. The window solver's block-carrying
+loops (``solver/window.py``, ``solver/dogleg.py``) apply the same rules to
+B windows at once.
 
-On the card these ``lm_solve`` callers run the device loop: Schur-PCG
-(``solver/pcg.py``), the dense and Schur solves (``solver/dense.py``,
-``solver/schur.py``), the pose graph (``solver/pose_graph.py``, and
-``blowup``'s chain through ``inner_lm``) and Phong (``solver/phong.py``).
-These still run ``host_loop`` there: photometric alignment
-(``solver/photometric.py``) and the sharded LM loops
-(``parallel/sharded_ba.py``, ``parallel/sharded_pcg.py``).
-``dogleg_solve`` is still a host loop whose control reads four scalars an
-iteration.
+On the card these callers run the device loop: Schur-PCG
+(``solver/pcg.py``), the dense and Schur solves and the dense dogleg
+(``solver/dense.py``, ``solver/schur.py``), the pose graph
+(``solver/pose_graph.py``, and ``blowup``'s chain through ``inner_lm``),
+Phong (``solver/phong.py``) and photometric alignment
+(``solver/photometric.py``). Only the sharded LM loops
+(``parallel/sharded_ba.py``, ``parallel/sharded_pcg.py``) still run
+``host_loop`` there.
 """
 
 from __future__ import annotations
@@ -269,12 +272,10 @@ class LMLoop(NamedTuple):
     restart: object
 
 
-def lm_loop(state0, config: SolveConfig, cost_fn: Callable, step_fn: Callable,
-            retract_fn: Callable) -> LMLoop:
-    """The carry buffers and the body of the LM loop, on any device (on the
-    CPU the tests iterate ``body`` while ``pred``, as the WHILE node
-    does)."""
-    carry = tree_map(torch.clone, lm_start(state0, config, cost_fn))  # own buffers
+def _loop(start: Callable, step: Callable, config: SolveConfig) -> LMLoop:
+    """Carry buffers made from ``start()`` and a body that writes
+    ``step(carry)`` into them in place (any carry with ``it`` and ``done``)."""
+    carry = tree_map(torch.clone, start())  # own buffers
     bufs = leaves(carry)
     pred = active(carry, config).reshape(1).to(torch.int32)
 
@@ -284,13 +285,16 @@ def lm_loop(state0, config: SolveConfig, cost_fn: Callable, step_fn: Callable,
                 buf.copy_(t)
         pred.copy_(active(carry, config).reshape(1))
 
-    def body():
-        copy_in(lm_body(step_fn, cost_fn, retract_fn, config, carry))
+    return LMLoop(carry, pred, lambda: copy_in(step(carry)), lambda: copy_in(start()))
 
-    def restart():
-        copy_in(lm_start(state0, config, cost_fn))
 
-    return LMLoop(carry, pred, body, restart)
+def lm_loop(state0, config: SolveConfig, cost_fn: Callable, step_fn: Callable,
+            retract_fn: Callable) -> LMLoop:
+    """The carry buffers and the body of the LM loop, on any device (on the
+    CPU the tests iterate ``body`` while ``pred``, as the WHILE node
+    does)."""
+    return _loop(lambda: lm_start(state0, config, cost_fn),
+                 lambda c: lm_body(step_fn, cost_fn, retract_fn, config, c), config)
 
 
 def inner_lm(lp: LMLoop) -> None:
@@ -305,18 +309,8 @@ def inner_lm(lp: LMLoop) -> None:
     graph_loop.while_loop(lp.body, lp.pred)
 
 
-def resolve_loop(device, loop: str | None, name: str = "LM loop",
-                 switch: str = "lm_loop") -> str:
-    """The loop (``name``, set by ``switch``) a solve on ``device`` runs: a
-    WHILE node on the card (``"device"``, the default on CUDA) or the host
-    loop (``"host"``, the default elsewhere). The device loop off the card
-    raises, as does an unknown loop: nothing falls back."""
-    if loop not in (None, "device", "host"):
-        raise ValueError(f"unknown {name}: {loop!r}")
-    on_card = torch.device(device).type == "cuda"
-    if loop == "device" and not on_card:
-        raise ValueError(f"the device {name} runs on the card: use {switch}='host'")
-    return loop or ("device" if on_card else "host")
+# the loop's form on a device: a WHILE node on the card or the host loop
+resolve_loop = graph_loop.resolve_loop
 
 
 # the captures and restarts of every LMGraph of the process, and their host seconds
@@ -362,6 +356,18 @@ def device_loop(state0, config: SolveConfig, cost_fn: Callable, step_fn: Callabl
     which copies its ``inputs`` into this one's; without one it is this
     solve's alone. Returns ``finish``'s ``(state, SolveSummary)`` (new
     tensors). Raises on the CPU, and if the capture fails."""
+    return _node_solve(state0, config, lambda: lm_loop(state0, config, cost_fn, step_fn,
+                                                       retract_fn),
+                       lambda c: (c.best_state if config.nonmonotonic else c.state,
+                                  _stats(c, config)),
+                       config, counted, graph, inputs, key)
+
+
+def _node_solve(state0, config: SolveConfig, make_loop: Callable, readout: Callable,
+                report: SolveConfig, counted, graph, inputs, key):
+    """``device_loop`` for the loop ``make_loop()`` builds: ``readout(carry)``
+    gives the solution and the stats row that ``summary`` reads under
+    ``report``."""
     if leaves(state0)[0].device.type != "cuda":
         raise ValueError("the device LM loop runs on the card: use loop='host'")
     own = graph is None
@@ -370,7 +376,7 @@ def device_loop(state0, config: SolveConfig, cost_fn: Callable, step_fn: Callabl
     try:
         entry = graph.loops.get(key)
         if entry is None:
-            lp = lm_loop(state0, config, cost_fn, step_fn, retract_fn)
+            lp = make_loop()
             device = lp.pred.get_device()
             stream = graph_loop.capture_stream(device)
             stream.wait_stream(torch.cuda.current_stream())
@@ -391,10 +397,10 @@ def device_loop(state0, config: SolveConfig, cost_fn: Callable, step_fn: Callabl
             GRAPH_STATS["restart_s"] += time.perf_counter() - t0
         _, lp, node = entry
         node.launch()
-        host = torch.cat([_stats(lp.carry, config), node.count.to(torch.float64)]).cpu()
+        state, stats = readout(lp.carry)
+        host = torch.cat([stats, node.count.to(torch.float64)]).cpu()
         node.add_counts(host[-node.count.numel():].tolist())
-        state = lp.carry.best_state if config.nonmonotonic else lp.carry.state
-        return tree_map(torch.clone, state), summary(host, config)
+        return tree_map(torch.clone, state), summary(host, report)
     finally:
         if own:
             graph.close()
@@ -445,59 +451,114 @@ def cholesky_apply(L: torch.Tensor, b: torch.Tensor, columns: bool = False) -> t
     return x if columns else x[..., 0]
 
 
+class DoglegCarry(NamedTuple):
+    """The state of the dogleg loop (JAX's ``dogleg_solve`` carry), every
+    number a 0-d tensor in the cost's dtype but the count: the iterate, the
+    trust radius, the cost, the last gradient norm, the iteration count
+    (int32), the done flag and the initial cost."""
+
+    state: object
+    radius: torch.Tensor
+    cost: torch.Tensor
+    grad_norm: torch.Tensor
+    it: torch.Tensor  # int32
+    done: torch.Tensor  # bool
+    cost0: torch.Tensor
+
+
+def dogleg_start(state0, cost_fn: Callable, init_radius: float) -> DoglegCarry:
+    """The dogleg carry before the first iteration."""
+    cost0 = cost_fn(state0)
+    dt, dev = cost0.dtype, cost0.device
+    return DoglegCarry(state=state0, radius=torch.full((), init_radius, dtype=dt, device=dev),
+                       cost=cost0, grad_norm=torch.full((), math.inf, dtype=dt, device=dev),
+                       it=torch.zeros((), dtype=torch.int32, device=dev),
+                       done=torch.zeros((), dtype=torch.bool, device=dev), cost0=cost0)
+
+
+def dogleg_body(cost_fn: Callable, normal_eq_fn: Callable, retract_fn: Callable,
+                config: SolveConfig, c: DoglegCarry) -> DoglegCarry:
+    """One dogleg iteration (``ceres_slam_tpu/solver/lm.py::dogleg_solve``'s
+    ``body``): the Gauss-Newton step of ``(H + 1e-10 I) dx = -g`` (``-g``
+    where it is not finite), the Cauchy step, their blend on the radius,
+    the candidate's cost, the radius rule. Pure; the branches are
+    ``torch.where``s."""
+    H, g = normal_eq_fn(c.state)
+    dt, r = c.cost.dtype, c.radius
+    grad_norm = g.abs().amax().to(dt)
+    eye = torch.eye(H.shape[0], dtype=H.dtype, device=H.device)
+    dx_gn = cholesky_apply(_cholesky_or_nan(H + 1e-10 * eye), -g)
+    dx_gn = torch.where(torch.all(torch.isfinite(dx_gn)), dx_gn, -g)
+    alpha = (g @ g) / torch.clamp(g @ (H @ g), min=1e-30)
+    dx_sd = -alpha * g
+    n_gn, n_sd = torch.linalg.norm(dx_gn), torch.linalg.norm(dx_sd)
+    d = dx_gn - dx_sd
+    a, b = d @ d, 2.0 * (dx_sd @ d)
+    cc = dx_sd @ dx_sd - r ** 2
+    beta = (-b + torch.sqrt(torch.clamp(b * b - 4 * a * cc, min=0.0))) / torch.clamp(
+        2 * a, min=1e-30)
+    blend = dx_sd + torch.clamp(beta, 0.0, 1.0) * d
+    dx = torch.where(n_gn <= r, dx_gn, torch.where(
+        n_sd >= r, dx_sd * (r / torch.clamp(n_sd, min=1e-30)), blend))
+    new_state = retract_fn(c.state, dx)
+    new_cost = cost_fn(new_state).to(dt)
+    pred = (-(g @ dx + 0.5 * dx @ (H @ dx))).to(dt)
+    actual = c.cost - new_cost
+    rho = actual / torch.clamp(pred, min=1e-30)
+    accept = torch.isfinite(new_cost) & (actual > 0.0)
+    radius = torch.where(rho > 0.75, torch.maximum(r, 3.0 * torch.linalg.norm(dx).to(dt)),
+                         torch.where(rho < 0.25, r * 0.5, r))
+    radius = torch.clamp(torch.where(accept, radius, r * 0.25), 1e-12, 1e12)
+    small = accept & (actual >= 0.0) & (actual <= config.ftol * torch.clamp(c.cost, min=1e-30))
+    done = small | (grad_norm <= config.gtol) | (radius <= 1e-11)
+    return DoglegCarry(state=_select(accept, new_state, c.state), radius=radius,
+                       cost=torch.where(accept, new_cost, c.cost), grad_norm=grad_norm,
+                       it=c.it + 1, done=done, cost0=c.cost0)
+
+
+def dogleg_loop(state0, config: SolveConfig, cost_fn: Callable, normal_eq_fn: Callable,
+                retract_fn: Callable, init_radius: float = 1e4) -> LMLoop:
+    """The carry buffers and the body of the dogleg loop (``lm_loop``'s
+    form: ``body``, ``restart``, ``pred``)."""
+    return _loop(lambda: dogleg_start(state0, cost_fn, init_radius),
+                 lambda c: dogleg_body(cost_fn, normal_eq_fn, retract_fn, config, c), config)
+
+
+def _dogleg_stats(c: DoglegCarry) -> torch.Tensor:
+    """``_stats``' first six entries for a dogleg carry (the radius in the
+    damping's place, no linear iterations)."""
+    f64 = torch.float64
+    return torch.stack([x.to(f64) for x in (c.it, c.cost0, c.cost, c.grad_norm, c.radius,
+                                            torch.zeros_like(c.it))])
+
+
 def dogleg_solve(state0, config: SolveConfig, cost_fn: Callable, normal_eq_fn: Callable,
-                 retract_fn: Callable, init_radius: float = 1e4):
+                 retract_fn: Callable, init_radius: float = 1e4, loop: str | None = None,
+                 graph: LMGraph | None = None, inputs: tuple = (), key=None):
     """Powell's dogleg trust-region minimizer over a dense system (Ceres'
     DOGLEG): the Gauss-Newton step of ``(H + 1e-10 I) dx = -g`` (``-g``
     where that step is not finite), the Cauchy step ``-(g.g / g.H g) g``,
     and their blend on the trust radius, which grows past rho 0.75 and
     shrinks below 0.25 or on a rejected step, clipped to [1e-12, 1e12].
     ``normal_eq_fn(state)`` returns the dense ``(H, g)``. Returns ``(state,
-    SolveSummary)`` with the final radius in ``final_lambda``; the step is
-    chosen on the device and the control reads four scalars per
-    iteration."""
-    cost0 = cost = float(cost_fn(state0))
-    state, radius, grad_norm, it = state0, float(init_radius), math.inf, 0
-    f64 = torch.float64
-    while it < config.max_iters:
-        H, g = normal_eq_fn(state)
-        eye = torch.eye(H.shape[0], dtype=H.dtype, device=H.device)
-        dx_gn = torch.cholesky_solve(-g[:, None], _cholesky_or_nan(H + 1e-10 * eye))[:, 0]
-        dx_gn = torch.where(torch.all(torch.isfinite(dx_gn)), dx_gn, -g)
-        alpha = (g @ g) / torch.clamp(g @ (H @ g), min=1e-30)
-        dx_sd = -alpha * g
-        n_gn, n_sd = torch.linalg.norm(dx_gn), torch.linalg.norm(dx_sd)
-        d = dx_gn - dx_sd
-        a, b = d @ d, 2.0 * (dx_sd @ d)
-        cc = dx_sd @ dx_sd - radius ** 2
-        beta = (-b + torch.sqrt(torch.clamp(b * b - 4 * a * cc, min=0.0))) / torch.clamp(
-            2 * a, min=1e-30)
-        blend = dx_sd + torch.clamp(beta, 0.0, 1.0) * d
-        dx = torch.where(n_gn <= radius, dx_gn, torch.where(
-            n_sd >= radius, dx_sd * (radius / torch.clamp(n_sd, min=1e-30)), blend))
-        new_state = retract_fn(state, dx)
-        pred_t = -(g @ dx + 0.5 * dx @ (H @ dx))
-        grad_norm, new_cost, pred, n_dx = torch.stack(
-            [x.to(f64) for x in (g.abs().max(), cost_fn(new_state), pred_t,
-                                 torch.linalg.norm(dx))]).tolist()
+    SolveSummary)`` with the final radius in ``final_lambda``.
 
-        actual = cost - new_cost
-        rho = actual / max(pred, 1e-30)
-        accept = math.isfinite(new_cost) and actual > 0.0
-        if not accept:
-            radius *= 0.25
-        elif rho > 0.75:
-            radius = max(radius, 3.0 * n_dx)
-        elif rho < 0.25:
-            radius *= 0.5
-        radius = min(max(radius, 1e-12), 1e12)
-        small = accept and actual <= config.ftol * max(cost, 1e-30)
-        if accept:
-            state, cost = new_state, new_cost
-        it += 1
-        if small or grad_norm <= config.gtol or radius <= 1e-11:
-            break
-    return state, SolveSummary(it, cost0, cost, grad_norm, radius)
+    ``loop``: ``"host"`` (the default) iterates ``dogleg_body`` on the host,
+    ``"device"`` runs it in a WHILE node on the card (``device_loop``'s
+    ``graph``, ``inputs`` and ``key``); the two give the same bits."""
+    loop = loop or "host"
+    report = config._replace(record_history=False)
+    if loop == "device":
+        return _node_solve(state0, config, lambda: dogleg_loop(
+            state0, config, cost_fn, normal_eq_fn, retract_fn, init_radius),
+            lambda c: (c.state, _dogleg_stats(c)), report, (), graph, inputs,
+            ("dogleg", init_radius, key))
+    if loop != "host":
+        raise ValueError(f"unknown LM loop: {loop!r}")
+    c = dogleg_start(state0, cost_fn, init_radius)
+    while bool(active(c, config)):
+        c = dogleg_body(cost_fn, normal_eq_fn, retract_fn, config, c)
+    return c.state, summary(_dogleg_stats(c).cpu(), report)
 
 
 def dense_cholesky_step(normal_eq_fn: Callable):

@@ -89,11 +89,23 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
   dense    dense photometric alignment through the dense_stereo CLI at
            240x320 (68,096 aligned pixels), float64: rendered disparities
            (--gt-disparity) against the JAX figures, the full chain (SGM,
-           Sobel, alignment) against the JAX figures, and --images on three
-           rendered .npy files; then the photometric rate of
-           scripts/bench_xl.py (float32, 20 LM iterations under
-           run_full_budget, 3 timed repetitions after a warm-up); K4
-           launches at least twice per LM iteration
+           Sobel, alignment) against the JAX figures, both as --pairs 3
+           (pair 0 is the JAX figures' seed), and --images on three
+           rendered .npy files, each run with --lm-loop device --match-loop
+           device (the LM loop one WHILE node with K4 inside, the matcher
+           one captured CUDA graph) and then both on the host: the same
+           iterations, costs, pose and valid pixels bit for bit in every
+           pair, in the device form one capture each in the first pair and
+           a restart of the node and a replay of the matcher in every later
+           one, the CLI walls of every pair in both forms; K4 launched
+           twice an LM iteration plus once a pair in either form; the
+           matcher at 240x320 (float32) as a graph and eagerly in turns:
+           capture and instantiation seconds, the walls, the replays
+           bit-equal; then
+           the photometric rate of scripts/bench_xl.py (float32, 20 LM
+           iterations under run_full_budget) in both LM loop forms, the
+           node restarted through one LMGraph, 3 timed repetitions each in
+           turns, and the node's device us per LM iteration (CUDA events)
   phong    Phong-illumination BA through the dataset_ba_phong CLI: phong200
            (make_sim --kind phong --num-states 200 --num-points 1000: K=200,
            J=1,000 vertices, ~31k observations, 3 materials, a point light)
@@ -113,11 +125,11 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            factor with the sim's covariance, added landmark by landmark),
            solved with dense, schur, pcg (K2 and K3 through the full-batch
            plan of that row order) and dense + dogleg, the final costs
-           against each other and the JAX figures, covariance(1) against
-           the CPU's; dense and schur with their LM loop in its WHILE node
-           (the default on the card, one capture a solve), then on the host
-           and in the node again: the same iterations and bits, the walls
-           in turns; kitti1100 (N 124,480, J 16,640) with pcg against the
+           against each other and the JAX figures (dogleg: 6 iterations),
+           covariance(1) against the CPU's; dense, schur and the dense
+           dogleg with their loop in its WHILE node (the default on the
+           card, one capture a solve), then on the host and in the node
+           again: the same iterations and bits, the walls in turns; kitti1100 (N 124,480, J 16,640) with pcg against the
            JAX figure, K2's and K3's launches printed (pcg's CG loop runs
            in the WHILE node on the card); then triangle200's dataset_vo
            --window 2 --linear-solver dense (199 windows) with --lm-loop
@@ -185,7 +197,12 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            3 and 12 LM iterations) and the host's launches, syncs and
            copies a solve, which must not grow with the iterations;
            a trace of one photometric rate
-           solve (device busy share, launches per LM iteration); and, after
+           solve with the host loop (device busy share, launches per LM
+           iteration), the photometric LM node restarted for 3 and 12 LM
+           iterations (host launches, graph launches, syncs and copies,
+           which must be equal, with one graph launch), and one matcher
+           pair eagerly and replayed (launches, graph launches, device
+           kernels, busy share); and, after
            the phong phase, phong200's joint stage (float64, vertex-Schur)
            in both LM loop forms: 5 LM iterations of the host loop traced,
            and the WHILE node restarted for 5 and 15 LM iterations (host
@@ -1221,7 +1238,9 @@ def phase_profile(torch, jobs, dense: bool, phong: bool, data, smi, blowup: bool
         problem, state0, _ = dense_stereo.synthetic_problem(240, 320, dtype=torch.float32,
                                                             device="cuda")
         cfg = SolveConfig(max_iters=20, ftol=0.0, gtol=0.0, run_full_budget=True)
-        _profile_solve(torch, lambda: photometric.solve_photometric(problem, state0, cfg))
+        _profile_solve(torch, lambda: photometric.solve_photometric(problem, state0, cfg,
+                                                                    lm_loop="host"))
+        _profile_photometric_node(torch, smi)
     if phong:
         _profile_phong(torch, data, smi)
     if grid:
@@ -1946,25 +1965,26 @@ def _graph_solve(ds, linear_solver, strategy, device, kernels, lm_loop=None):
                                                "captures": lm.GRAPH_STATS["captures"] - captures}
 
 
-def _graph_turns(ds, linear_solver, kernels, first, wall, smi):
-    """A triangle200 FactorGraph solve (dense or schur) whose default run
-    (``first``, the LM loop in its WHILE node) is followed by the host loop
-    and the node again: the same iterations, summary, poses and points bit
-    for bit, one capture a node run; the walls of both forms."""
+def _graph_turns(ds, linear_solver, strategy, kernels, first, wall, smi):
+    """A triangle200 FactorGraph solve (dense or schur LM, or the dense
+    dogleg) whose default run (``first``, the loop in its WHILE node) is
+    followed by the host loop and the node again: the same iterations,
+    summary, poses and points bit for bit, one capture a node run; the
+    walls of both forms."""
     import numpy as np
 
     g0, summ0 = first
     walls = {"device": [wall], "host": []}
     for loop in ("host", "device"):
-        g, summ, w, launches = _graph_solve(ds, linear_solver, "lm", "cuda", kernels, loop)
+        g, summ, w, launches = _graph_solve(ds, linear_solver, strategy, "cuda", kernels, loop)
         walls[loop].append(w)
         same = (summ == summ0 and np.array_equal(np.stack(g._poses), np.stack(g0._poses))
                 and np.array_equal(np.stack(g._points), np.stack(g0._points)))
         if not same or launches["captures"] != (loop == "device"):
-            fail(f"triangle200 FactorGraph({linear_solver}) with lm_loop={loop}: not the default "
-                 f"run's bits ({summ.iterations} vs {summ0.iterations} iterations) or "
+            fail(f"triangle200 FactorGraph({linear_solver}, {strategy}) with lm_loop={loop}: not "
+                 f"the default run's bits ({summ.iterations} vs {summ0.iterations} iterations) or "
                  f"{launches['captures']} captures")
-    log(f"[graph] triangle200 {linear_solver} lm, the LM loop device / host / device in turns "
+    log(f"[graph] triangle200 {linear_solver} {strategy}, the loop device / host / device in turns "
         f"({smi}): the same {summ0.iterations} iterations and bits; solve walls " + "; ".join(
             f"{k} " + ", ".join(f"{x:.3f}" for x in v) + " s" for k, v in walls.items()))
 
@@ -2023,11 +2043,13 @@ def phase_graph(kernels, data, smi):
         costs = []
         for (linear_solver, strategy), (ref_it, ref_cost) in JAX_GRAPH[seq].items():
             g, summ, wall, launches = _graph_solve(ds, linear_solver, strategy, "cuda", kernels)
-            if (seq, strategy) == ("triangle200", "lm") and linear_solver in ("dense", "schur"):
+            if seq == "triangle200" and linear_solver in ("dense", "schur"):
                 if launches["captures"] != 1:
-                    fail(f"FactorGraph({linear_solver}) at its default: {launches['captures']} "
-                         "LM loop captures, not 1 (the WHILE node)")
-                _graph_turns(ds, linear_solver, kernels, (g, summ), wall, smi)
+                    fail(f"FactorGraph({linear_solver}, {strategy}) at its default: "
+                         f"{launches['captures']} loop captures, not 1 (the WHILE node)")
+                _graph_turns(ds, linear_solver, strategy, kernels, (g, summ), wall, smi)
+            if strategy == "dogleg" and summ.iterations != ref_it:
+                fail(f"{seq} dense dogleg: {summ.iterations} iterations, JAX {ref_it}")
             for name in total:
                 total[name] += launches[name]
             dev = abs(summ.final_cost - ref_cost) / ref_cost
@@ -2243,57 +2265,248 @@ def _check_phong(label, path, stats, loop, smi):
              f"{ref_costs} / {ref_ate:.6f}")
 
 
-def _run_dense(label, argv, device, k4):
-    """One dense_stereo CLI run with K4's launches counted from 0."""
+DENSE_FORMS = (("device", "device"), ("host", "host"))  # (--lm-loop, --match-loop)
+
+
+def _run_dense(label, argv, device, k4, loops=None):
+    """One dense_stereo CLI run with K4's launches counted from 0; on the
+    card ``loops`` is (``--lm-loop``, ``--match-loop``). K4 must launch
+    twice an LM iteration and once for the start in either form, in every
+    pair of a ``--pairs`` run."""
     from ceres_slam_tpu_torch.apps import dense_stereo
 
+    extra = ["--lm-loop", loops[0], "--match-loop", loops[1]] if loops else []
     k4.launches = 0
-    stats = dense_stereo.main([*argv, "--device", device])
+    stats = dense_stereo.main([*argv, *extra, "--device", device])
     stats["launches"] = k4.launches
-    if not all(math.isfinite(x) for x in stats["T"]) or not stats["final_cost"] < stats["initial_cost"]:
+    pairs = [stats, *stats.get("later_pairs", [])]
+    if not all(math.isfinite(x) and st["final_cost"] < st["initial_cost"]
+               for st in pairs for x in st["T"]):
         fail(f"dense_stereo {argv} on {device}: pose not finite or cost not decreased")
-    if device == "cuda" and stats["launches"] < 2 * stats["iterations"]:
-        fail(f"dense_stereo {argv}: {stats['launches']} K4 launches for {stats['iterations']} "
-             "LM iterations")
-    log(f"[dense] {label} {device}: "
+    want = sum(2 * st["iterations"] + 1 for st in pairs)
+    if device == "cuda" and stats["launches"] != want:
+        fail(f"dense_stereo {argv} {extra}: {stats['launches']} K4 launches for "
+             f"{[st['iterations'] for st in pairs]} LM iterations (not 2 an iteration plus 1 "
+             "a pair)")
+    form = f" --lm-loop {loops[0]} --match-loop {loops[1]}" if loops else ""
+    log(f"[dense] {label} {device}{form}: "
         f"{stats['size'][0]}x{stats['size'][1]}, {stats['pixels_valid']} / {stats['pixels_total']} "
         f"pixels, cost {stats['initial_cost']:.6e} -> {stats['final_cost']:.6e} in "
-        f"{stats['iterations']} LM iterations, K4 launches {stats['launches']}; matcher "
+        f"{stats['iterations']} LM iterations, K4 launches {stats['launches']}; LM loop captures "
+        f"{stats['lm_graph_captures']}, matcher captures {stats['match_graph_captures']}; matcher "
         f"{stats['matcher_s']:.3f} s, alignment {stats['align_s']:.3f} s, total {stats['total_s']:.3f} s")
     return stats
 
 
-def _photometric_rate(k4):
-    """scripts/bench_xl.py's photometric rate on the port: the 240x320
-    --gt-disparity problem in float32, 20 LM iterations under
-    run_full_budget (every iteration a full step and candidate cost), 3
-    timed repetitions after a warm-up."""
+def _dense_forms(label, argv, k4, matched):
+    """The run in both forms (``DENSE_FORMS``): the node and the captured
+    matcher, then both on the host. They must give the same iterations,
+    costs, pose and valid pixels bit for bit in every pair, and in the
+    device form the first pair captures once each (the matcher only where
+    the run matches: ``matched``) and every later pair of a ``--pairs`` run
+    restarts the node and replays the matcher. Returns the device form's
+    stats, with both forms' K4 launches summed."""
+    runs = [_run_dense(label, argv, "cuda", k4, loops) for loops in DENSE_FORMS]
+    keys = ("iterations", "initial_cost", "final_cost", "T", "pixels_valid",
+            "matcher_median_derr")
+    forms = [[st, *st.get("later_pairs", [])] for st in runs]
+    for loops, pairs in zip(DENSE_FORMS, forms):
+        for i, (st, ref) in enumerate(zip(pairs, forms[0])):
+            want = ((1, 0, int(matched)) if i == 0 else (0, 1, 0)) if loops[0] == "device" else (
+                0, 0, 0)
+            got = (st["lm_graph_captures"], st["lm_graph_restarts"], st["match_graph_captures"])
+            if got != want:
+                fail(f"{label} with {loops}, pair {i}: (LM loop captures, restarts, matcher "
+                     f"captures) {got}, not {want}")
+            if any(st.get(k) != ref.get(k) for k in keys):
+                fail(f"{label}, pair {i}: --lm-loop/--match-loop {loops} gave other bits than "
+                     f"{DENSE_FORMS[0]}: " + ", ".join(f"{k} {st.get(k)} vs {ref.get(k)}"
+                                                      for k in keys if st.get(k) != ref.get(k)))
+    first = runs[0]
+
+    def walls(pairs):
+        return " / ".join(f"{st['matcher_s']:.3f} + {st['align_s']:.3f}" for st in pairs)
+
+    log(f"[dense] {label}: the node and the captured matcher give the host forms' bits in "
+        f"{len(forms[0])} pair(s) ({first['iterations']} LM iterations, cost "
+        f"{first['final_cost']!r} in pair 0); CLI walls, matcher + alignment s a pair (the "
+        f"device form's first pair includes its captures): device {walls(forms[0])}; host "
+        f"{walls(forms[1])}")
+    return {**first, "launches": sum(st["launches"] for st in runs)}
+
+
+def _matcher_times(smi):
+    """The matcher at 240x320 (float32, max_disp 48, 4 directions) as one
+    captured graph and launch by launch: the capture's and the
+    instantiation's host seconds, then 5 rounds over two pairs (the
+    rendered one and the same with noise), each pair replayed and run
+    eagerly in turns (host wall to a synchronize, median and range), every
+    replay bit-equal to the eager run of its pair."""
+    import numpy as np
     import torch
 
     from ceres_slam_tpu_torch.apps import dense_stereo
-    from ceres_slam_tpu_torch.solver import photometric
+    from ceres_slam_tpu_torch.frontend import dense_stereo as front
+
+    out = dense_stereo.make_scene(240, 320, stereo=True, device="cuda")
+    rng = np.random.default_rng(0)
+    pair = (out[1].float(), out[7].float())
+    pairs = [pair, tuple(x + torch.as_tensor(rng.normal(0, 0.02, x.shape), dtype=x.dtype,
+                                             device="cuda") for x in pair)]
+    graph, stats = front.MatcherGraph(), front.MATCH_STATS
+    before = dict(stats)
+    t0 = time.perf_counter()
+    front.match_disparity(*pair, max_disp=48, loop="device", graph=graph)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    walls = {"device": [], "host": []}
+    for _ in range(5):
+        for left, right in pairs:
+            res = {}
+            for loop in ("device", "host"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res[loop] = front.match_disparity(left, right, max_disp=48, loop=loop,
+                                                  graph=graph if loop == "device" else None)
+                torch.cuda.synchronize()
+                walls[loop].append(time.perf_counter() - t0)
+            if not all(torch.equal(a, b) for a, b in zip(res["device"], res["host"])):
+                fail("the matcher's graph replay differs from its eager run")
+    graph.close()
+    if stats["captures"] - before["captures"] != 1:
+        fail(f"the matcher captured {stats['captures'] - before['captures']} times, not once")
+    log(f"[dense] matcher 240x320 float32, max_disp 48, 4 directions ({smi}): capture "
+        f"{stats['capture_s'] - before['capture_s']:.3f} s, instantiation "
+        f"{stats['instantiate_s'] - before['instantiate_s']:.3f} s, first call with its "
+        f"warm-up and capture {first_s:.3f} s; wall per pair, two pairs in turns "
+        "(median of 10, min-max): " + "; ".join(
+            f"{k} {statistics.median(v) * 1e3:.2f} ms ({min(v) * 1e3:.2f}-{max(v) * 1e3:.2f})"
+            for k, v in walls.items()) + "; every replay bit-equal to its pair's eager run")
+
+
+def _photometric_rate(k4, smi):
+    """scripts/bench_xl.py's photometric rate on the port: the 240x320
+    --gt-disparity problem in float32, 20 LM iterations under
+    run_full_budget (every iteration a full step and candidate cost), in
+    both LM loop forms: the node through one LMGraph (captured by a warm-up
+    solve, restarted after) and the host loop, 3 timed repetitions each in
+    turns (device, host, host, device), the two forms' results bit-equal.
+    For the node, its device time per LM iteration by CUDA events around
+    the restarted node (the profiler sees a node's first pass only) and
+    its share of the solve's wall. Returns K4's launches."""
+    import torch
+
+    from ceres_slam_tpu_torch.apps import dense_stereo
+    from ceres_slam_tpu_torch.solver import lm, photometric
     from ceres_slam_tpu_torch.solver.lm import SolveConfig
 
     problem, state0, _ = dense_stereo.synthetic_problem(240, 320, dtype=torch.float32,
                                                         device="cuda")
     cfg = SolveConfig(max_iters=20, ftol=0.0, gtol=0.0, run_full_budget=True)
+    graph = lm.LMGraph()
+
+    def solve(loop):
+        return photometric.solve_photometric(problem, state0, cfg, lm_loop=loop,
+                                             graph=graph if loop == "device" else None)
+
     k4.launches = 0
-    t0 = time.perf_counter()
-    _, summary = photometric.solve_photometric(problem, state0, cfg)
-    warm_s = time.perf_counter() - t0
+    warm = {}
+    for loop in ("device", "host"):
+        t0 = time.perf_counter()
+        warm[loop] = solve(loop)
+        torch.cuda.synchronize()
+        warm[loop] += (time.perf_counter() - t0,)
     launches = k4.launches
-    if summary.iterations != 20 or launches < 40:
-        fail(f"photometric rate: {summary.iterations} iterations, {launches} K4 launches")
-    t0 = time.perf_counter()
-    for _ in range(3):
-        _, summary = photometric.solve_photometric(problem, state0, cfg)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    rate = {"metric": "photometric_it_s", "pixels": problem.ref_uv.shape[0], "H": 240, "W": 320,
-            "dtype": "float32", "it_s": 3 * 20 / dt, "warmup_s": warm_s,
-            "final_cost": summary.final_cost}
-    log(f"[dense] {json.dumps(rate)}; K4 launches per solve {launches}")
-    return k4.launches
+    (sd, md, _), (sh, mh, _) = warm["device"], warm["host"]
+    if not (md == mh and torch.equal(sd.T, sh.T) and torch.equal(sd.disparities, sh.disparities)):
+        fail(f"photometric rate: the node and the host loop differ ({md} vs {mh})")
+    if md.iterations != 20 or launches != 2 * 41:
+        fail(f"photometric rate: {md.iterations} iterations, {launches} K4 launches in both "
+             "forms (not 2 x 41)")
+    walls = {"device": [], "host": []}
+    for loop in ("device", "host", "host", "device"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            _, summary = solve(loop)
+        torch.cuda.synchronize()
+        walls[loop].append(time.perf_counter() - t0)
+    _, lp, node = next(iter(graph.loops.values()))
+    times = []
+    for _ in range(6):
+        lp.restart()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        node.launch()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    node_ms = statistics.median(times[1:])
+    graph.close()
+    for loop, w in walls.items():
+        solve_s = statistics.median(w) / 3
+        rate = {"metric": "photometric_it_s", "lm_loop": loop, "pixels": problem.ref_uv.shape[0],
+                "H": 240, "W": 320, "dtype": "float32", "it_s": 20 / solve_s,
+                "solve_ms": solve_s * 1e3, "warmup_s": warm[loop][-1],
+                "final_cost": summary.final_cost, "card": smi}
+        if loop == "device":
+            rate.update(node_us_per_iteration=node_ms * 1e3 / 20,
+                        node_share_of_wall=node_ms / (solve_s * 1e3))
+        log(f"[dense] {json.dumps(rate)}")
+    log(f"[dense] photometric rate: K4 launches per solve {launches // 2} in either form; the "
+        f"node {node_ms:.3f} ms for 20 LM iterations ({node_ms * 50:.1f} us each, CUDA events)")
+    return launches
+
+
+def _profile_photometric_node(torch, smi):
+    """The photometric LM node (240x320 --gt-disparity, float32,
+    run_full_budget), restarted through an LMGraph, under torch.profiler
+    at 3 and at 12 LM iterations: the host's launches, graph launches,
+    syncs and copies a solve must be equal (none per LM iteration), with
+    one graph launch."""
+    from ceres_slam_tpu_torch.apps import dense_stereo
+    from ceres_slam_tpu_torch.solver import lm, photometric
+    from ceres_slam_tpu_torch.solver.lm import SolveConfig
+
+    problem, state0, _ = dense_stereo.synthetic_problem(240, 320, dtype=torch.float32,
+                                                        device="cuda")
+    keys = ("launches", "graph_launches", "syncs", "copies")
+    res = {}
+    for n in (3, 12):
+        cfg = SolveConfig(max_iters=n, ftol=0.0, gtol=0.0, run_full_budget=True)
+        graph = lm.LMGraph()
+        photometric.solve_photometric(problem, state0, cfg, graph=graph)  # the capture
+        res[n] = _trace(torch, lambda: photometric.solve_photometric(problem, state0, cfg,
+                                                                     graph=graph))
+        graph.close()
+    grow = {k: res[12][k] - res[3][k] for k in keys}
+    log(f"[profile] photometric LM node, float32 240x320, restarted ({smi}): 3 / 12 LM "
+        "iterations: " + ", ".join(f"{res[3][k]:g} / {res[12][k]:g} {k.replace('_', ' ')}"
+                                   for k in keys)
+        + "; per LM iteration " + ", ".join(f"{grow[k] / 9:g} {k.replace('_', ' ')}"
+                                            for k in keys))
+    if any(grow.values()):
+        fail(f"photometric LM node: host work grows with the LM iterations: {grow} for 9 more")
+    if res[3]["graph_launches"] != 1:
+        fail(f"photometric LM node: {res[3]['graph_launches']:g} graph launches, not 1")
+    from ceres_slam_tpu_torch.frontend import dense_stereo as front
+
+    out = dense_stereo.make_scene(240, 320, stereo=True, device="cuda")
+    left, right = out[1].float(), out[7].float()
+    graph = front.MatcherGraph()
+    runs = {loop: (lambda loop=loop: front.match_disparity(
+        left, right, max_disp=48, loop=loop, graph=graph if loop == "device" else None))
+        for loop in ("host", "device")}
+    runs["device"]()  # the capture
+    tr = {loop: _trace(torch, fn) for loop, fn in runs.items()}
+    graph.close()
+    log(f"[profile] matcher 240x320 float32 ({smi}), one pair: " + "; ".join(
+        f"{loop}: " + ", ".join(f"{t[k]:g} {k.replace('_', ' ')}" for k in keys)
+        + f", {t['kernels']:g} device kernels, device busy {t['device_us'] / 1e3:.2f} ms of a "
+        f"{t['wall_us'] / 1e3:.2f} ms wall (profiled)" for loop, t in tr.items()))
+    if tr["device"]["graph_launches"] != 1 or tr["device"]["launches"] >= tr["host"]["launches"]:
+        fail(f"the matcher's replay: {tr['device']} against the eager run's {tr['host']}")
 
 
 def _profile_solve(torch, solve):
@@ -2314,7 +2527,8 @@ def _profile_solve(torch, solve):
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
     k4 = [e.device_time_total for e in events if "bilinear_packed_kernel" in e.name]
-    log(f"[profile] one 20-iteration photometric solve (float32, 240x320): wall {wall_us / 1e3:.2f} ms (profiled), "
+    log(f"[profile] one 20-iteration photometric solve, LM loop host (float32, 240x320): wall "
+        f"{wall_us / 1e3:.2f} ms (profiled), "
         f"device busy {busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.2f}%), {len(events)} "
         f"device events ({len(events) / 20:.1f} per LM iteration); K4 {len(k4)} calls, "
         f"{sum(k4) / max(len(k4), 1):.2f} us of device time each")
@@ -2322,16 +2536,18 @@ def _profile_solve(torch, solve):
         log(f"[profile]   {us / 1e3:8.3f} ms  {name[:100]}")
 
 
-def phase_dense(kernels, data):
-    """The dense photometric slice on CUDA; returns K4's launches and the
-    --gt-disparity run's pose."""
+def phase_dense(kernels, data, smi):
+    """The dense photometric slice on CUDA, each run in both forms (the LM
+    node and the captured matcher, then both on the host); returns K4's
+    launches and the --gt-disparity run's pose."""
     import numpy as np
 
     from ceres_slam_tpu_torch.apps import dense_stereo
 
     k4 = kernels["K4"].bilinear_sample_packed
     total = 0
-    gt = _run_dense("--gt-disparity", DENSE_ARGS + ["--gt-disparity"], "cuda", k4)
+    gt = _dense_forms("--gt-disparity", DENSE_ARGS + ["--gt-disparity", "--pairs", "3"], k4,
+                      False)
     total += gt["launches"]
     ref = JAX_DENSE_GT
     cost_dev = abs(gt["final_cost"] - ref["final_cost"]) / ref["final_cost"]
@@ -2344,7 +2560,7 @@ def phase_dense(kernels, data):
             and abs(gt["pose_err1"] - ref["err1"]) <= DENSE_GT_ERR_ATOL):
         fail("the --gt-disparity run disagrees with the JAX figures")
 
-    chain = _run_dense("full chain", DENSE_ARGS, "cuda", k4)
+    chain = _dense_forms("full chain", DENSE_ARGS + ["--pairs", "3"], k4, True)
     total += chain["launches"]
     ref = JAX_DENSE_CHAIN
     log(f"[dense] full chain: {chain['pixels_valid']} valid pixels (JAX {ref['pixels_valid']}), "
@@ -2362,10 +2578,11 @@ def phase_dense(kernels, data):
     paths = [os.path.join(data, f"{name}.npy") for name in ("left0", "right0", "left1")]
     for path, img in zip(paths, (img_ref, img_right, img_trk)):
         np.save(path, img.cpu().numpy())
-    images = _run_dense("--images", ["--images", *paths, "--pyrdown", "1", "--max-disp", "32", "--camera",
-                         "150", "150", "160", "120", "0.5"], "cuda", k4)
+    images = _dense_forms("--images", ["--images", *paths, "--pyrdown", "1", "--max-disp", "32",
+                                       "--camera", "150", "150", "160", "120", "0.5"], k4, True)
     total += images["launches"]
-    total += _photometric_rate(kernels["K4"].bilinear_sample_packed)
+    _matcher_times(smi)
+    total += _photometric_rate(k4, smi)
     return total, gt["T"]
 
 
@@ -2879,7 +3096,7 @@ def main():
         for name, n in phase_batch(kernels, data, smi).items():
             launches[name] += n
     if "dense" in phases:
-        launches["K4"], dense_pose = phase_dense(kernels, data)
+        launches["K4"], dense_pose = phase_dense(kernels, data, smi)
     if "phong" in phases:
         phase_phong(data, smi)
     if "graph" in phases:

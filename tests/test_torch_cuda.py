@@ -1392,3 +1392,149 @@ def test_pose_graph_node_equals_host_loop():
         _same_solve(((node[0],), node[1]), ((host[0],), host[1]))
     assert (stats["captures"] - before[0], stats["restarts"] - before[1]) == (1, 1)
     graph.close()
+
+
+# The dense frame pair on the card (solver/photometric.py, frontend/dense_stereo.py):
+# the photometric LM loop as one WHILE node with K4 inside, the matcher as one
+# captured graph, and the dense dogleg (solver/lm.py) as a WHILE node.
+
+def _photometric_pairs(dtype, n=2):
+    """``n`` ``--gt-disparity`` problems at 96x128 on the card, one shape and
+    key (seeds 0, 1, ...: other noise, another start)."""
+    from ceres_slam_tpu_torch.apps import dense_stereo
+
+    return [dense_stereo.synthetic_problem(96, 128, seed=s, dtype=dtype, device="cuda")[:2]
+            for s in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_photometric_node_equals_host_loop(dtype):
+    """``solve_photometric`` with its LM loop in a WHILE node against the
+    host loop on two pairs of one shape: the same summaries (the history
+    included) and state bit for bit, K4 counted alike (two launches an LM
+    iteration and one for the start); the second pair restarts the first's
+    capture."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ceres_slam_tpu_torch.solver import photometric as ph
+
+    k4 = bilinear_kernel.bilinear_sample_packed
+    cfg = lm.SolveConfig(max_iters=25, nonmonotonic=True, ftol=1e-12, record_history=True)
+    graph, stats = lm.LMGraph(), lm.GRAPH_STATS
+    for i, (problem, state) in enumerate(_photometric_pairs(dtype)):
+        before = (stats["captures"], stats["restarts"])
+        runs = {}
+        for loop in ("device", "host"):
+            k4.launches = 0
+            runs[loop] = ph.solve_photometric(problem, state, cfg, lm_loop=loop,
+                                              graph=graph if loop == "device" else None)
+            torch.cuda.synchronize()
+            runs[loop] += (k4.launches,)
+        assert (stats["captures"] - before[0], stats["restarts"] - before[1]) == (
+            (1, 0) if i == 0 else (0, 1))
+        (sd, md, kd), (sh, mh, kh) = runs["device"], runs["host"]
+        assert mh.iterations > 3 and kd == kh == 2 * mh.iterations + 1
+        _same_solve((sd, md), (sh, mh))
+    graph.close()
+
+
+@pytest.mark.cuda
+def test_photometric_node_makes_no_host_work_per_iteration():
+    """A restarted photometric LM node under torch.profiler with 3 and with
+    12 LM iterations (run_full_budget, float32): the same host launches,
+    graph launches, syncs and copies, so none per LM iteration."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ceres_slam_tpu_torch.solver import photometric as ph
+
+    (problem, state), = _photometric_pairs(torch.float32, 1)
+    counts = {}
+    for n in (3, 12):
+        cfg = lm.SolveConfig(max_iters=n, ftol=0.0, gtol=0.0, run_full_budget=True)
+        graph = lm.LMGraph()
+        ph.solve_photometric(problem, state, cfg, graph=graph)
+        counts[n] = _host_counts(lambda: ph.solve_photometric(problem, state, cfg, graph=graph))
+        graph.close()
+    assert counts[3] == counts[12], counts
+    assert counts[3][1] == 1
+
+
+@pytest.mark.cuda
+def test_matcher_graph_equals_eager():
+    """``match_disparity`` replayed from one captured graph against its
+    eager launches (``loop="host"``) at 96x128, float32, on two pairs of one
+    shape: disparity and mask bit for bit; the second pair replays the
+    first's capture."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ceres_slam_tpu_torch.apps import dense_stereo
+    from ceres_slam_tpu_torch.frontend import dense_stereo as front
+
+    out = dense_stereo.make_scene(96, 128, stereo=True, device="cuda")
+    rng = np.random.default_rng(3)
+    pair = (out[1].float(), out[7].float())
+    pairs = [pair, tuple(x + torch.as_tensor(rng.normal(0, 0.02, x.shape), dtype=x.dtype,
+                                             device="cuda") for x in pair)]
+    graph, stats = front.MatcherGraph(), front.MATCH_STATS
+    before = stats["captures"]
+    for left, right in pairs:
+        got = front.match_disparity(left, right, max_disp=32, loop="device", graph=graph)
+        ref = front.match_disparity(left, right, max_disp=32, loop="host")
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        assert ref[1].float().mean() > 0.4
+    assert stats["captures"] - before == 1
+    graph.close()
+
+
+@pytest.mark.cuda
+def test_dense_pairs_restart_the_captures():
+    """``dense_stereo.run_pairs`` (the full chain at 96x128, three pairs)
+    with the LM node and the captured matcher against both host forms: each
+    pair's costs, iterations, pose and matcher error bit for bit; in the
+    device form the first pair captures both, every later pair restarts the
+    node and replays the matcher."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ceres_slam_tpu_torch.apps import dense_stereo
+
+    runs = {loop: dense_stereo.run_pairs(3, H=96, W=128, frontend=True, max_disp=32,
+                                         verbose=False, lm_loop=loop, match_loop=loop)
+            for loop in ("device", "host")}
+    for i, (dev, host) in enumerate(zip(runs["device"], runs["host"])):
+        assert dev[0] == host[0] and dev[1:3] == host[1:3] and dev[0].iterations > 1
+        for k in ("T", "pixels_valid", "matcher_median_derr"):
+            assert dev[3][k] == host[3][k]
+        got = tuple(dev[3][k] for k in ("lm_graph_captures", "lm_graph_restarts",
+                                        "match_graph_captures"))
+        assert got == ((1, 0, 1) if i == 0 else (0, 1, 0))
+
+
+@pytest.mark.cuda
+def test_dogleg_node_equals_host_loop():
+    """``dense.solve_ba(strategy="dogleg")`` with its loop in a WHILE node
+    against the host loop on two problems of one shape (tables at common
+    widths): the same summary and state bit for bit; the second restarts
+    the first's capture."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    problems = []
+    for seed in (20, 21):
+        plan, poses, points = stereo_factor_kernel.random_inputs(1001, 77, 13, torch.float64,
+                                                                 "cuda", seed=seed)
+        problems.append((_problem_of(plan, poses), dense.BAState(poses, points)))
+    widths = tuple(max(t) for t in zip(*[[x.shape[1] for x in dense.block_tables(p)]
+                                         for p, _ in problems]))
+    cfg = lm.SolveConfig(max_iters=10)
+    graph, stats = lm.LMGraph(), lm.GRAPH_STATS
+    for i, (problem, state) in enumerate(problems):
+        before = (stats["captures"], stats["restarts"])
+        node = dense.solve_ba(problem, state, cfg, strategy="dogleg", graph=graph, widths=widths)
+        host = dense.solve_ba(problem, state, cfg, strategy="dogleg", lm_loop="host",
+                              widths=widths)
+        torch.cuda.synchronize()
+        assert (stats["captures"] - before[0], stats["restarts"] - before[1]) == (
+            (1, 0) if i == 0 else (0, 1))
+        assert host[1].iterations > 1
+        _same_solve(node, host)
+    graph.close()
