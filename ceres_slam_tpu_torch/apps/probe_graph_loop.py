@@ -23,12 +23,27 @@ failed capture must not take down the matrix):
                        window plan captured in one graph: each replay must equal
                        the eager launches bit for bit, also after the poses
                        are changed in place between replays
+  linalg_in_graph      the linear algebra of a live-VO frame under a capture:
+                       ``torch.linalg.svd`` and ``det`` of RANSAC's [400, 3, 3]
+                       cross-covariances and ``solve_ex`` of the pose
+                       refinement's 6x6 system, float64, each captured alone:
+                       prints which capture and which refuse (and why); the
+                       captured ones must replay the eager bits
+  psum_in_while        the sharded solves' collective under a capture: on
+                       ``--world N`` NCCL ranks (child processes, one a card),
+                       ``sharded_ba.psum`` of a small buffer eagerly, in a
+                       plain CUDA graph replayed 3 times, in a 5-iteration
+                       ``DeviceWhile`` and as a 5-iteration ``while_loop``
+                       nested in a 2-iteration ``DeviceWhile`` body: the sums
+                       and the iteration counts must be the eager loop's;
+                       each rank prints its stages as it goes, and a group
+                       that outlives 120 s is killed
 
 Each P case must give ``x * 8`` bit for bit for ``x = arange(1024)`` as a
 ``[2, 512]`` float32 array (sum 4190208.0). Prints ``<case> OK <sum>`` or
 ``<case> FAILED: <reason>`` per case:
 
-  python -m ceres_slam_tpu_torch.apps.probe_graph_loop [case]
+  python -m ceres_slam_tpu_torch.apps.probe_graph_loop [case] [--world N]
 """
 
 from __future__ import annotations
@@ -36,10 +51,12 @@ from __future__ import annotations
 import os
 import subprocess
 import sys
+import time
 
 P_CASES = ("grid_in_graph", "grid1_in_graph", "eager_loop", "grid_in_replay_loop",
            "grid_in_while", "grid_in_while_data")
-CASES = P_CASES + ("k1_in_graph",)
+DIST_CASES = ("psum_in_while",)
+CASES = P_CASES + ("k1_in_graph", "linalg_in_graph") + DIST_CASES
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
@@ -157,12 +174,181 @@ def _k1_case(torch) -> float:
     return total
 
 
+def _linalg_case(torch) -> float:
+    """Each live-VO linear-algebra call captured alone in a graph; the
+    result line lists each call's outcome."""
+    g = torch.Generator().manual_seed(0)
+    W = torch.randn(400, 3, 3, generator=g, dtype=torch.float64).cuda()
+    A = torch.randn(6, 6, generator=g, dtype=torch.float64)
+    H = (A @ A.T + torch.eye(6, dtype=torch.float64)).cuda()
+    b = torch.randn(6, generator=g, dtype=torch.float64).cuda()
+    calls = {"svd": lambda: torch.linalg.svd(W),
+             "det": lambda: (torch.linalg.det(W),),
+             "solve_ex": lambda: torch.linalg.solve_ex(H, b),
+             "cholesky_ex": lambda: torch.linalg.cholesky_ex(H)}
+    outcome, total = {}, 0.0
+    for name, fn in calls.items():
+        eager = fn()
+        torch.cuda.synchronize()
+        stream = torch.cuda.Stream()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=stream):
+                out = fn()
+            graph.replay()
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, c) for a, c in zip(eager, out))
+            outcome[name] = "captured, replay " + ("bit-equal" if same else "DIFFERS")
+            total += float(out[0].double().sum())
+        except Exception as e:  # noqa: BLE001 - the outcome is the probe's result
+            outcome[name] = f"refused: {type(e).__name__}: {str(e).splitlines()[0][:160]}"
+            torch.cuda.synchronize()
+    print("linalg_in_graph: " + "; ".join(f"{k} {v}" for k, v in outcome.items()), flush=True)
+    return total
+
+
+def _psum_case(torch) -> float:
+    """One NCCL rank of ``psum_in_while`` (the group joined through the
+    ``CERES_*`` environment), stage by stage, each stage's progress printed
+    as it happens (a stage that hangs shows where): the loop eagerly, one
+    ``psum`` in a plain CUDA graph replayed 3 times, the flat loop in a
+    ``DeviceWhile``, and the loop nested in a second one, each checked
+    against its eager sums and counts."""
+    from ceres_slam_tpu_torch.ops import graph_loop
+    from ceres_slam_tpu_torch.parallel import multihost, sharded_ba
+
+    if not multihost.initialize(device="cuda", timeout_s=120):
+        raise SystemExit("psum_in_while needs CERES_COORDINATOR_ADDRESS, CERES_NUM_PROCESSES "
+                         "and CERES_PROCESS_ID")
+    try:
+        rank, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
+
+        def say(msg):
+            print(f"rank {rank} of {world}: {msg}", flush=True)
+
+        say(f"torch {torch.__version__}, NCCL {torch.cuda.nccl.version()}, "
+            f"TORCH_NCCL_BLOCKING_WAIT={os.environ.get('TORCH_NCCL_BLOCKING_WAIT')}")
+        mesh = sharded_ba.make_mesh()
+        x = torch.arange(8, dtype=torch.float64, device="cuda") + rank
+        acc = torch.zeros_like(x)
+        i, j = (torch.zeros(1, dtype=torch.int32, device="cuda") for _ in range(2))
+        pred_in, pred = (torch.ones(1, dtype=torch.int32, device="cuda") for _ in range(2))
+        # x + r summed over the ranks
+        base = world * torch.arange(8, dtype=torch.float64) + world * (world - 1) / 2
+
+        def inner():
+            (s,) = sharded_ba.psum(mesh, x * (1 + i))
+            acc.add_(s)
+            i.add_(1)
+            pred_in.copy_(i < 5)
+
+        def outer():
+            i.zero_()
+            pred_in.fill_(1)
+            graph_loop.while_loop(inner, pred_in, counted=(sharded_ba.psum,))
+            j.add_(1)
+            pred.copy_(j < 2)
+
+        def check(stage, got, want, counts=""):
+            if not torch.equal(got, want):
+                raise AssertionError(f"{stage}: sums {got.tolist()} (want {want.tolist()}){counts}")
+            say(f"{stage} OK{counts}")
+
+        outer()  # eagerly (the communicator's first collectives)
+        torch.cuda.synchronize()
+        check("eager", acc.cpu(), 15 * base)
+
+        acc.zero_()
+        i.zero_()
+        say("plain graph: capturing")
+        plain = graph_loop.DeviceGraph(inner, x.get_device(), counted=(sharded_ba.psum,))
+        say("plain graph: captured, replaying")
+        for _ in range(3):
+            plain.replay()
+        torch.cuda.synchronize()
+        check("plain graph (3 replays)", acc.cpu(), 6 * base)  # i = 0, 1, 2 in turn
+        plain.close()
+
+        acc.zero_()
+        i.zero_()
+        pred_in.fill_(1)
+        say("flat node: capturing")
+        flat = graph_loop.DeviceWhile(inner, pred_in, counted=(sharded_ba.psum,))
+        say("flat node: captured, launching")
+        n = flat.run()
+        check("flat node", acc.cpu(), 15 * base, f", {n} iterations")
+        flat.close()
+
+        acc.zero_()
+        j.zero_()
+        pred.fill_(1)
+        c0 = sharded_ba.psum.collectives
+        say("nested node: capturing")
+        node = graph_loop.DeviceWhile(outer, pred)
+        say("nested node: captured, launching")
+        n = node.run()
+        check("nested node", acc.cpu(), 30 * base,
+              f", {n} x {node.inner_iterations} iterations, psum counted "
+              f"{sharded_ba.psum.collectives - c0} collectives")
+        node.close()
+        return float(acc.sum())
+    finally:
+        multihost.shutdown()
+
+
+def _run_ranks(case: str, world: int, timeout: float = 120.0) -> None:
+    """``world`` ranks of ``case`` as child processes on a free local port,
+    each rank's output in a file under the system's temporary directory;
+    prints every rank's output, and raises unless each exits with 0 within
+    ``timeout`` seconds (a rank that hangs is killed)."""
+    import socket
+    import tempfile
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""),
+           "CERES_COORDINATOR_ADDRESS": f"127.0.0.1:{port}", "CERES_NUM_PROCESSES": str(world)}
+    logs = [tempfile.TemporaryFile("w+") for _ in range(world)]
+    procs = [subprocess.Popen([sys.executable, "-m", "ceres_slam_tpu_torch.apps.probe_graph_loop",
+                               case], env={**env, "CERES_PROCESS_ID": str(r)}, cwd=ROOT,
+                              stdout=log, stderr=subprocess.STDOUT)
+             for r, log in enumerate(logs)]
+    t0 = time.monotonic()
+    hung = False
+    for p in procs:
+        try:
+            p.wait(timeout=max(1.0, t0 + timeout - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            hung = True
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    failed = []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        print(f"--- rank {r} (exit {p.returncode}) ---\n{log.read().strip()[-6000:]}", flush=True)
+        log.close()
+        if p.returncode:
+            failed.append(r)
+    if hung or failed:
+        raise SystemExit(f"{case} FAILED on rank(s) {failed}"
+                         f"{f' (killed after {timeout:g} s)' if hung else ''}")
+    print(f"{case} OK on {world} rank(s)", flush=True)
+
+
 def run_case(case: str) -> None:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device is available")
-    total = _k1_case(torch) if case == "k1_in_graph" else p_case(torch, case)
+    if case in DIST_CASES:
+        total = _psum_case(torch)
+    elif case == "linalg_in_graph":
+        total = _linalg_case(torch)
+    else:
+        total = _k1_case(torch) if case == "k1_in_graph" else p_case(torch, case)
     print(case, "OK", total, flush=True)
 
 
@@ -171,11 +357,17 @@ def main(argv=None):
     if argv:
         if argv[0] not in CASES:
             raise SystemExit(f"unknown case {argv[0]!r}; cases: {', '.join(CASES)}")
-        run_case(argv[0])
+        if argv[0] in DIST_CASES and "CERES_PROCESS_ID" not in os.environ:
+            world = int(argv[argv.index("--world") + 1]) if "--world" in argv else 1
+            _run_ranks(argv[0], world)
+        else:
+            run_case(argv[0])
         return {}
     results = {}
     env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")}
     for case in CASES:
+        if case in DIST_CASES:
+            continue  # each run on its own: ``<case> --world N``
         r = subprocess.run([sys.executable, "-m", "ceres_slam_tpu_torch.apps.probe_graph_loop",
                             case], capture_output=True, text=True, timeout=600, cwd=ROOT, env=env)
         lines = r.stdout.strip().splitlines()

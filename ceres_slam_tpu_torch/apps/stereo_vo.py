@@ -4,6 +4,7 @@
       (--left-glob 'L*.npy' --right-glob 'R*.npy' | --synthetic N)
       [--fu 140 --fv 140 --cu 80 --cv 60 --baseline 0.4] [--max-corners 384]
       [--ransac-iters 400] [--ransac-thresh 4.0] [--device cuda]
+      [--frame-loop device|host]
 
 Port of ``ceres_slam_tpu/apps/stereo_vo.py`` (the CLI counterpart of the
 reference's ROS node): runs ``frontend/stereo_vo.OnlineStereoVO`` over a
@@ -13,7 +14,13 @@ row-major, the reference format). Input modes: ``--left-glob`` /
 ``.png``/``.pgm``/``.jpg`` through PIL, imported only then); or
 ``--synthetic N``, N rendered frames of a textured plane along a known
 trajectory, with the ATE against it. ``--device`` defaults to ``cuda`` and
-exits without a card (``--device cpu`` runs on the CPU).
+exits without a card (``--device cpu`` runs on the CPU). ``--frame-loop``:
+``device`` (the default on the card) replays every tracked frame's
+captured graphs (``frontend/stereo_vo.FrameGraph``: two graphs around the
+eager SVD), ``host`` (the default elsewhere; ``device`` there raises)
+launches a frame's kernels one by one; both write the same poses. The
+stats report the form, the graphs' capture and instantiation seconds and
+the frames per second.
 """
 
 from __future__ import annotations
@@ -103,6 +110,9 @@ def build_parser():
     p.add_argument("--ransac-iters", type=int, default=400)
     p.add_argument("--ransac-thresh", type=float, default=4.0,
                    help="squared-pixel inlier threshold (node default)")
+    p.add_argument("--frame-loop", choices=["device", "host"], default=None,
+                   help="a tracked frame as captured CUDA graphs (device, the default on the "
+                        "card) or launch by launch (host, the default elsewhere)")
     return p
 
 
@@ -110,7 +120,7 @@ def main(argv=None) -> dict:
     """Run the app; returns the run's counts and walls."""
     args = build_parser().parse_args(argv)
     from ceres_slam_tpu_torch.apps.common import resolve_device
-    from ceres_slam_tpu_torch.frontend.stereo_vo import OnlineStereoVO
+    from ceres_slam_tpu_torch.frontend.stereo_vo import FRAME_STATS, OnlineStereoVO
     from ceres_slam_tpu_torch.models.stereo_camera import StereoCamera
     from ceres_slam_tpu_torch.utils import csvio, metrics
 
@@ -128,21 +138,31 @@ def main(argv=None) -> dict:
         frames = ((_load_gray(l), _load_gray(r)) for l, r in zip(lefts, rights))
 
     vo = OnlineStereoVO(camera, max_corners=args.max_corners, ransac_iters=args.ransac_iters,
-                        ransac_thresh=args.ransac_thresh, device=device)
+                        ransac_thresh=args.ransac_thresh, device=device,
+                        frame_loop=args.frame_loop)
+    graphs0 = dict(FRAME_STATS)
     t0 = time.perf_counter()
     n = 0
-    for left, right in frames:
-        vo.process(left, right)
-        n += 1
-        if n % 25 == 0:
-            print(f"  frame {n} done", file=sys.stderr)
-    traj = torch.stack(vo.trajectory[1:]).cpu().numpy()  # drop the pre-frame identity
+    try:
+        for left, right in frames:
+            vo.process(left, right)
+            n += 1
+            if n % 25 == 0:
+                print(f"  frame {n} done", file=sys.stderr)
+        traj = torch.stack(vo.trajectory[1:]).cpu().numpy()  # drop the pre-frame identity
+    finally:
+        vo.close()
     wall = time.perf_counter() - t0
     counts = torch.stack(vo.counts).cpu().numpy()
-    print(f"Processed {n} frames in {wall:.3f} s ({n / wall:.2f} frames/s)", file=sys.stderr)
+    print(f"Processed {n} frames in {wall:.3f} s ({n / wall:.2f} frames/s, frame loop "
+          f"{vo.frame_loop})", file=sys.stderr)
     csvio.write_poses_csv(args.out + "_poses.csv", traj)
     print(f"Wrote {args.out}_poses.csv", file=sys.stderr)
     stats = {"device": str(device), "frames": n, "wall_s": wall, "frames_per_s": n / wall,
+             "frame_loop": vo.frame_loop,
+             "captures": FRAME_STATS["captures"] - graphs0["captures"],
+             "capture_s": FRAME_STATS["capture_s"] - graphs0["capture_s"],
+             "instantiate_s": FRAME_STATS["instantiate_s"] - graphs0["instantiate_s"],
              "poses": args.out + "_poses.csv",
              "median_corners": float(np.median(counts[:, 0])),
              "median_stereo_matches": float(np.median(counts[:, 1])),

@@ -21,6 +21,12 @@ from __future__ import annotations
 
 import torch
 
+# Size of the flat SE(3) parameterization: [t(3) | R row-major (9)].
+SE3_DIM = 12
+SO3_DIM = 9
+SE3_DOF = 6
+SO3_DOF = 3
+
 
 def _eps(dtype) -> float:
     return torch.finfo(dtype).eps

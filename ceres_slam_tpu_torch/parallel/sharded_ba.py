@@ -5,7 +5,7 @@ sharded over the ranks of a mesh (``parallel/multihost.py``); each rank
 assembles the Gauss-Newton contribution of its own shard with the
 single-device code, and the partial block systems are all-reduced. The
 small damped solve and the retraction then run replicated on every rank,
-under the port's host-controlled LM loop (``solver/lm.py``).
+under the port's LM loop (``solver/lm.py``).
 
 This is observation-parallel ("data parallel") BA. Torch has no global
 arrays: a sharded problem is one rank's padded, contiguous observation
@@ -13,9 +13,23 @@ shard with the replicated rest (``shard_problem``). Every reduction goes
 through ``psum``, which packs its tensors into one buffer and all-reduces
 it once per mesh dimension, inner (``obs``) first and outer (``dcn``) last,
 as JAX's ``psum`` over every mesh axis. The sums inside a rank have a fixed
-order (``dense.segment_sum``), and every rank receives the same bits from
-an all-reduce, so the host's decisions, which read only reduced or
-replicated values, are the same on every rank.
+order (``dense.gather_sum`` through the shard's ``dense.block_tables``),
+and every rank receives the same bits from an all-reduce, so the loop's
+decisions, which read only reduced or replicated values, are the same on
+every rank.
+
+The loop's forms, as JAX's ``lax.while_loop`` under ``jax.jit``
+(``resolve_loop``): on a mesh of one NCCL rank by default the whole LM
+solve is one conditional WHILE node on the card (``lm.device_loop``), the
+all-reduces captured inside it (NCCL's kernels are graph nodes); on gloo
+ranks (the CPU, or ranks that share a card) the loop runs on the host
+(``lm.host_loop``), and ``device`` there raises: gloo's collectives run on
+the host, which a graph cannot capture. Across several NCCL ranks the
+node hung on four cards, so there too the host form is the default and
+``device`` raises. The two forms give the same bits.
+What the loop reads is built before it: the shard's gather tables and the
+sun and prior terms (``dense.aux_terms``). ``gn_step_sharded`` replays one
+captured graph per shape when given a ``StepGraph`` (JAX jits that step).
 """
 
 from __future__ import annotations
@@ -24,6 +38,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from ceres_slam_tpu_torch.ops import graph_loop
 from ceres_slam_tpu_torch.parallel import multihost
 from ceres_slam_tpu_torch.solver import dense, lm
 
@@ -40,7 +55,10 @@ def psum(mesh: DeviceMesh, *tensors: torch.Tensor) -> tuple:
     dtype) packed into one buffer, all-reduced once per mesh dimension,
     the inner dimension first; returns the sums in the tensors' shapes.
     Counts its collectives and their bytes in ``psum.collectives`` and
-    ``psum.bytes``."""
+    ``psum.bytes`` (its ``counters``: a captured loop that lists ``psum``
+    in its ``counted`` scales them by the iterations the card ran). Safe
+    under a capture: the all-reduce is issued on the current stream's
+    order and waited for on the device, with no host synchronization."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
     for dim in reversed(range(mesh.ndim)):
         dist.all_reduce(flat, group=mesh.get_group(dim))
@@ -52,6 +70,7 @@ def psum(mesh: DeviceMesh, *tensors: torch.Tensor) -> tuple:
 
 psum.collectives = 0
 psum.bytes = 0
+psum.counters = ("collectives", "bytes")
 
 
 def pad_obs_to_multiple(stereo: dense.StereoObs, n: int) -> dense.StereoObs:
@@ -89,68 +108,201 @@ def shard_problem(problem: dense.StereoBAProblem, mesh: DeviceMesh) -> dense.Ste
     return problem._replace(stereo=dense.StereoObs(*(x[rows] for x in stereo)))
 
 
-def make_sharded_blocks(mesh: DeviceMesh):
-    """Block-system assembly: the shard's stereo contribution all-reduced
-    (``Hpp [K,6,6]``, ``Hll [J,3,3]``, ``W [K,J,6,3]``, ``gp``, ``gl`` in one
-    buffer), then the replicated sun and prior blocks added once."""
+def resolve_loop(mesh: DeviceMesh, loop: str | None, name: str = "LM loop",
+                 switch: str = "lm_loop") -> str:
+    """The form of a sharded loop (``graph_loop.resolve_loop``'s): on a mesh
+    of one NCCL rank ``"device"`` by default; on gloo ranks and on NCCL
+    meshes of several ranks ``"host"``, where ``"device"`` raises, naming
+    the cause: gloo runs its all-reduce on the host, which a captured loop
+    cannot hold; across several NCCL ranks the captured loop hung (four
+    ranks on four cards, ``apps/probe_graph_loop.py psum_in_while --world
+    4``), so the captured forms are verified on one rank only. Nothing
+    falls back."""
+    backend, n = dist.get_backend(mesh.get_group(0)), mesh.size()
+    cause = None
+    if backend != "nccl":
+        cause = (f"it captures its all-reduces in a CUDA graph, which takes NCCL's collectives "
+                 f"only ({backend} ranks run theirs on the host)")
+    elif n > 1:
+        cause = (f"captured NCCL all-reduces are verified on one rank only; on 4 NCCL ranks a "
+                 f"WHILE node around them hung (probe_graph_loop psum_in_while --world 4), and "
+                 f"this mesh has {n}")
+    if loop == "device" and cause:
+        raise ValueError(f"the device {name} cannot run here: {cause}: use {switch}='host'")
+    return graph_loop.resolve_loop("cpu" if cause else "cuda", loop, name, switch)
+
+
+def make_sharded_blocks(mesh: DeviceMesh, tables: dense.BlockTables, terms: dense.AuxTerms):
+    """Block-system assembly: the shard's stereo contribution through its
+    gather ``tables`` (``dense.block_tables`` of the shard), all-reduced
+    (``Hpp [K,6,6]``, ``Hll [J,3,3]``, ``W [K,J,6,3]``, ``gp``, ``gl`` in
+    one buffer), then the replicated sun and prior blocks of ``terms``
+    (``dense.aux_terms``) added once. Both are built before a loop: the
+    assembly reads nothing on the host."""
 
     def blocks_fn(problem: dense.StereoBAProblem, state: dense.BAState) -> dense.BlockNormalEq:
         blocks = dense.stereo_block_contrib(problem.camera, problem.stereo, problem.point_valid,
-                                            state)
+                                            state, tables)
         blocks = dense.BlockNormalEq(*psum(mesh, *blocks))
-        Hpp_aux, gp_aux = dense.aux_pose_blocks(problem, state)
+        Hpp_aux, gp_aux = dense.aux_blocks(terms, state)
         return blocks._replace(Hpp=blocks.Hpp + Hpp_aux, gp=blocks.gp + gp_aux)
 
     return blocks_fn
 
 
-def make_sharded_normal_eq(mesh: DeviceMesh):
-    """Dense, gauge-masked ``(H, g)`` of the all-reduced block system."""
-    blocks_fn = make_sharded_blocks(mesh)
+def make_sharded_normal_eq(mesh: DeviceMesh, tables: dense.BlockTables | None = None,
+                           terms: dense.AuxTerms | None = None):
+    """Dense, gauge-masked ``(H, g)`` of the all-reduced block system
+    (``make_sharded_blocks``). Tables or terms not given are built from the
+    problem at each call (a host round trip)."""
 
     def normal_eq(problem: dense.StereoBAProblem, state: dense.BAState):
+        blocks_fn = make_sharded_blocks(
+            mesh, dense.block_tables(problem) if tables is None else tables,
+            dense.aux_terms(problem) if terms is None else terms)
         H, g = dense.blocks_to_dense(blocks_fn(problem, state))
         return dense.apply_gauge_mask(problem, H, g)
 
     return normal_eq
 
 
-def make_sharded_cost(mesh: DeviceMesh):
+def make_sharded_cost(mesh: DeviceMesh, terms: dense.AuxTerms):
     """Cost with the stereo term all-reduced over the shards and the
-    replicated sun and prior terms added once."""
+    replicated sun and prior terms (``dense.aux_terms``) added once."""
 
     def cost(problem: dense.StereoBAProblem, state: dense.BAState) -> torch.Tensor:
         (c_stereo,) = psum(mesh, dense.stereo_sq_sum(problem, state))
-        return 0.5 * c_stereo + dense.ba_cost_aux(problem, state)
+        return 0.5 * c_stereo + dense.aux_cost(terms, state)
 
     return cost
 
 
+def loop_key(problem: dense.StereoBAProblem, mesh: DeviceMesh, *settings) -> tuple:
+    """What a sharded loop's captured body holds as Python values: the
+    camera, the prior's pose, the mesh (its communicators) and the
+    caller's ``settings``."""
+    return (problem.camera, int(problem.prior.pose_idx), id(mesh), *settings)
+
+
+def lm_functions(shard: dense.StereoBAProblem, mesh: DeviceMesh, tables: dense.BlockTables,
+                 terms: dense.AuxTerms):
+    """The LM core's ``(cost_fn, step_fn, retract_fn)`` of a sharded dense
+    solve of ``shard`` (``shard_problem``) over its gather ``tables`` and
+    sun and prior ``terms``, built before the loop: none of them reads the
+    device from the host."""
+    normal_eq = make_sharded_normal_eq(mesh, tables, terms)
+    cost = make_sharded_cost(mesh, terms)
+    return (lambda s: cost(shard, s), lm.dense_cholesky_step(lambda s: normal_eq(shard, s)),
+            lambda s, dx: dense._retract_state(shard, s, dx))
+
+
 def solve_ba_sharded(problem: dense.StereoBAProblem, state0: dense.BAState, mesh: DeviceMesh,
-                     config: lm.SolveConfig = lm.SolveConfig()):
+                     config: lm.SolveConfig = lm.SolveConfig(), lm_loop: str | None = None,
+                     graph: lm.LMGraph | None = None):
     """Distributed LM solve: the single-device trust-region loop with the
     Gauss-Newton assembly and the cost sharded over the observations. Every
     rank calls it with the whole problem and the same ``state0``; every
-    rank returns the same ``(state, SolveSummary)``."""
-    problem = shard_problem(problem, mesh)
-    normal_eq = make_sharded_normal_eq(mesh)
-    cost = make_sharded_cost(mesh)
-    return lm.lm_solve(state0, config, lambda s: cost(problem, s),
-                       lm.dense_cholesky_step(lambda s: normal_eq(problem, s)),
-                       lambda s, dx: dense._retract_state(problem, s, dx))
+    rank returns the same ``(state, SolveSummary)``.
+
+    ``lm_loop``: ``"device"`` (the default on a mesh of one NCCL rank) runs
+    the loop as one WHILE node with the all-reduces inside, kept in
+    ``graph`` (an ``lm.LMGraph``) for the next solve of the same shape,
+    which copies its ``dense.dense_loop_inputs`` in and restarts it;
+    ``"host"`` (the default elsewhere, where ``"device"`` raises:
+    ``resolve_loop``) iterates on the host. Both give the same bits."""
+    lm_loop = resolve_loop(mesh, lm_loop)
+    if lm_loop == "host" and graph is not None:
+        raise ValueError("an LMGraph keeps the device LM loop: lm_loop='host' takes none")
+    shard = shard_problem(problem, mesh)
+    tables, terms = dense.block_tables(shard), dense.aux_terms(shard)
+    fns = lm_functions(shard, mesh, tables, terms)
+    if lm_loop == "host":
+        return lm.lm_solve(state0, config, *fns, loop="host")
+    state0 = lm.tree_map(torch.clone, state0)  # the loop's own: a restart copies into it
+    return lm.lm_solve(state0, config, *fns, loop="device", counted=(psum,), graph=graph,
+                       inputs=dense.dense_loop_inputs(shard, state0, terms, tables),
+                       key=loop_key(shard, mesh, "sharded dense"))
+
+
+class StepGraph:
+    """``gn_step_sharded`` captured once per shape in a plain CUDA graph
+    (``graph_loop.DeviceGraph``) and replayed for every step of that shape
+    (``frontend/dense_stereo.MatcherGraph``'s pattern): a step copies its
+    state, and its problem's tensors, gather tables and terms where the
+    problem is not the one the graph last read, into the capture's own
+    buffers, replays, and clones the new state. A new problem's tables and
+    terms are built once, on the host. ``close()`` frees every capture."""
+
+    def __init__(self):
+        self.graphs: dict = {}
+        self._src = self._prep = None
+
+    def step(self, problem: dense.StereoBAProblem, state: dense.BAState,
+             mesh: DeviceMesh) -> dense.BAState:
+        if self._src is not problem:
+            self._src, self._prep = problem, (dense.block_tables(problem),
+                                              dense.aux_terms(problem))
+        inputs = dense.dense_loop_inputs(problem, state, self._prep[1], self._prep[0])
+        key = (loop_key(problem, mesh, "gn_step"), tuple((t.shape, t.dtype) for t in inputs))
+        if key not in self.graphs:
+            self.graphs[key] = self._capture(problem, state, mesh)
+        entry = self.graphs[key]
+        bufs, graph, out = entry[:3]
+        # the problem's tensors only when another problem was read last
+        n = 0 if entry[3] is not problem else len(inputs) - 2
+        lm._copy_inputs(bufs[n:], inputs[n:])
+        entry[3] = problem
+        graph.replay()
+        return lm.tree_map(torch.clone, out[0])
+
+    @staticmethod
+    def _capture(problem, state, mesh) -> list:
+        """``[buffers, graph, output, problem read last]`` of a key: the
+        buffers are clones of the problem's, its tables', its terms' and the
+        state's tensors. The step runs once eagerly first, on the capture
+        stream, its result dropped (the libraries' handles and workspaces
+        are made there)."""
+        problem, state = lm.tree_map(torch.clone, problem), lm.tree_map(torch.clone, state)
+        tables, terms = dense.block_tables(problem), dense.aux_terms(problem)
+        normal_eq = make_sharded_normal_eq(mesh, tables, terms)
+        device, out = state.poses.get_device(), []
+
+        def fn():
+            return gn_step(problem, state, *normal_eq(problem, state))
+
+        stream = graph_loop.capture_stream(device)
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            fn()
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = graph_loop.DeviceGraph(lambda: out.append(fn()), device, counted=(psum,))
+        return [dense.dense_loop_inputs(problem, state, terms, tables), graph, out, None]
+
+    def close(self) -> None:
+        for entry in self.graphs.values():
+            entry[1].close()
+        self.graphs = {}
+        self._src = self._prep = None
 
 
 def gn_step_sharded(problem: dense.StereoBAProblem, state: dense.BAState,
-                    mesh: DeviceMesh) -> dense.BAState:
+                    mesh: DeviceMesh, graph: StepGraph | None = None) -> dense.BAState:
     """One Gauss-Newton step of a sharded problem (``shard_problem``):
-    the sharded assembly, then ``gn_step``, replicated."""
+    the sharded assembly, then ``gn_step``, replicated. With a ``graph``
+    (a ``StepGraph``, a mesh of one NCCL rank only) the step replays its captured graph
+    for this shape (captured at the first step of the shape); without one
+    it runs launch by launch. Both give the same bits."""
+    if graph is not None:
+        resolve_loop(mesh, "device", "GN step", "graph=None")
+        return graph.step(problem, state, mesh)
     return gn_step(problem, state, *make_sharded_normal_eq(mesh)(problem, state))
 
 
 def gn_step(problem: dense.StereoBAProblem, state: dense.BAState, H: torch.Tensor,
             g: torch.Tensor) -> dense.BAState:
-    """The damped solve of ``(H + 1e-4 diag(H)) dx = -g`` and the retraction."""
+    """The damped solve of ``(H + 1e-4 diag(H)) dx = -g`` (the factor
+    applied by ``lm.cholesky_apply``: no host sync) and the retraction."""
     diag = torch.clamp(torch.diagonal(H), 1e-12, 1e32)
     L = lm._cholesky_or_nan(H + 1e-4 * torch.diag(diag))
-    dx = torch.cholesky_solve(-g[:, None], L)[:, 0]
+    dx = lm.cholesky_apply(L, -g)
     return dense._retract_state(problem, state, dx)

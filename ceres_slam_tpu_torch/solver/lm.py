@@ -30,9 +30,9 @@ On the card these callers run the device loop: Schur-PCG
 (``solver/dense.py``, ``solver/schur.py``), the pose graph
 (``solver/pose_graph.py``, and ``blowup``'s chain through ``inner_lm``),
 Phong (``solver/phong.py``) and photometric alignment
-(``solver/photometric.py``). Only the sharded LM loops
-(``parallel/sharded_ba.py``, ``parallel/sharded_pcg.py``) still run
-``host_loop`` there.
+(``solver/photometric.py``), and on NCCL ranks the sharded solves
+(``parallel/sharded_ba.py``, ``parallel/sharded_pcg.py``, their
+all-reduces captured in the node); gloo ranks run ``host_loop``.
 """
 
 from __future__ import annotations

@@ -47,8 +47,9 @@ a WHILE node of its own (``device_cg``), captured once per solve
 ``loop_inputs``, into the captured ones), one graph launch per LM
 iteration. ``cg`` is the plain version, the same iteration and test with
 the loop on the host (the test read every iteration): the CPU path, the
-distributed layer's loop (``parallel/sharded_pcg.py``, whose matvec
-all-reduces between iterations) and, on the card, ``loop="host"``. Every
+distributed layer's host form (``parallel/sharded_pcg.py``, whose
+matvec all-reduces between iterations; on NCCL ranks it runs
+``inner_cg`` in its LM node) and, on the card, ``loop="host"``. Every
 form runs the same kernels in the same order, so they give the same bits
 and iteration counts.
 """
@@ -472,15 +473,17 @@ def _cg_in_place(matvec, precond, bufs: CGBuffers, max_iters: int, tol: float):
     return restart, body
 
 
-def inner_cg(matvec, precond, rhs: torch.Tensor, max_iters: int, tol: float, bufs: CGBuffers):
+def inner_cg(matvec, precond, rhs: torch.Tensor, max_iters: int, tol: float, bufs: CGBuffers,
+             counted=(schur_kernel.schur_uy,)):
     """``cg`` on the fixed buffers ``bufs`` through ``graph_loop.while_loop``:
     inside the capture of a ``DeviceWhile`` (the LM loop's node) a WHILE
-    node nested in its body, K3 counted per CG iteration the card runs;
+    node nested in its body, the wrappers in ``counted`` (K3 by default;
+    the sharded matvec's ``psum``) counted per CG iteration the card runs;
     elsewhere the loop on the host. Returns ``(x, iterations)``: the
     buffer ``x`` (the next call overwrites it) and an int32 0-d tensor."""
     restart, body = _cg_in_place(matvec, precond, bufs, max_iters, tol)
     restart(rhs)
-    graph_loop.while_loop(body, bufs.pred, counted=(schur_kernel.schur_uy,))
+    graph_loop.while_loop(body, bufs.pred, counted=counted)
     return bufs.s.x, bufs.i[0]
 
 

@@ -146,18 +146,28 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            port at 319x1056 with KITTI's sequence-00 camera scaled by 0.85
            (the JAX package does not track at 375x1242: its Harris
            response threshold finds ~10-20 corners on the rendered wall),
-           written as .npy files and run through the CLI's glob mode; ATE
-           against the JAX figure, frames/s, median corners and matches;
-           then 10 frames at 375x1242 with the camera unscaled, counts only
+           written as .npy files and run through the CLI's glob mode with
+           --frame-loop device / host / device in turns (each tracked frame
+           two captured graphs around the eager SVD, or launch by launch):
+           the three runs' _poses.csv byte-identical, ATE against the JAX
+           figure, frames/s, capture and instantiation seconds, median
+           corners and matches, and each form's launches, syncs and copies
+           per frame (profiled); then 10 frames at 375x1242 with the camera
+           unscaled, counts only
   dist     the distributed layer (parallel/*) with its ranks as child
            processes of this script, each joined through
            multihost.initialize and the CERES_* environment: (a) kitti1100's
            full batch (N 124,480, J 16,640, f64) on one NCCL rank,
            solve_ba_pcg_sharded (block-Jacobi, solve_full's configuration)
-           against the JAX full-batch cost and ATE, K2 once per LM iteration
-           on the rank's shard plan, ms per CG iteration beside the
-           single-card solve_ba_pcg's in this process; (b) triangle200 on two
-           gloo ranks sharing the card: the sharded normal equations against
+           with the LM loop in a WHILE node (the CG node nested, the
+           all-reduces captured), on the host, and in the node again
+           (restarted): the same bits, iterations and collectives, against
+           the JAX full-batch cost and ATE, K2 once per LM iteration on the
+           rank's shard plan, ms per CG iteration of each form beside the
+           single-card solve_ba_pcg's in this process, one CG iteration of
+           each form profiled (the node: 0 launches, syncs and copies);
+           (b) triangle200 on two gloo ranks sharing the card (host form;
+           the device form's refusal logged): the sharded normal equations against
            the single-card ones, gn_step_sharded, solve_ba_sharded and
            solve_ba_pcg_sharded (jacobi, banded) against the JAX sharded
            costs and the port's single-card solves, both ranks the same
@@ -165,10 +175,13 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            equations against the single-card ones; (d) reported:
            gn_step_sharded at scripts/bench_scaling.py's default shape (64
            poses, 2,048 landmarks, 65,536 observations, f32) on the ranks of
-           (a) and (b), with the collectives and bytes per step; where more
+           (a) and (b), eagerly and (NCCL) replayed from its captured graph
+           (bit-equal), with the collectives and bytes per step; where more
            than one card is visible (a machine of several cards), (e) (a) on
            every card, one NCCL rank a card, and (f) (c) as a 2 x n/2 mesh
-           of NCCL ranks
+           of NCCL ranks with its block-Jacobi solve; on several NCCL ranks
+           the loops run on the host and the device form's refusal is logged
+           (the node hung across four ranks: sharded_ba.resolve_loop)
   cpu      triangle200 float64 once more on the CPU, through both BA CLIs
            (poses must equal the CUDA runs' to 1e-6; all runs draw the same
            RANSAC hypotheses: seed 42 + pair, the threefry draw is integer
@@ -2129,9 +2142,43 @@ def phase_blowup(smi):
                  "iterations)")
 
 
+LIVE_VO_FORMS = ("device", "host", "device")  # --frame-loop, in turns
+
+
+def _live_vo_per_frame(files, cam, form, frames=5):
+    """Host work per tracked frame of ``OnlineStereoVO`` in ``form`` on the
+    saved frames (numpy: each pair one host-to-device copy through the
+    staging buffer): launches, graph launches, syncs and copies of
+    ``frames`` frames under the profiler, after three frames (the first, and
+    the device form's capture)."""
+    import numpy as np
+    import torch
+
+    from ceres_slam_tpu_torch.frontend.stereo_vo import OnlineStereoVO
+    from ceres_slam_tpu_torch.models.stereo_camera import StereoCamera
+
+    pairs = [(np.load(left), np.load(right)) for left, right in files[:3 + frames]]
+    vo = OnlineStereoVO(StereoCamera.create(*cam), device="cuda", frame_loop=form)
+    for left, right in pairs[:3]:
+        vo.process(left, right)
+
+    def run():
+        for left, right in pairs[3:]:
+            vo.process(left, right)
+
+    t = _trace(torch, run)
+    vo.close()
+    return {k: t[k] / frames for k in ("launches", "graph_launches", "syncs", "copies",
+                                       "wall_us")}
+
+
 def phase_live_vo(data, smi):
     """100 rendered frames through the stereo_vo CLI's glob mode on the
-    card; then 10 frames at KITTI's full size, counts only."""
+    card, each tracked frame as its captured graphs and launch by launch in
+    turns (the same pose bytes), with the host work per frame of each form;
+    then 10 frames at KITTI's full size, counts only."""
+    import glob
+
     import numpy as np
 
     from ceres_slam_tpu_torch.apps import stereo_vo
@@ -2149,19 +2196,38 @@ def phase_live_vo(data, smi):
             np.save(os.path.join(d, f"{i:03d}_right.npy"), right.cpu().numpy())
         render_s = time.perf_counter() - t0
         intrinsics = [f"--{k}={v!r}" for k, v in zip(("fu", "fv", "cu", "cv", "baseline"), cam)]
-        stats = stereo_vo.main(["--left-glob", os.path.join(d, "*_left.npy"), "--right-glob",
-                                os.path.join(d, "*_right.npy"), "--out", os.path.join(d, "vo"),
-                                *intrinsics, "--device", "cuda"])
-        poses = csvio.read_poses_csv(stats["poses"])
-        ate = metrics.ate_translation(poses, gt)
-        log(f"[live_vo] {shape[0]}x{shape[1]} on {smi}: {stats['frames']} frames in "
-            f"{stats['wall_s']:.3f} s = {stats['frames_per_s']:.2f} frames/s (files read "
-            f"included; render and write {render_s:.2f} s); median per frame: "
-            f"{stats['median_corners']:g} valid corners, {stats['median_stereo_matches']:g} "
-            f"stereo matches, {stats['median_temporal_matches']:g} temporal matches; ATE "
-            f"{ate:.6f} m")
+        forms = LIVE_VO_FORMS if shape == LIVE_VO_SHAPE else LIVE_VO_FORMS[:1]
+        written = []
+        for turn, form in enumerate(forms):
+            stats = stereo_vo.main(["--left-glob", os.path.join(d, "*_left.npy"), "--right-glob",
+                                    os.path.join(d, "*_right.npy"), "--out",
+                                    os.path.join(d, f"vo{turn}_{form}"), *intrinsics,
+                                    "--device", "cuda", "--frame-loop", form])
+            with open(stats["poses"], "rb") as f:
+                written.append(f.read())
+            poses = csvio.read_poses_csv(stats["poses"])
+            ate = metrics.ate_translation(poses, gt)
+            log(f"[live_vo] {shape[0]}x{shape[1]} --frame-loop {form} on {smi}: "
+                f"{stats['frames']} frames in {stats['wall_s']:.3f} s = "
+                f"{stats['frames_per_s']:.2f} frames/s (files read included; render and write "
+                f"{render_s:.2f} s); {stats['captures']} capture(s), capture "
+                f"{stats['capture_s']:.3f} s, instantiation {stats['instantiate_s']:.3f} s; "
+                f"median per frame: {stats['median_corners']:g} valid corners, "
+                f"{stats['median_stereo_matches']:g} stereo matches, "
+                f"{stats['median_temporal_matches']:g} temporal matches; ATE {ate:.6f} m")
+        if any(w != written[0] for w in written[1:]):
+            fail(f"live VO {shape[0]}x{shape[1]}: the frame loop's forms wrote other poses")
         if shape != LIVE_VO_SHAPE:
             continue
+        log(f"[live_vo] the {len(forms)} runs' _poses.csv are byte-identical")
+        files = list(zip(sorted(glob.glob(os.path.join(d, "*_left.npy"))),
+                         sorted(glob.glob(os.path.join(d, "*_right.npy")))))
+        for form in ("device", "host"):
+            per = _live_vo_per_frame(files, cam, form)
+            log(f"[live_vo] {shape[0]}x{shape[1]} --frame-loop {form}, per tracked frame "
+                f"(profiled, 5 frames): {per['launches']:g} launches, {per['graph_launches']:g} "
+                f"graph launches, {per['syncs']:g} syncs, {per['copies']:g} copies, wall "
+                f"{per['wall_us']:.1f} us")
         dev = abs(ate - JAX_LIVE_VO_ATE) / JAX_LIVE_VO_ATE
         log(f"[live_vo] ATE {ate:.6f} m against JAX's {JAX_LIVE_VO_ATE:.6f} m: {100 * dev:.3f}% "
             f"off (bound {100 * LIVE_VO_RTOL:g}%)")
@@ -2663,47 +2729,93 @@ def _bench_problem():
 
 def _time_gn_step(mesh, reps=5):
     """Median and least wall of ``gn_step_sharded`` at the bench shape (after
-    a warm-up), with its collectives and bytes per step."""
+    a warm-up), with its collectives and bytes per step: launch by launch,
+    and on NCCL ranks also replayed (``sharded_ba.StepGraph``, captured at
+    the warm-up), whose new state must equal the eager step's bits."""
     import torch
 
     from ceres_slam_tpu_torch.parallel import sharded_ba
 
     problem, state = _bench_problem()
     shard = sharded_ba.shard_problem(problem, mesh)
-    out = sharded_ba.gn_step_sharded(shard, state, mesh)
-    torch.cuda.synchronize()
-    c0, b0 = sharded_ba.psum.collectives, sharded_ba.psum.bytes
-    times = []
-    for _ in range(reps):
+    forms = {"eager": None}
+    if sharded_ba.resolve_loop(mesh, None) == "device":
+        forms["replayed"] = sharded_ba.StepGraph()
+    out, figures = {}, {}
+    for name, graph in forms.items():
         t0 = time.perf_counter()
-        out = sharded_ba.gn_step_sharded(shard, state, mesh)
+        out[name] = sharded_ba.gn_step_sharded(shard, state, mesh, graph=graph)
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return {"ms": statistics.median(times), "ms_min": min(times),
-            "collectives": (sharded_ba.psum.collectives - c0) / reps,
-            "bytes": (sharded_ba.psum.bytes - b0) / reps,
-            "finite": bool(torch.isfinite(out.poses).all())}
+        first_s = time.perf_counter() - t0
+        c0, b0 = sharded_ba.psum.collectives, sharded_ba.psum.bytes
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out[name] = sharded_ba.gn_step_sharded(shard, state, mesh, graph=graph)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        figures[name] = {"ms": statistics.median(times), "ms_min": min(times),
+                         "first_s": first_s,
+                         "collectives": (sharded_ba.psum.collectives - c0) / reps,
+                         "bytes": (sharded_ba.psum.bytes - b0) / reps,
+                         "finite": bool(torch.isfinite(out[name].poses).all())}
+        if graph is not None:
+            graph.close()
+    if "replayed" in out:
+        figures["replayed"]["equal"] = all(torch.equal(a, b)
+                                           for a, b in zip(out["eager"], out["replayed"]))
+    return figures
 
 
 def _profile_sharded_cg(problem, state, mesh):
-    """One CG iteration of the sharded step (block-Jacobi, tol 0) under the
-    profiler: a step of 21 iterations less one of 1, over 20, each step's
-    layout built beforehand; with the five kernels of most device time."""
+    """One CG iteration of the sharded step (block-Jacobi, tol 0) in both
+    forms: a step of 21 CG iterations less one of 1, over 20. The host loop
+    (``pcg.cg``) under the profiler: device us, kernels, launches, syncs,
+    copies, wall, and the five kernels of most device time. The CG loop's
+    WHILE node (``pcg.device_cg``, restarted; where the mesh runs it):
+    launches, syncs, copies and wall under the profiler, and the device us
+    by CUDA events (the profiler sees a node's first pass only)."""
     import torch
 
     from ceres_slam_tpu_torch.ops.full_batch_trace import kernel_ms
     from ceres_slam_tpu_torch.parallel import sharded_ba, sharded_pcg
+    from ceres_slam_tpu_torch.solver import pcg
 
-    shard = sharded_ba.shard_problem(problem, mesh)
-    steps = {n: sharded_pcg.make_sharded_pcg_step(mesh, n, 0.0) for n in (1, 21)}
-    for step in steps.values():
-        step(shard, state, 1e-4)
-    one, many = (_trace(torch, lambda n=n: steps[n](shard, state, 1e-4)) for n in (1, 21))
-    out = {k: (many[k] - one[k]) / 20 for k in one}
-    one, many = (kernel_ms(lambda n=n: steps[n](shard, state, 1e-4), reps=5)[0] for n in (1, 21))
+    prep = sharded_pcg.prepare(problem, state, mesh, "jacobi")
+    forms = ("host", "device") if sharded_ba.resolve_loop(mesh, None) == "device" else ("host",)
+    graphs = {n: pcg.CGGraph() for n in (1, 21)}
+    steps = {(n, loop): sharded_pcg.make_sharded_pcg_step(
+        mesh, prep.layout, prep.terms, n, 0.0, cg_loop=loop, graph=graphs[n] if loop == "device"
+        else None) for n in (1, 21) for loop in forms}
+    calls = {k: (lambda st=st: st(prep.problem, state, 1e-4)) for k, st in steps.items()}
+    for call in calls.values():
+        call()
+    out = {}
+    for loop in forms:
+        one, many = (_trace(torch, calls[(n, loop)]) for n in (1, 21))
+        out[loop] = {k: (many[k] - one[k]) / 20 for k in one}
+    one, many = (kernel_ms(calls[(n, "host")], reps=5)[0] for n in (1, 21))
     us = {k: (many[k] - one.get(k, 0.0)) / 20 * 1e3 for k in many}
-    out["top_us"] = sorted(us.items(), key=lambda kv: -kv[1])[:5]
+    out["host"]["top_us"] = sorted(us.items(), key=lambda kv: -kv[1])[:5]
+    if "device" in forms:
+        ms1, ms21 = _medians_ms(torch, [calls[(1, "device")], calls[(21, "device")]], reps=10)
+        out["device"]["device_us"] = (ms21 - ms1) / 20 * 1e3
+    for g in graphs.values():
+        g.close()
     return out
+
+
+# the sharded solves of each dist group: (name, preconditioner or None for
+# solve_ba_sharded, LM loop form, None for the mesh's default): on one NCCL
+# rank the node form, the host form and the node again (restarted through
+# one LMGraph), in turns; on several NCCL ranks the default is the host form
+# (the node hung across four: sharded_ba.resolve_loop)
+DIST_SOLVES = {
+    "kitti1100": [("jacobi", "jacobi", None), ("jacobi host", "jacobi", "host"),
+                  ("jacobi device", "jacobi", None)],
+    "triangle200": [("solve_ba", None, "host"), ("jacobi", "jacobi", "host"),
+                    ("banded", "banded", "host")],
+    "hybrid_nccl": [("jacobi", "jacobi", None), ("jacobi host", "jacobi", "host")]}
 
 
 def _dist_child(group, data):
@@ -2712,7 +2824,9 @@ def _dist_child(group, data):
     sharded functions, pickles its arrays and prints its figures as the last
     line of its output. Groups: kitti1100 (NCCL, one rank a card),
     triangle200 (two gloo ranks on the card), hybrid (four, a 2x2 mesh) and
-    hybrid_nccl (a 2 x n/2 mesh of NCCL ranks, one a card)."""
+    hybrid_nccl (a 2 x n/2 mesh of NCCL ranks, one a card). On NCCL ranks
+    the solves run in the node form and the host form in turns; on gloo
+    ranks in the host form, and the device form's refusal is logged."""
     import pickle
 
     import torch
@@ -2732,6 +2846,7 @@ def _dist_child(group, data):
         problem, state = _tree(lambda a: torch.as_tensor(a).cuda(), pickle.load(f))
     config = lm.SolveConfig(**DIST_CONFIG)
     runs, times, arrays = {}, {}, {}
+    graph = lm.LMGraph()
     try:
         if group.startswith("hybrid"):
             mesh = multihost.make_hybrid_mesh(
@@ -2747,29 +2862,40 @@ def _dist_child(group, data):
             gn = sharded_ba.gn_step_sharded(shard, state, mesh)
             arrays["gn_step"] = gn.poses.cpu().numpy()
             runs["gn_step"] = {"cost": float(dense.ba_cost(problem, gn))}
-        solves = {"kitti1100": [("jacobi", "jacobi")],
-                  "triangle200": [("solve_ba", None), ("jacobi", "jacobi"), ("banded", "banded")]}
-        for name, precond in solves.get(group, []):
+        form = sharded_ba.resolve_loop(mesh, None)
+        if form == "host":
+            try:
+                sharded_pcg.solve_ba_pcg_sharded(problem, state, mesh, config, lm_loop="device")
+                runs["refused"] = None
+            except ValueError as e:
+                runs["refused"] = str(e)
+        for name, precond, loop in DIST_SOLVES.get(group, []):
+            loop = loop or form
             k2.launches = 0
             c0, b0 = sharded_ba.psum.collectives, sharded_ba.psum.bytes
+            captures = lm.GRAPH_STATS["captures"]
             t0 = time.perf_counter()
+            node = {"graph": graph} if loop == "device" else {}
             if precond is None:
-                sol, summ = sharded_ba.solve_ba_sharded(problem, state, mesh, config)
+                sol, summ = sharded_ba.solve_ba_sharded(problem, state, mesh, config,
+                                                        lm_loop=loop, **node)
             else:
-                sol, summ = sharded_pcg.solve_ba_pcg_sharded(problem, state, mesh, config,
-                                                             precond=precond)
+                sol, summ = sharded_pcg.solve_ba_pcg_sharded(
+                    problem, state, mesh, config, precond=precond, lm_loop=loop, **node)
             torch.cuda.synchronize()
             times[name] = time.perf_counter() - t0
             arrays[name] = sol.poses.cpu().numpy()
             runs[name] = {"cost": summ.final_cost, "initial_cost": summ.initial_cost,
                           "lm": summ.iterations, "cg": summ.linear_iterations, "k2": k2.launches,
                           "collectives": sharded_ba.psum.collectives - c0,
-                          "bytes": sharded_ba.psum.bytes - b0}
+                          "bytes": sharded_ba.psum.bytes - b0, "loop": loop,
+                          "captured": lm.GRAPH_STATS["captures"] - captures}
         if not group.startswith("hybrid"):
             times["gn_step_bench"] = _time_gn_step(mesh)
         if group == "kitti1100":
             times["cg_profile"] = _profile_sharded_cg(problem, state, mesh)
     finally:
+        graph.close()
         multihost.shutdown()
     with open(os.path.join(data, f"dist_{group}_rank{rank}.pkl"), "wb") as f:
         pickle.dump(arrays, f)
@@ -2844,12 +2970,45 @@ def _normal_eq_gate(label, H, g, H_ref, g_ref):
 
 
 def _bench_line(fig):
-    b = fig["times"]["gn_step_bench"]
-    return (f"[dist] gn_step_sharded at scripts/bench_scaling.py's default shape (64 poses, "
-            f"2,048 landmarks, 65,536 observations, f32), rank {fig['rank']} of "
+    lines = []
+    for form, b in fig["times"]["gn_step_bench"].items():
+        equal = f", bit-equal to the eager step {b['equal']}" if "equal" in b else ""
+        lines.append(
+            f"[dist] gn_step_sharded {form} at scripts/bench_scaling.py's default shape (64 "
+            f"poses, 2,048 landmarks, 65,536 observations, f32), rank {fig['rank']} of "
             f"{fig['mesh']} ({fig['backend']}): median {b['ms']:.2f} ms (least "
-            f"{b['ms_min']:.2f}) per step, {b['collectives']:g} collective(s) of "
-            f"{b['bytes'] / 1e6:.3f} MB per step, finite {b['finite']}")
+            f"{b['ms_min']:.2f}) per step (the first {b['first_s']:.3f} s), "
+            f"{b['collectives']:g} collective(s) of {b['bytes'] / 1e6:.3f} MB per step, finite "
+            f"{b['finite']}{equal}")
+        if "equal" in b and not (b["equal"] and b["finite"]):
+            fail(f"dist: the replayed gn_step_sharded differs from the eager step ({form})")
+    return "\n".join(lines)
+
+
+def _gate_forms(label, fig, arr, names):
+    """Fail unless the solves ``names`` (one problem in several loop forms)
+    gave the same bits, iterations and collectives, K2 ran once per LM
+    iteration in each, and a device form after the first restarted its
+    capture. Logs each form's ms per CG iteration."""
+    import numpy as np
+
+    first = fig["runs"][names[0]]
+    for name in names:
+        r, wall = fig["runs"][name], fig["times"][name]
+        log(f"[dist] {label} {name} ({r['loop']} LM loop{', captured' if r['captured'] else ''})"
+            f": {r['lm']} LM / {r['cg']} CG iterations, {r['collectives']} collectives of "
+            f"{r['bytes'] / 1e6:.2f} MB, K2 {r['k2']}, solve {wall:.3f} s = "
+            f"{1e3 * wall / max(r['cg'], r['lm'], 1):.4f} ms per "
+            f"{'CG' if r['cg'] else 'LM'} iteration")
+        same = {k: first[k] for k in ("cost", "initial_cost", "lm", "cg", "collectives", "bytes")}
+        if ({k: r[k] for k in same} != same or not np.array_equal(arr[name], arr[names[0]])):
+            fail(f"dist {label}: {name} ({r['loop']}) differs from {names[0]} "
+                 f"({first['loop']})")
+        if r["k2"] and r["k2"] != r["lm"]:
+            fail(f"dist {label} {name}: {r['k2']} K2 launches for {r['lm']} LM iterations")
+    devices = [fig["runs"][n] for n in names if fig["runs"][n]["loop"] == "device"]
+    if len(devices) > 1 and any(r["captured"] for r in devices[1:]):
+        fail(f"dist {label}: a later device solve captured again instead of restarting")
 
 
 def phase_dist(kernels, data, smi):
@@ -2871,7 +3030,8 @@ def phase_dist(kernels, data, smi):
     config = lm.SolveConfig(**DIST_CONFIG)
     total = {"K2": 0, "K3": 0}
 
-    # (a) kitti1100 full batch, one NCCL rank, block-Jacobi
+    # (a) kitti1100 full batch, one NCCL rank, block-Jacobi, the node and
+    # host forms in turns
     t0 = time.perf_counter()
     problem, state = _dist_problem(data, "kitti1100")
     log(f"[dist] kitti1100 full-batch problem, VO initial guess: {time.perf_counter() - t0:.2f} s")
@@ -2893,9 +3053,14 @@ def phase_dist(kernels, data, smi):
         f"{1e3 * ref_wall / max(rsumm.linear_iterations, 1):.3f} ms per CG iteration; launches "
         f"K2 {k2.launches}, K3 {k3.launches}; max |pose(sharded) - pose(single)| {d:.3e}")
 
-    # (b) triangle200, two gloo ranks on the card
+    # (b) triangle200, two gloo ranks on the card (the host form: gloo's
+    # collectives cannot be captured, and the device form must say so)
     problem, state = _dist_problem(data, "triangle200")
     fig, arr, figures = _run_ranks("triangle200", 2, data, 600)
+    refused = fig["runs"]["refused"]
+    log(f"[dist] triangle200 on gloo ranks, lm_loop='device' refused: {refused}")
+    if not refused or "NCCL" not in refused:
+        fail("dist triangle200: the device LM loop was not refused on gloo ranks")
     H, g = dense.ba_normal_equations(problem, state)
     _normal_eq_gate("triangle200, 2 ranks", arr["H"], arr["g"], H, g)
     k2.launches = k3.launches = 0
@@ -2930,7 +3095,8 @@ def phase_dist(kernels, data, smi):
     _normal_eq_gate("triangle200, 2x2 hybrid mesh", arr["H"], arr["g"], H, g)
 
     # (e), (f) where more than one card is visible: (a) on every card, one
-    # NCCL rank a card; and (c) as a 2 x n/2 mesh of NCCL ranks
+    # NCCL rank a card; and (c) as a 2 x n/2 mesh of NCCL ranks, with its
+    # block-Jacobi solve in the node and host forms
     n = torch.cuda.device_count()
     if n > 1:
         fig, arr, _ = _run_ranks("kitti1100", n, data, 900)
@@ -2939,16 +3105,29 @@ def phase_dist(kernels, data, smi):
         fig, arr, _ = _run_ranks("hybrid_nccl", n, data, 600)
         _normal_eq_gate(f"triangle200, 2x{n // 2} hybrid mesh of NCCL ranks", arr["H"], arr["g"],
                         H, g)
+        log(f"[dist] triangle200 on the 2x{n // 2} NCCL mesh, lm_loop='device' refused: "
+            f"{fig['runs']['refused']}")
+        _gate_forms(f"triangle200, 2x{n // 2} NCCL mesh", fig, arr, ["jacobi", "jacobi host"])
+        r = fig["runs"]["jacobi"]
+        dev = abs(r["cost"] - JAX_DIST["jacobi"]) / JAX_DIST["jacobi"]
+        log(f"[dist] triangle200 jacobi on the 2x{n // 2} NCCL mesh: cost {r['cost']:.9e}, "
+            f"{dev:.2e} from JAX's sharded (bound {DIST_COST_RTOL:g})")
+        if dev > DIST_COST_RTOL:
+            fail(f"dist triangle200 2x{n // 2} NCCL mesh: cost {r['cost']:.9e}")
+        total["K2"] += n * sum(fig["runs"][k]["k2"] for k in ("jacobi", "jacobi host"))
     return total
 
 
 def _gate_kitti1100(fig, arr, gt, state, smi):
-    """Log the sharded kitti1100 solve and its profile, and fail unless its
-    cost and ATE are within the full-batch bounds of JAX's and K2 ran once
-    per LM iteration on each rank. Returns a rank's K2 launches."""
+    """Log the sharded kitti1100 solves (the node and host forms in turns)
+    and one CG iteration of each form profiled, and fail unless the forms
+    gave the same bits, the cost and ATE are within the full-batch bounds of
+    JAX's and K2 ran once per LM iteration on each rank. Returns a rank's K2
+    launches."""
     from ceres_slam_tpu_torch.utils import metrics
 
-    r, wall = fig["runs"]["jacobi"], fig["times"]["jacobi"]
+    names = [name for name, _, _ in DIST_SOLVES["kitti1100"]]
+    r = fig["runs"]["jacobi"]
     ate = metrics.ate_translation(arr["jacobi"], gt)
     cost_ref, ate_ref = JAX_FULL["kitti1100"]
     dev = abs(r["cost"] - cost_ref) / cost_ref
@@ -2957,16 +3136,25 @@ def _gate_kitti1100(fig, arr, gt, state, smi):
     log(f"[dist] kitti1100 solve_ba_pcg_sharded, jacobi, {ranks}: cost {r['initial_cost']:.6e} "
         f"-> {r['cost']:.6e} (JAX full batch {cost_ref:.6e}, {100 * dev:.4f}% off, bound "
         f"{100 * FULL_COST_RTOL['kitti1100']:g}%), ATE {ate:.6f} m (JAX {ate_ref:.4f}, bound "
-        f"+-{FULL_ATE_ATOL['kitti1100']:.4g} m); {r['lm']} LM and {r['cg']} CG iterations, "
-        f"solve {wall:.2f} s = {1e3 * wall / max(r['cg'], 1):.3f} ms per CG iteration; K2 "
-        f"launches {r['k2']} a rank; {r['collectives']} collectives, {r['bytes'] / 1e6:.2f} MB "
-        f"in all (a CG iteration: 2, of {utv_kb:.1f} KB and {uy_kb:.1f} KB); on {smi}")
+        f"+-{FULL_ATE_ATOL['kitti1100']:.4g} m); {r['lm']} LM and {r['cg']} CG iterations; "
+        f"{r['collectives']} collectives, {r['bytes'] / 1e6:.2f} MB in all (a CG iteration: 2, "
+        f"of {utv_kb:.1f} KB and {uy_kb:.1f} KB); on {smi}")
+    _gate_forms(f"kitti1100, {ranks},", fig, arr, names)
     p = fig["times"]["cg_profile"]
-    log(f"[dist] kitti1100 sharded, one CG iteration ({ranks}, profiled, rank 0): "
-        f"{p['device_us']:.2f} us of device time, {p['kernels']:g} device kernels, "
-        f"{p['launches']:g} launches, {p['syncs']:g} syncs, {p['copies']:g} copies, wall "
-        f"{p['wall_us']:.1f} us; most device time: "
-        + ", ".join(f"{name} {us:.2f} us" for name, us in p["top_us"]))
+    h, d = p["host"], p.get("device")
+    log(f"[dist] kitti1100 sharded, one CG iteration ({ranks}, rank 0), host loop (profiled): "
+        f"{h['device_us']:.2f} us of device time, {h['kernels']:g} device kernels, "
+        f"{h['launches']:g} launches, {h['syncs']:g} syncs, {h['copies']:g} copies, wall "
+        f"{h['wall_us']:.1f} us; most device time: "
+        + ", ".join(f"{name} {us:.2f} us" for name, us in h["top_us"]))
+    if d is None:
+        log(f"[dist] kitti1100 sharded on {ranks}: the device loops refused: "
+            f"{fig['runs']['refused']}")
+    else:
+        log(f"[dist] kitti1100 sharded, one CG iteration in its WHILE node ({ranks}, rank 0): "
+            f"{d['device_us']:.2f} us of device time (CUDA events), {d['launches']:g} launches, "
+            f"{d['graph_launches']:g} graph launches, {d['syncs']:g} syncs, {d['copies']:g} "
+            f"copies (profiled), wall {d['wall_us']:.1f} us")
     log(_bench_line(fig))
     if not (dev <= FULL_COST_RTOL["kitti1100"]
             and abs(ate - ate_ref) <= FULL_ATE_ATOL["kitti1100"]):
@@ -2974,7 +3162,11 @@ def _gate_kitti1100(fig, arr, gt, state, smi):
              f"{cost_ref:.6e} / {ate_ref:.4f}")
     if not r["k2"] == r["lm"] > 0:
         fail(f"dist kitti1100, {ranks}: {r['k2']} K2 launches for {r['lm']} LM iterations")
-    return r["k2"]
+    if d is None and "NCCL" not in (fig["runs"].get("refused") or ""):
+        fail(f"dist kitti1100, {ranks}: neither the node form nor its refusal")
+    if d is not None and any(d[k] != 0 for k in ("launches", "syncs", "copies")):
+        fail(f"dist kitti1100, {ranks}: host work per CG iteration in the node: {d}")
+    return sum(fig["runs"][name]["k2"] for name in names)
 
 
 def phase_cpu(kernels, data, window_poses, full_poses, dense_pose, graph_poses):

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from ceres_slam_tpu_torch.ops import (bilinear_kernel, double_kernel, full_batch_plan,
+from ceres_slam_tpu_torch.ops import (bilinear_kernel, double_kernel, full_batch_plan, lie,
                                       subspace_kernel,
                                       full_batch_trace, schur_kernel, stereo_factor_kernel,
                                       window_kernel)
@@ -394,6 +394,157 @@ def test_sharded_pcg_is_bit_reproducible(tmp_path):
     assert torch.equal(a.poses, b.poses) and torch.equal(a.points, b.points)
     assert (sa.iterations, sa.linear_iterations, sa.final_cost) == (
         sb.iterations, sb.linear_iterations, sb.final_cost)
+
+
+def _host_tree(x):
+    """Tensors (through tuples) to numpy arrays, for a child's results."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    if isinstance(x, tuple):
+        return tuple(_host_tree(v) for v in x)
+    return x
+
+
+def _sharded_host_work(mesh, problem, state, small, small_state) -> dict:
+    """Host launches, syncs and copies of a restarted sharded solve in its
+    node at 3 and at 8 LM iterations (``run_full_budget``), per solver:
+    ``{name: {n: (iterations, launches, syncs, copies)}}``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    solves = {"jacobi": lambda c, g: sharded_pcg.solve_ba_pcg_sharded(
+                  problem, state, mesh, c, 200, 1e-10, "jacobi", graph=g),
+              "banded": lambda c, g: sharded_pcg.solve_ba_pcg_sharded(
+                  problem, state, mesh, c, 200, 1e-10, "banded", graph=g),
+              "dense": lambda c, g: sharded_ba.solve_ba_sharded(small, small_state, mesh, c,
+                                                                graph=g)}
+    out = {}
+    for name, solve in solves.items():
+        out[name] = {}
+        for n in (3, 8):
+            cfg, graph = lm.SolveConfig(max_iters=n, run_full_budget=True), lm.LMGraph()
+            solve(cfg, graph)  # the capture
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                _, summ = solve(cfg, graph)
+                torch.cuda.synchronize()
+            graph.close()
+            host = [e.name for e in prof.events() if e.device_type != DeviceType.CUDA]
+            out[name][n] = (summ.iterations, sum(x.startswith("cudaLaunchKernel") for x in host),
+                            sum("Synchronize" in x for x in host),
+                            sum(x.startswith("cudaMemcpy") for x in host))
+    return out
+
+
+def _sharded_forms_child(_, rendezvous, out):
+    """One NCCL rank (a child process): the sharded solves in each loop form,
+    the restart of a captured solve and the captured GN step; pickles what
+    each run returned and counted."""
+    import pickle
+
+    assert multihost.initialize(f"file://{rendezvous}", 1, 0, device="cuda", timeout_s=60)
+    k2, ps = stereo_factor_kernel.stereo_factor_sums, sharded_ba.psum
+    res = {}
+
+    def run(name, fn):
+        k2.launches, ps.collectives, ps.bytes = 0, 0, 0
+        sol, summ = fn()
+        torch.cuda.synchronize()
+        res[name] = {"state": _host_tree(tuple(sol)), "summary": _host_tree(tuple(summ)),
+                     "k2": k2.launches, "collectives": ps.collectives, "bytes": ps.bytes}
+
+    try:
+        mesh = sharded_ba.make_mesh()
+        problem, state = _lm_problem(torch.float64)
+        cfg = lm.SolveConfig(max_iters=6, nonmonotonic=True, ftol=1e-9, xtol=1e-12,
+                             record_history=True)
+        for precond in ("jacobi", "banded"):
+            for lm_loop, cg_loop in (("host", "host"), ("host", "device"), ("device", "device")):
+                run(f"{precond} {lm_loop}/{cg_loop}", lambda: sharded_pcg.solve_ba_pcg_sharded(
+                    problem, state, mesh, cfg, 200, 1e-10, precond, lm_loop, cg_loop))
+        # a second state: the first solve's, moved; a restart through one LMGraph
+        state2 = dense.BAState(lie.se3_retract(state.poses, torch.full_like(state.poses[:, :6],
+                                                                            1e-3)),
+                               state.points + 1e-3)
+        graph, stats = lm.LMGraph(), lm.GRAPH_STATS
+        before = (stats["captures"], stats["restarts"])
+        for i, s in enumerate((state, state2)):
+            run(f"graph {i}", lambda: sharded_pcg.solve_ba_pcg_sharded(
+                problem, s, mesh, cfg, 200, 1e-10, "jacobi", graph=graph))
+        res["graph_stats"] = (stats["captures"] - before[0], stats["restarts"] - before[1])
+        graph.close()
+        run("graph host", lambda: sharded_pcg.solve_ba_pcg_sharded(
+            problem, state2, mesh, cfg, 200, 1e-10, "jacobi", "host", "host"))
+        small, small_state, _ = _sharded_case()
+        for lm_loop in ("host", "device"):
+            run(f"dense {lm_loop}", lambda: sharded_ba.solve_ba_sharded(small, small_state, mesh,
+                                                                        cfg, lm_loop=lm_loop))
+        res["host_work"] = _sharded_host_work(mesh, problem, state, small, small_state)
+        shard, steps = sharded_ba.shard_problem(small, mesh), sharded_ba.StepGraph()
+        for i, s in enumerate((small_state, dense.BAState(small_state.poses,
+                                                          small_state.points + 1e-3))):
+            eager = _host_tree(tuple(sharded_ba.gn_step_sharded(shard, s, mesh)))
+            ps.collectives = 0
+            replayed = _host_tree(tuple(sharded_ba.gn_step_sharded(shard, s, mesh, graph=steps)))
+            res[f"gn {i}"] = (eager, replayed, ps.collectives)
+        steps.close()
+    finally:
+        multihost.shutdown()
+    with open(out, "wb") as f:
+        pickle.dump(res, f)
+
+
+def _same_run(a, b):
+    for x, y in zip(a["state"] + a["summary"], b["state"] + b["summary"]):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.cuda
+def test_sharded_node_forms_equal_host_forms(tmp_path):
+    """On one NCCL rank (a child process), at triangle200's full-batch shape:
+    the sharded PCG solve (block-Jacobi and banded) with its LM loop in a
+    WHILE node and the CG node nested in it, and with the CG node under the
+    host LM loop, gives the host loops' bits (summary and history
+    included); K2 launches once per LM iteration and ``psum`` counts, per
+    iteration the card ran, the collectives and bytes the host form makes.
+    A second solve through one ``LMGraph`` restarts the capture (no new
+    capture) and gives the host form's bits on its own state. The sharded
+    dense solve in its node equals its host form; ``gn_step_sharded``
+    replayed through a ``StepGraph`` equals the eager step. A restarted
+    solve in its node makes the same host launches, syncs and copies at 3
+    and at 8 LM iterations: none per LM or CG iteration."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import pickle
+
+    out = tmp_path / "forms.pkl"
+    torch.multiprocessing.spawn(_sharded_forms_child, args=(str(tmp_path / "rdv"), str(out)),
+                                nprocs=1, join=True)
+    with open(out, "rb") as f:
+        res = pickle.load(f)
+    for precond in ("jacobi", "banded"):
+        ref = res[f"{precond} host/host"]
+        assert ref["k2"] == ref["summary"][0] > 2 and ref["summary"][5] > ref["summary"][0]
+        for form in ("host/device", "device/device"):
+            got = res[f"{precond} {form}"]
+            _same_run(got, ref)
+            assert (got["k2"], got["collectives"], got["bytes"]) == (
+                ref["k2"], ref["collectives"], ref["bytes"]), (precond, form)
+    for name, counts in res["host_work"].items():  # no host work per LM or CG iteration
+        assert (counts[3][0], counts[8][0]) == (3, 8), name
+        assert counts[3][1:] == counts[8][1:], (name, counts)
+    assert res["graph_stats"] == (1, 1)
+    _same_run(res["graph 0"], res["jacobi host/host"])
+    _same_run(res["graph 1"], res["graph host"])
+    assert res["graph 1"]["collectives"] == res["graph host"]["collectives"]
+    _same_run(res["dense device"], res["dense host"])
+    assert res["dense device"]["collectives"] == res["dense host"]["collectives"] > 0
+    for i in range(2):
+        eager, replayed, collectives = res[f"gn {i}"]
+        for x, y in zip(eager, replayed):
+            np.testing.assert_array_equal(x, y)
+        # one all-reduce a replay (the first step also runs the step once eagerly)
+        assert collectives == 2 - i
 
 
 def test_distributed_cuda_without_a_card_raises(monkeypatch):
@@ -1538,3 +1689,35 @@ def test_dogleg_node_equals_host_loop():
         assert host[1].iterations > 1
         _same_solve(node, host)
     graph.close()
+
+
+@pytest.mark.cuda
+def test_frame_graph_equals_host_frames():
+    """Live VO on the card: six rendered frames with each tracked frame as
+    ``FrameGraph``'s two replays around the eager SVD, and launch by launch,
+    give the same trajectory and counts bit for bit; the pairs alternate
+    between tensors on the card and host arrays (the staging copy), with
+    eager work that churns the allocator between frames."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ceres_slam_tpu_torch.apps import stereo_vo as app
+    from ceres_slam_tpu_torch.frontend import stereo_vo
+    from ceres_slam_tpu_torch.models.stereo_camera import StereoCamera
+
+    cam = StereoCamera.create(140.0, 140.0, 80.0, 60.0, 0.4)
+    frames, _ = app._render_synthetic(cam, 6, device="cuda")
+    runs, before = {}, dict(stereo_vo.FRAME_STATS)
+    for loop in ("host", "device"):
+        vo = stereo_vo.OnlineStereoVO(cam, device="cuda", frame_loop=loop)
+        for i, (left, right) in enumerate(frames):
+            if i % 2:
+                left, right = left.cpu().numpy(), right.cpu().numpy()
+            vo.process(left, right)
+            junk = torch.randn(257, 129, device="cuda", dtype=torch.float64)
+            (junk @ junk.T).sum()
+        runs[loop] = (torch.stack(vo.trajectory), torch.stack(vo.counts))
+        vo.close()
+    assert stereo_vo.FRAME_STATS["captures"] - before["captures"] == 1
+    assert torch.equal(runs["device"][0], runs["host"][0])
+    assert torch.equal(runs["device"][1], runs["host"][1])
+    assert (runs["host"][1][1:, 2] > 30).all()

@@ -104,6 +104,11 @@ def _pts_c(rng):
     return rng.uniform([-4, -3, 2], [4, 3, 30], (N, 3))
 
 
+def test_lie_constants_match_jax():
+    for name in ("SE3_DIM", "SO3_DIM", "SE3_DOF", "SO3_DOF"):
+        assert getattr(lie, name) == getattr(jlie, name), name
+
+
 @pytest.mark.parametrize("method", ["project", "projection_jacobian", "triangulate",
                                     "triangulation_jacobian"])
 def test_camera_matches_jax(method):

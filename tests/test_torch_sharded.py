@@ -31,7 +31,7 @@ import torch
 import torch.multiprocessing
 
 from ceres_slam_tpu_torch.parallel import multihost, sharded_ba, sharded_pcg
-from ceres_slam_tpu_torch.solver import banded, dense, lm
+from ceres_slam_tpu_torch.solver import banded, dense, lm, pcg
 
 torch.set_num_threads(1)
 
@@ -55,13 +55,46 @@ def _to_torch(x):
     return tree_map(lambda a: torch.as_tensor(a) if isinstance(a, np.ndarray) else a, x)
 
 
+def _iterate_body(lp: lm.LMLoop, config: lm.SolveConfig):
+    """An LM loop's body iterated on the host while its ``pred`` is set, as
+    the WHILE node on the card runs it; returns ``lm.finish``'s."""
+    while int(lp.pred):
+        lp.body()
+    return lm.finish(lp.carry, config)
+
+
+def _refusals(mesh, problem, state, config) -> list:
+    """The device forms on a gloo rank: each must raise, naming the cause."""
+    calls = (lambda: sharded_ba.solve_ba_sharded(problem, state, mesh, config, lm_loop="device"),
+             lambda: sharded_ba.gn_step_sharded(sharded_ba.shard_problem(problem, mesh), state,
+                                                mesh, graph=sharded_ba.StepGraph()),
+             lambda: sharded_pcg.solve_ba_pcg_sharded(problem, state, mesh, config,
+                                                      lm_loop="device"),
+             lambda: sharded_pcg.solve_ba_pcg_sharded(problem, state, mesh, config,
+                                                      cg_loop="device"),
+             lambda: sharded_pcg.solve_ba_pcg_sharded(problem, state, mesh, config,
+                                                      lm_loop="device", cg_loop="host"))
+    messages = []
+    for call in calls:
+        try:
+            call()
+            messages.append(None)
+        except ValueError as e:
+            messages.append(str(e))
+    return messages
+
+
 def _run_case(meshes, kind, mesh_name, *args):
     """One case on this rank: the port's sharded function on the numpy
-    inputs; returns numpy results."""
+    inputs; returns numpy results. ``solve_body``, ``pcg_body``: the
+    device LM loop's body (``pcg_body``: with the CG loop on fixed
+    buffers, ``pcg.inner_cg``) iterated on the host."""
     mesh = meshes[mesh_name]
     args = [_to_torch(a) for a in args]
     if kind == "meshes":
         return {name: tuple(m.shape) for name, m in meshes.items()}
+    if kind == "refusals":
+        return {"messages": _refusals(mesh, *args)}
     if kind == "normal_eq":
         problem, state = args
         H, g = sharded_ba.make_sharded_normal_eq(mesh)(
@@ -74,6 +107,17 @@ def _run_case(meshes, kind, mesh_name, *args):
     problem, state, config, *pcg_args = args
     if kind == "solve_ba":
         sol, summ = sharded_ba.solve_ba_sharded(problem, state, mesh, config)
+    elif kind == "solve_body":
+        shard = sharded_ba.shard_problem(problem, mesh)
+        fns = sharded_ba.lm_functions(shard, mesh, dense.block_tables(shard),
+                                      dense.aux_terms(shard))
+        sol, summ = _iterate_body(lm.lm_loop(state, config, *fns), config)
+    elif kind == "pcg_body":
+        max_cg_iters, cg_tol, precond = pcg_args
+        prep = sharded_pcg.prepare(problem, state, mesh, precond)
+        bufs = pcg.cg_buffers(state.poses.new_zeros((state.poses.shape[0], 6)))
+        fns = sharded_pcg.lm_functions(prep, mesh, max_cg_iters, cg_tol, buffers=bufs)
+        sol, summ = _iterate_body(lm.lm_loop(state, config, *fns), config)
     else:
         max_cg_iters, cg_tol, precond = pcg_args
         sol, summ = sharded_pcg.solve_ba_pcg_sharded(problem, state, mesh, config, max_cg_iters,
@@ -171,6 +215,8 @@ def runs(tmp_path_factory):
     wait2 = start_ranks(tmp, 2, {
         "normal_eq": ("normal_eq", "global", *problems["normal_eq"][2:]),
         "solve": ("solve_ba", "global", *problems["solve"][2:], cfg),
+        "solve_body": ("solve_body", "global", *problems["solve"][2:], cfg),
+        "refusals": ("refusals", "global", *problems["solve"][2:], cfg),
         "gn_step": ("gn_step", "global", *problems["gn_step"][2:])})
     wait4 = start_ranks(tmp, 4, {
         "hybrid": ("normal_eq", "hybrid", *problems["hybrid"][2:]),
@@ -211,6 +257,49 @@ def test_sharded_solve_matches_jax(runs):
     got = ranks[0]["solve"]
     np.testing.assert_allclose(got["cost"], ref["cost"], rtol=1e-6)
     np.testing.assert_allclose(got["poses"], ref["poses"], rtol=0, atol=1e-7)
+
+
+def test_node_body_on_the_host_equals_host_loop(runs):
+    """The device LM loop's body (its tables and terms built before the
+    loop) iterated on the host, as the WHILE node runs it, gives the host
+    loop's bits on every rank."""
+    ranks = runs[2]
+    assert_ranks_identical(ranks, "solve_body")
+    for key, value in ranks[0]["solve"].items():
+        assert np.array_equal(np.asarray(ranks[0]["solve_body"][key]), np.asarray(value)), key
+
+
+def test_device_loops_refused_on_gloo(runs):
+    """On gloo ranks (here on the CPU) every device form raises, naming the
+    cause; the device LM loop with the host CG loop raises too."""
+    ranks = runs[2]
+    assert_ranks_identical(ranks, "refusals")
+    messages = ranks[0]["refusals"]["messages"]
+    assert all(m is not None and "NCCL" in m for m in messages[:4]), messages
+    assert messages[4] is not None and "needs cg_loop='device'" in messages[4], messages
+
+
+@pytest.mark.parametrize("ranks,form", [(1, "device"), (4, "host")])
+def test_loop_form_on_nccl_meshes(monkeypatch, ranks, form):
+    """On a mesh of one NCCL rank the device form is the default; on several
+    NCCL ranks (where the captured loop hung on four cards) the host form
+    is, and the device form raises, naming the cause."""
+
+    class Mesh:  # an NCCL mesh of ``ranks`` ranks, as resolve_loop reads it
+        def get_group(self, dim):
+            return None
+
+        def size(self):
+            return ranks
+
+    monkeypatch.setattr(sharded_ba.dist, "get_backend", lambda group=None: "nccl")
+    assert sharded_ba.resolve_loop(Mesh(), None) == form
+    assert sharded_pcg.resolve_loops(Mesh(), None, None) == (form, form)
+    if ranks > 1:
+        with pytest.raises(ValueError, match="verified on one rank only"):
+            sharded_ba.resolve_loop(Mesh(), "device")
+    else:
+        assert sharded_ba.resolve_loop(Mesh(), "host") == "host"
 
 
 def test_gn_step_matches_jax(runs):

@@ -27,6 +27,10 @@ TOL = {"jacobi": 1e-5, "banded": 1e-6, "banded_132": 1e-6, "masked_jacobi": 1e-5
        "masked_banded": 1e-6, "hybrid": 1e-6}
 
 
+# the cases whose device-loop body is also iterated on the host
+BODY_CASES = ("jacobi", "banded")
+
+
 def _banded_problem(K, J, n_obs, seed, dx_seed, mask_tail=False):
     """The banded tests' problem: ``__graft_entry__._build_example``, the
     state moved off its minimum by a seeded step; the tail masked as padding
@@ -81,14 +85,16 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("sharded_pcg")
     problems = {name: _problem(spec) for name, (spec, *_) in CASES.items()}
 
-    def case(name, mesh):
+    def case(name, mesh, kind="pcg"):
         _, iters, tol, precond = CASES[name]
-        return ("pcg", mesh, *problems[name][2:], lm.SolveConfig(max_iters=iters), 200, tol,
+        return (kind, mesh, *problems[name][2:], lm.SolveConfig(max_iters=iters), 200, tol,
                 precond)
 
     waits = {1: start_ranks(tmp, 1, {"jacobi": case("jacobi", "global")}),
-             2: start_ranks(tmp, 2, {name: case(name, "global") for name in CASES
-                                     if name != "hybrid"}),
+             2: start_ranks(tmp, 2, {**{name: case(name, "global") for name in CASES
+                                        if name != "hybrid"},
+                                     **{f"{name}_body": case(name, "global", "pcg_body")
+                                        for name in BODY_CASES}}),
              4: start_ranks(tmp, 4, {"hybrid": case("hybrid", "hybrid")}, ranks_per_node=2)}
 
     mesh = jsharded_ba.make_mesh()
@@ -127,3 +133,16 @@ def test_masked_banded_equals_masked_jacobi(runs):
                                rtol=1e-6)
     np.testing.assert_allclose(got[0]["masked_banded"]["poses"], got[0]["masked_jacobi"]["poses"],
                                rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", BODY_CASES)
+def test_node_body_on_the_host_equals_host_loops(runs, name):
+    """The device LM loop's body, its CG loop on fixed buffers
+    (``pcg.inner_cg``) and the shard's layout built before the loop,
+    iterated on the host as the WHILE nodes run it, gives the host loops'
+    (``lm.host_loop`` around ``pcg.cg``) bits, CG iterations included."""
+    ranks = runs[2]
+    assert_ranks_identical(ranks, f"{name}_body")
+    got, ref = ranks[0][f"{name}_body"], ranks[0][name]
+    for key, value in ref.items():
+        assert np.array_equal(np.asarray(got[key]), np.asarray(value)), key

@@ -23,7 +23,7 @@ from ceres_slam_tpu_torch import convert
 from ceres_slam_tpu_torch.apps import stereo_vo as app
 from ceres_slam_tpu_torch.frontend import alignment, features, stereo_vo
 from ceres_slam_tpu_torch.models.stereo_camera import StereoCamera
-from ceres_slam_tpu_torch.ops import prng
+from ceres_slam_tpu_torch.ops import lie, prng
 from ceres_slam_tpu_torch.utils import csvio
 
 torch.set_num_threads(1)
@@ -207,6 +207,76 @@ def test_online_vo_trajectory_matches_jax(frames):
     assert errs[-1] < 0.15 and np.median(errs) < 0.06
     counts = torch.stack(vo.counts).numpy()
     assert counts.shape == (6, 3) and counts[0, 2] == 0 and (counts[1:, 2] > 30).all()
+
+
+def _pipeline_trajectory(imgs, max_corners=256, seed=42):
+    """The per-frame pipeline restated as one loop over its public functions,
+    launch by launch, with the state in Python variables (the tracker's
+    arithmetic, whatever buffers it keeps): ``(trajectory, counts)``."""
+    key, prev = prng.prng_key(torch.tensor(seed)), None
+    T_map = lie.se3_identity(dtype=torch.float64)
+    traj, counts = [T_map], []
+    for l, r in imgs:
+        frame = stereo_vo.extract_stereo_frame(TCAM, _t(l), _t(r), max_corners=max_corners)
+        n_temporal = torch.zeros((), dtype=torch.int64)
+        if prev is not None:
+            idx, ok = features.match_descriptors(prev.desc, frame.desc, prev.valid, frame.valid)
+            pts_prev, pts_curr = TCAM.triangulate(prev.uvd), TCAM.triangulate(frame.uvd[idx])
+            key, sub = prng.split(key)
+            hyp = alignment.draw_jax_hypotheses(ok[None], 400, keys=sub[None])[0]
+            res = alignment.ransac_align(TCAM, pts_prev, pts_curr, ok, hyp, thresh=4.0)
+            T = stereo_vo.refine_pose_gn(TCAM, res.T_1_0, pts_prev, frame.uvd[idx],
+                                         res.inliers.to(pts_prev.dtype))
+            T_map, n_temporal = lie.se3_compose(T.to(torch.float64), T_map), ok.sum()
+        counts.append(torch.stack([frame.corners, frame.valid.sum(), n_temporal]))
+        prev = frame
+        traj.append(T_map)
+    return torch.stack(traj), torch.stack(counts)
+
+
+def test_frame_body_equals_the_pipeline(frames):
+    """OnlineStereoVO's host form (``first_frame``, then ``frame_body`` on
+    its fixed buffers) gives the per-frame pipeline's trajectory and counts
+    bit for bit, on the six frames."""
+    imgs, _ = frames
+    vo = stereo_vo.OnlineStereoVO(TCAM, max_corners=256, device="cpu", frame_loop="host")
+    for l, r in imgs:
+        vo.process(l, r)
+    traj, counts = _pipeline_trajectory(imgs)
+    assert torch.equal(torch.stack(vo.trajectory), traj)
+    assert torch.equal(torch.stack(vo.counts), counts)
+
+
+def test_frame_steps_read_only_their_buffers(frames):
+    """``frame_steps`` built once on one state and one image buffer, then
+    run frame after frame as FrameGraph replays them (each pair copied into
+    the buffer; track, the SVD, finish), give ``frame_body``'s bits on a
+    fresh state: a tensor the steps read between frames that is not among
+    their fixed buffers (the state, the images, what ``track`` made, ``U``
+    and ``Vh``) would read the frame of the build and fail this."""
+    imgs, _ = frames
+    settings = stereo_vo.TrackSettings(max_corners=256)
+    images = torch.zeros((2, *imgs[0][0].shape), dtype=torch.float64)
+    states = [stereo_vo.track_state(256, 42, "cpu") for _ in range(2)]
+    stereo_vo.first_frame(TCAM, settings, states[0], _t(np.stack(imgs[0])))
+    stereo_vo.first_frame(TCAM, settings, states[1], _t(np.stack(imgs[0])))
+    steps = stereo_vo.frame_steps(TCAM, settings, states[1], images)
+    for l, r in imgs[1:4]:
+        stereo_vo.frame_body(TCAM, settings, states[0], _t(np.stack([l, r])))
+        images.copy_(_t(np.stack([l, r])))
+        steps.track()
+        steps.svd()
+        steps.finish()
+        for a, b in zip(states[0], states[1]):
+            assert torch.equal(a, b)
+
+
+def test_device_frame_loop_needs_a_card(tmp_path):
+    with pytest.raises(ValueError, match="frame_loop='host'"):
+        stereo_vo.OnlineStereoVO(TCAM, device="cpu", frame_loop="device")
+    with pytest.raises(ValueError, match="frame_loop='host'"):
+        app.main(["--synthetic", "2", "--out", str(tmp_path / "x"), "--device", "cpu",
+                  "--frame-loop", "device"])
 
 
 # -- the CLI --------------------------------------------------------------------
