@@ -31,19 +31,33 @@ failed capture must not take down the matrix):
                        captured ones must replay the eager bits
   psum_in_while        the sharded solves' collective under a capture: on
                        ``--world N`` NCCL ranks (child processes, one a card),
-                       ``sharded_ba.psum`` of a small buffer eagerly, in a
-                       plain CUDA graph replayed 3 times, in a 5-iteration
-                       ``DeviceWhile`` and as a 5-iteration ``while_loop``
-                       nested in a 2-iteration ``DeviceWhile`` body: the sums
-                       and the iteration counts must be the eager loop's;
-                       each rank prints its stages as it goes, and a group
+                       ``sharded_ba.psum`` (on ranks of one host the peer
+                       all-reduce kernel, ``ops/allreduce_kernel``) of a small
+                       buffer eagerly, in a plain CUDA graph replayed 3 times,
+                       in a 5-iteration ``DeviceWhile`` and as a 5-iteration
+                       ``while_loop`` nested in a 2-iteration ``DeviceWhile``
+                       body: the sums and the iteration counts must be the
+                       eager loop's; each rank prints the kernels one eager
+                       call runs (profiled) and the node types of every
+                       captured segment, and its stages as it goes; a group
                        that outlives 120 s is killed
+  nccl_in_while        the same stages with NCCL's own all-reduce
+                       (``dist.all_reduce``) in place of ``psum``, a
+                       diagnostic: the kernels one eager all-reduce runs
+                       (compare --world 1 and N), each segment's node types,
+                       and each
+                       stage's outcome (passed, refused by the WHILE node's
+                       node-type check, wrong sums, or killed after 90 s
+                       where it hangs) under each setting of
+                       ``NCCL_VARIANTS`` (``--variant NAME`` runs one; by
+                       default all, one group each); exits 0 when every
+                       variant reported
 
 Each P case must give ``x * 8`` bit for bit for ``x = arange(1024)`` as a
 ``[2, 512]`` float32 array (sum 4190208.0). Prints ``<case> OK <sum>`` or
 ``<case> FAILED: <reason>`` per case:
 
-  python -m ceres_slam_tpu_torch.apps.probe_graph_loop [case] [--world N]
+  python -m ceres_slam_tpu_torch.apps.probe_graph_loop [case] [--world N] [--variant NAME]
 """
 
 from __future__ import annotations
@@ -55,7 +69,13 @@ import time
 
 P_CASES = ("grid_in_graph", "grid1_in_graph", "eager_loop", "grid_in_replay_loop",
            "grid_in_while", "grid_in_while_data")
-DIST_CASES = ("psum_in_while",)
+DIST_CASES = ("psum_in_while", "nccl_in_while")
+# nccl_in_while's settings, one group each: NCCL's environment, or the
+# captures' capture_error_mode (graph_loop.CAPTURE_ERROR_MODE)
+NCCL_VARIANTS = {"default": {}, "graph_register_0": {"NCCL_GRAPH_REGISTER": "0"},
+                 "nvls_0": {"NCCL_NVLS_ENABLE": "0"},
+                 "graph_mixing_0": {"NCCL_GRAPH_MIXING_SUPPORT": "0"},
+                 "thread_local": {}}
 CASES = P_CASES + ("k1_in_graph", "linalg_in_graph") + DIST_CASES
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -207,100 +227,153 @@ def _linalg_case(torch) -> float:
     return total
 
 
-def _psum_case(torch) -> float:
-    """One NCCL rank of ``psum_in_while`` (the group joined through the
-    ``CERES_*`` environment), stage by stage, each stage's progress printed
-    as it happens (a stage that hangs shows where): the loop eagerly, one
-    ``psum`` in a plain CUDA graph replayed 3 times, the flat loop in a
+def _device_ops(torch, fn) -> list:
+    """The names of the device kernels and copies one call of ``fn`` runs
+    (after a warm-up call), from torch.profiler, shortened."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    def short(name):
+        name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+        return name.split("(")[0][:80]
+
+    return sorted({short(e.name) for e in prof.events() if e.device_type == DeviceType.CUDA})
+
+
+def _dist_case(torch, case: str, variant: str) -> float:
+    """One rank of ``psum_in_while`` or ``nccl_in_while`` (the group joined
+    through the ``CERES_*`` environment), stage by stage, each stage's progress printed as it
+    happens (a stage that hangs shows where): the loop eagerly, one
+    reduction in a plain CUDA graph replayed 3 times, the flat loop in a
     ``DeviceWhile``, and the loop nested in a second one, each checked
-    against its eager sums and counts."""
+    against its eager sums and counts, with the node types of every captured
+    segment. ``psum_in_while`` raises at the first stage that fails;
+    ``nccl_in_while`` reports each stage and goes on."""
+    import torch.distributed as dist
+
     from ceres_slam_tpu_torch.ops import graph_loop
     from ceres_slam_tpu_torch.parallel import multihost, sharded_ba
 
+    os.environ.update(NCCL_VARIANTS[variant])
+    if variant == "thread_local":
+        graph_loop.CAPTURE_ERROR_MODE = "thread_local"
     if not multihost.initialize(device="cuda", timeout_s=120):
-        raise SystemExit("psum_in_while needs CERES_COORDINATOR_ADDRESS, CERES_NUM_PROCESSES "
-                         "and CERES_PROCESS_ID")
+        raise SystemExit(f"{case} needs CERES_COORDINATOR_ADDRESS, CERES_NUM_PROCESSES and "
+                         f"CERES_PROCESS_ID")
+    diagnostic = case == "nccl_in_while"
     try:
-        rank, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
+        rank, world = dist.get_rank(), dist.get_world_size()
 
         def say(msg):
             print(f"rank {rank} of {world}: {msg}", flush=True)
 
-        say(f"torch {torch.__version__}, NCCL {torch.cuda.nccl.version()}, "
-            f"TORCH_NCCL_BLOCKING_WAIT={os.environ.get('TORCH_NCCL_BLOCKING_WAIT')}")
         mesh = sharded_ba.make_mesh()
+        group = mesh.get_group(0)
+        if diagnostic:
+            counted = ()
+
+            def reduce(t):
+                dist.all_reduce(t, group=group)
+                return t
+        else:
+            counted = sharded_ba.COUNTED
+
+            def reduce(t):
+                return sharded_ba.psum(mesh, t)[0]
+        say(f"torch {torch.__version__}, NCCL {torch.cuda.nccl.version()}, variant {variant} "
+            f"{NCCL_VARIANTS[variant]}, capture_error_mode {graph_loop.CAPTURE_ERROR_MODE}, "
+            f"peer route {sharded_ba.peer_route(group)}, card {torch.cuda.current_device()}")
         x = torch.arange(8, dtype=torch.float64, device="cuda") + rank
         acc = torch.zeros_like(x)
         i, j = (torch.zeros(1, dtype=torch.int32, device="cuda") for _ in range(2))
         pred_in, pred = (torch.ones(1, dtype=torch.int32, device="cuda") for _ in range(2))
         # x + r summed over the ranks
         base = world * torch.arange(8, dtype=torch.float64) + world * (world - 1) / 2
+        say(f"one eager {'all_reduce' if diagnostic else 'psum'} runs on the device: "
+            + ", ".join(_device_ops(torch, lambda: reduce(x.clone()))))
 
         def inner():
-            (s,) = sharded_ba.psum(mesh, x * (1 + i))
-            acc.add_(s)
+            acc.add_(reduce(x * (1 + i)))
             i.add_(1)
             pred_in.copy_(i < 5)
 
         def outer():
             i.zero_()
             pred_in.fill_(1)
-            graph_loop.while_loop(inner, pred_in, counted=(sharded_ba.psum,))
+            graph_loop.while_loop(inner, pred_in, counted=counted)
             j.add_(1)
             pred.copy_(j < 2)
 
-        def check(stage, got, want, counts=""):
-            if not torch.equal(got, want):
-                raise AssertionError(f"{stage}: sums {got.tolist()} (want {want.tolist()}){counts}")
-            say(f"{stage} OK{counts}")
+        outcome = {}
 
-        outer()  # eagerly (the communicator's first collectives)
-        torch.cuda.synchronize()
-        check("eager", acc.cpu(), 15 * base)
+        def stage(name, run, want):
+            say(f"{name}: starting")
+            try:
+                counts = run()
+                got = acc.cpu()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"sums {got.tolist()} (want {want.tolist()})")
+            except (RuntimeError, AssertionError) as e:
+                if not diagnostic:
+                    raise
+                outcome[name] = f"FAILED: {type(e).__name__}: {str(e).splitlines()[0][:300]}"
+                say(f"{name} {outcome[name]}")
+                torch.cuda.synchronize()
+                return
+            outcome[name] = "OK"
+            say(f"{name} OK{counts}")
 
-        acc.zero_()
-        i.zero_()
-        say("plain graph: capturing")
-        plain = graph_loop.DeviceGraph(inner, x.get_device(), counted=(sharded_ba.psum,))
-        say("plain graph: captured, replaying")
-        for _ in range(3):
-            plain.replay()
-        torch.cuda.synchronize()
-        check("plain graph (3 replays)", acc.cpu(), 6 * base)  # i = 0, 1, 2 in turn
-        plain.close()
+        def eager():
+            outer()
+            torch.cuda.synchronize()
+            return ""
 
-        acc.zero_()
-        i.zero_()
-        pred_in.fill_(1)
-        say("flat node: capturing")
-        flat = graph_loop.DeviceWhile(inner, pred_in, counted=(sharded_ba.psum,))
-        say("flat node: captured, launching")
-        n = flat.run()
-        check("flat node", acc.cpu(), 15 * base, f", {n} iterations")
-        flat.close()
+        def plain():
+            acc.zero_()
+            i.zero_()
+            g = graph_loop.DeviceGraph(inner, x.get_device(), counted=counted)
+            say(f"plain graph: captured, nodes {graph_loop.node_types(g.graph)}; replaying")
+            for _ in range(3):
+                g.replay()
+            torch.cuda.synchronize()
+            g.close()
+            return ""
 
-        acc.zero_()
-        j.zero_()
-        pred.fill_(1)
-        c0 = sharded_ba.psum.collectives
-        say("nested node: capturing")
-        node = graph_loop.DeviceWhile(outer, pred)
-        say("nested node: captured, launching")
-        n = node.run()
-        check("nested node", acc.cpu(), 30 * base,
-              f", {n} x {node.inner_iterations} iterations, psum counted "
-              f"{sharded_ba.psum.collectives - c0} collectives")
-        node.close()
+        def node(body, p, name):
+            acc.zero_()
+            i.zero_()
+            j.zero_()
+            pred_in.fill_(1)
+            pred.fill_(1)
+            c0 = sharded_ba.psum.collectives
+            loop = graph_loop.DeviceWhile(body, p, counted=counted)
+            say(f"{name}: captured, segments' nodes "
+                f"{[graph_loop.node_types(g) for g, _, _ in loop.segments]}; launching")
+            n = loop.run()
+            loop.close()
+            return (f", {n} x {loop.inner_iterations} iterations, psum counted "
+                    f"{sharded_ba.psum.collectives - c0} collectives")
+
+        stage("eager", eager, 15 * base)
+        stage("plain graph (3 replays)", plain, 6 * base)  # i = 0, 1, 2 in turn
+        stage("flat node", lambda: node(inner, pred_in, "flat node"), 15 * base)
+        stage("nested node", lambda: node(outer, pred, "nested node"), 30 * base)
+        say(f"{case} {variant}: " + "; ".join(f"{k} {v}" for k, v in outcome.items()))
         return float(acc.sum())
     finally:
         multihost.shutdown()
 
 
-def _run_ranks(case: str, world: int, timeout: float = 120.0) -> None:
-    """``world`` ranks of ``case`` as child processes on a free local port,
-    each rank's output in a file under the system's temporary directory;
-    prints every rank's output, and raises unless each exits with 0 within
-    ``timeout`` seconds (a rank that hangs is killed)."""
+def _run_ranks(case: str, world: int, timeout: float = 120.0, args: tuple = ()) -> None:
+    """``world`` ranks of ``case`` (with ``args``) as child processes on a
+    free local port, each rank's output in a file under the system's
+    temporary directory; prints every rank's output, and raises unless each
+    exits with 0 within ``timeout`` seconds (a rank that hangs is killed)."""
     import socket
     import tempfile
 
@@ -311,7 +384,7 @@ def _run_ranks(case: str, world: int, timeout: float = 120.0) -> None:
            "CERES_COORDINATOR_ADDRESS": f"127.0.0.1:{port}", "CERES_NUM_PROCESSES": str(world)}
     logs = [tempfile.TemporaryFile("w+") for _ in range(world)]
     procs = [subprocess.Popen([sys.executable, "-m", "ceres_slam_tpu_torch.apps.probe_graph_loop",
-                               case], env={**env, "CERES_PROCESS_ID": str(r)}, cwd=ROOT,
+                               case, *args], env={**env, "CERES_PROCESS_ID": str(r)}, cwd=ROOT,
                               stdout=log, stderr=subprocess.STDOUT)
              for r, log in enumerate(logs)]
     t0 = time.monotonic()
@@ -332,19 +405,36 @@ def _run_ranks(case: str, world: int, timeout: float = 120.0) -> None:
         log.close()
         if p.returncode:
             failed.append(r)
+    what = " ".join((case, *args))
     if hung or failed:
-        raise SystemExit(f"{case} FAILED on rank(s) {failed}"
+        raise SystemExit(f"{what} FAILED on rank(s) {failed}"
                          f"{f' (killed after {timeout:g} s)' if hung else ''}")
-    print(f"{case} OK on {world} rank(s)", flush=True)
+    print(f"{what} OK on {world} rank(s)", flush=True)
 
 
-def run_case(case: str) -> None:
+def _nccl_variants(world: int, variants) -> dict:
+    """``nccl_in_while`` on ``world`` ranks under each of ``variants``, one
+    group each (90 s); returns each variant's outcome: the ranks' last
+    summary line, or the group's failure."""
+    outcome = {}
+    for v in variants:
+        try:
+            _run_ranks("nccl_in_while", world, 90.0, ("--variant", v))
+            outcome[v] = "reported"
+        except SystemExit as e:
+            outcome[v] = str(e)
+    for v, o in outcome.items():
+        print(f"nccl_in_while --world {world} --variant {v}: {o}", flush=True)
+    return outcome
+
+
+def run_case(case: str, variant: str = "default") -> None:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device is available")
     if case in DIST_CASES:
-        total = _psum_case(torch)
+        total = _dist_case(torch, case, variant)
     elif case == "linalg_in_graph":
         total = _linalg_case(torch)
     else:
@@ -352,16 +442,27 @@ def run_case(case: str) -> None:
     print(case, "OK", total, flush=True)
 
 
+def _option(argv, name: str, default=None):
+    return argv[argv.index(name) + 1] if name in argv else default
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if argv:
-        if argv[0] not in CASES:
-            raise SystemExit(f"unknown case {argv[0]!r}; cases: {', '.join(CASES)}")
-        if argv[0] in DIST_CASES and "CERES_PROCESS_ID" not in os.environ:
-            world = int(argv[argv.index("--world") + 1]) if "--world" in argv else 1
-            _run_ranks(argv[0], world)
+        case = argv[0]
+        if case not in CASES:
+            raise SystemExit(f"unknown case {case!r}; cases: {', '.join(CASES)}")
+        variant = _option(argv, "--variant")
+        if variant is not None and (case != "nccl_in_while" or variant not in NCCL_VARIANTS):
+            raise SystemExit(f"--variant takes nccl_in_while and one of {', '.join(NCCL_VARIANTS)}")
+        if case in DIST_CASES and "CERES_PROCESS_ID" not in os.environ:
+            world = int(_option(argv, "--world", 1))
+            if case == "nccl_in_while":
+                _nccl_variants(world, [variant] if variant else list(NCCL_VARIANTS))
+            else:
+                _run_ranks(case, world)
         else:
-            run_case(argv[0])
+            run_case(case, variant or "default")
         return {}
     results = {}
     env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")}

@@ -28,7 +28,11 @@
 //                                    condition_k = pred_k != 0) ]
 //
 // so every loop may run zero times, as lax.while_loop may, and counts[1 +
-// k] sums inner loop k's iterations over the whole run. The child graph
+// k] sums inner loop k's iterations over the whole run. A segment that holds
+// a node type a conditional body cannot hold (a host node, an event record
+// or wait: what a library may add to a capture) is refused, naming the
+// segment and the type, before anything is built; graph_node_types lists a
+// captured graph's node types. The child graph
 // nodes clone the captured graphs; the caller keeps the memory they read
 // and write (PyTorch's graph pool) alive as long as the executable graph.
 //
@@ -109,11 +113,74 @@ cudaError_t add_test(cudaGraphNode_t* node, cudaGraph_t graph, const cudaGraphNo
     if (e_ != cudaSuccess) return e_;         \
   } while (0)
 
+// The node types a conditional body may hold (CUDA's programming guide,
+// "Conditional Graph Nodes": kernels, empty nodes, memcpy and memset nodes,
+// child graphs and conditional nodes). A captured segment that holds another
+// type (a host node, an event record or wait, a memory allocation, a batch
+// memory operation) cannot run in a WHILE node's body.
+bool allowed_in_body(cudaGraphNodeType t) {
+  return t == cudaGraphNodeTypeKernel || t == cudaGraphNodeTypeMemcpy ||
+         t == cudaGraphNodeTypeMemset || t == cudaGraphNodeTypeEmpty ||
+         t == cudaGraphNodeTypeGraph || t == cudaGraphNodeTypeConditional;
+}
+
+// Appends the type of every node of `graph`, child graphs' nodes after
+// their child graph node, to types[*count..max) (counting past max).
+cudaError_t collect_types(cudaGraph_t graph, int* types, int max, int* count) {
+  size_t n = 0;
+  CHECK(cudaGraphGetNodes(graph, nullptr, &n));
+  if (n == 0) return cudaSuccess;
+  cudaGraphNode_t* nodes = new cudaGraphNode_t[n];
+  cudaError_t err = cudaGraphGetNodes(graph, nodes, &n);
+  for (size_t i = 0; err == cudaSuccess && i < n; ++i) {
+    cudaGraphNodeType t;
+    err = cudaGraphNodeGetType(nodes[i], &t);
+    if (err != cudaSuccess) break;
+    if (*count < max) types[*count] = static_cast<int>(t);
+    ++*count;
+    if (t == cudaGraphNodeTypeGraph) {
+      cudaGraph_t child;
+      err = cudaGraphChildGraphNodeGetGraph(nodes[i], &child);
+      if (err == cudaSuccess) err = collect_types(child, types, max, count);
+    }
+  }
+  delete[] nodes;
+  return err;
+}
+
+// The first node type of `graph` a conditional body cannot hold, or -1.
+cudaError_t refused_type(cudaGraph_t graph, int* type) {
+  constexpr int kMax = 1 << 16;
+  int* types = new int[kMax];
+  int count = 0;
+  const cudaError_t err = collect_types(graph, types, kMax, &count);
+  *type = -1;
+  for (int i = 0; err == cudaSuccess && i < count && i < kMax; ++i) {
+    if (!allowed_in_body(static_cast<cudaGraphNodeType>(types[i]))) {
+      *type = types[i];
+      break;
+    }
+  }
+  delete[] types;
+  return err;
+}
+
 // The loop around segments[0..n): preds[i] null for a plain segment, else
 // the predicate of inner loop k (k counts the inner loops in order), whose
-// iterations go to counts[1 + k].
+// iterations go to counts[1 + k]. A segment holding a node type a
+// conditional body cannot hold is refused (cudaErrorNotSupported), its
+// index and that type in refused[0..2).
 cudaError_t build(Loop* loop, cudaGraph_t* segments, const int* const* preds, int n,
-                  const int* pred, int* counts, int num_counts) {
+                  const int* pred, int* counts, int num_counts, int* refused) {
+  for (int i = 0; i < n; ++i) {
+    int type;
+    CHECK(refused_type(segments[i], &type));
+    if (type >= 0) {
+      refused[0] = i;
+      refused[1] = type;
+      return cudaErrorNotSupported;
+    }
+  }
   CHECK(cudaGraphCreate(&loop->graph, 0));
   cudaGraphConditionalHandle handle;
   CHECK(cudaGraphConditionalHandleCreate(&handle, loop->graph, 0, 0));
@@ -173,11 +240,14 @@ extern "C" int graph_while_versions(int* runtime, int* driver) {
 // before every iteration, and leaves its iterations in counts[0] and
 // inner loop k's, summed over the run, in counts[1 + k]. Writes the loop's
 // handle to *out; returns a CUDA error code (nothing is left allocated on
-// error).
+// error). A segment that holds a node a conditional body cannot hold (a host
+// node, an event record or wait, ...) is refused with cudaErrorNotSupported,
+// its index and the node's cudaGraphNodeType in refused[0] and refused[1].
 extern "C" int graph_while_create(void** segments, void** preds, int n, const void* pred,
                                   void* counts, int num_counts, int device, int multi_device,
-                                  void** out) {
+                                  int* refused, void** out) {
   *out = nullptr;
+  refused[0] = refused[1] = -1;
   if (multi_device) {
     const cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -186,13 +256,21 @@ extern "C" int graph_while_create(void** segments, void** preds, int n, const vo
   const cudaError_t err = build(loop, reinterpret_cast<cudaGraph_t*>(segments),
                                 reinterpret_cast<const int* const*>(preds), n,
                                 static_cast<const int*>(pred), static_cast<int*>(counts),
-                                num_counts);
+                                num_counts, refused);
   if (err != cudaSuccess) {
     destroy(loop);
     return static_cast<int>(err);
   }
   *out = loop;
   return 0;
+}
+
+// The cudaGraphNodeType of every node of `graph` (a cudaGraph_t), child
+// graphs' nodes after their child graph node, in types[0..max); their number
+// in *count (which may exceed max).
+extern "C" int graph_node_types(void* graph, int* types, int max, int* count) {
+  *count = 0;
+  return static_cast<int>(collect_types(static_cast<cudaGraph_t>(graph), types, max, count));
 }
 
 // Enqueues the whole loop on `stream`: one host call, however many

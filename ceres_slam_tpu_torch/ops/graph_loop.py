@@ -46,6 +46,13 @@ outer loop's. A wrapper names its counters in a ``counters`` attribute
 served (``("launches", "windows")``), and each of them is scaled
 (``CapturedCounts``).
 
+A conditional body holds kernels, empty, memcpy and memset nodes, child
+graphs and conditional nodes only: ``DeviceWhile`` refuses a capture that
+holds any other node type (a library's host node or event record or wait),
+naming the segment and the type (``csrc/graph_while.cu``), and
+``node_types`` lists a captured graph's node types. ``CAPTURE_ERROR_MODE``
+is the captures' ``capture_error_mode`` (PyTorch's default ``"global"``).
+
 Conditional nodes need CUDA 12.3 or newer in the toolkit, the driver and
 PyTorch's runtime, and a loop nested in another 12.4 or newer (CUDA 12.9's
 headers list conditional nodes among those a conditional body may hold);
@@ -70,6 +77,12 @@ _fns: dict = {}
 _capturing: list = []  # the DeviceWhile whose body is being captured (innermost last)
 _capture_streams: dict = {}
 _pools: dict = {}
+CAPTURE_ERROR_MODE = "global"
+# cudaGraphNodeType's names (the runtime's enum; 12: CUDA's batch memory operation node)
+NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "child graph", 5: "empty",
+              6: "event wait", 7: "event record", 8: "external semaphore signal",
+              9: "external semaphore wait", 10: "memory allocation", 11: "memory free",
+              12: "batch memory operation", 13: "conditional"}
 
 
 def _version(v: int) -> tuple[int, int]:
@@ -97,12 +110,15 @@ def build() -> str:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib = cuda_build.load("graph_while", _SOURCES, {
         "graph_while_versions": [ctypes.POINTER(i), ctypes.POINTER(i)],
-        # segments, their preds, n, pred, counts, num_counts, device, multi_device, out
-        "graph_while_create": [p, p, i, p, p, i, i, i, ctypes.POINTER(p)],
+        # segments, their preds, n, pred, counts, num_counts, device, multi_device, refused, out
+        "graph_while_create": [p, p, i, p, p, i, i, i, ctypes.POINTER(i), ctypes.POINTER(p)],
         "graph_while_launch": [p, p],  # loop, stream
-        "graph_while_destroy": [p]})
+        "graph_while_destroy": [p],
+        # graph, types, max, count
+        "graph_node_types": [p, ctypes.POINTER(i), i, ctypes.POINTER(i)]})
     _fns.update(versions=lib.graph_while_versions, create=lib.graph_while_create,
-                launch=lib.graph_while_launch, destroy=lib.graph_while_destroy)
+                launch=lib.graph_while_launch, destroy=lib.graph_while_destroy,
+                node_types=lib.graph_node_types)
     require(MIN_CUDA, "a device while loop", "conditional graph nodes")
     return str(cuda_build.library_path("graph_while", _SOURCES))
 
@@ -114,6 +130,22 @@ def require(minimum: tuple, what: str, feature: str) -> None:
     if old:
         raise RuntimeError(f"{what} needs CUDA {minimum[0]}.{minimum[1]} or newer ({feature}); "
                            f"found {old}")
+
+
+def node_types(graph: torch.cuda.CUDAGraph) -> dict:
+    """``{type name: count}`` of the nodes of a capture kept with
+    ``keep_graph=True`` (child graphs' nodes included)."""
+    if "node_types" not in _fns:
+        build()
+    types, count = (ctypes.c_int * 4096)(), ctypes.c_int()
+    err = _fns["node_types"](graph.raw_cuda_graph(), types, 4096, ctypes.byref(count))
+    if err:
+        raise cuda_build.launch_error(err, "graph_node_types")
+    out: dict = {}
+    for t in types[:min(count.value, 4096)]:
+        name = NODE_TYPES.get(t, f"type {t}")
+        out[name] = out.get(name, 0) + 1
+    return out
 
 
 def _pool(device: int):
@@ -199,7 +231,7 @@ class DeviceGraph:
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         t0 = time.perf_counter()
         with torch.cuda.device(device), torch.cuda.stream(capture_stream(device)):
-            self.graph.capture_begin(pool=pool)
+            self.graph.capture_begin(pool=pool, capture_error_mode=CAPTURE_ERROR_MODE)
             try:
                 fn()
             except BaseException:
@@ -266,10 +298,15 @@ class DeviceWhile:
         graphs = (ctypes.c_void_p * n)(*(g.raw_cuda_graph() for g, _, _ in self.segments))
         preds = (ctypes.c_void_p * n)(*(None if p is None else p.data_ptr()
                                         for _, p, _ in self.segments))
-        handle = ctypes.c_void_p()
+        handle, refused = ctypes.c_void_p(), (ctypes.c_int * 2)()
         err = _fns["create"](graphs, preds, n, pred.data_ptr(), self.count.data_ptr(),
                              self.count.numel(), self.device, torch.cuda.device_count() > 1,
-                             ctypes.byref(handle))
+                             refused, ctypes.byref(handle))
+        if err and refused[0] >= 0:
+            raise RuntimeError(
+                f"graph_while_create: captured segment {refused[0]} of {n} holds a "
+                f"{NODE_TYPES.get(refused[1], f'type {refused[1]}')} node, which a conditional "
+                f"WHILE body cannot hold (its nodes: {node_types(self.segments[refused[0]][0])})")
         if err:
             raise cuda_build.launch_error(err, "graph_while_create")
         self._handle = handle
@@ -278,7 +315,7 @@ class DeviceWhile:
 
     def _begin(self) -> None:
         self._graph = torch.cuda.CUDAGraph(keep_graph=True)
-        self._graph.capture_begin(pool=self._pool)
+        self._graph.capture_begin(pool=self._pool, capture_error_mode=CAPTURE_ERROR_MODE)
 
     def _end(self, pred=None, counts=None) -> None:
         self._graph.capture_end()

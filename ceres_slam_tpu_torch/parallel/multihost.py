@@ -15,7 +15,10 @@ when the caller asks for it (``backend="gloo"``).
 
 The hybrid mesh is ``[nodes, ranks per node]``, ranks node-major: the outer
 dimension crosses nodes, the inner stays on one node's cards (NVLink),
-where the observation shards' reductions run first.
+where the observation shards' reductions run first. ``initialize`` records
+every rank's host name (``on_one_host``): the sharded solves' all-reduce
+over ranks of one host is the port's own kernel (``ops/allreduce_kernel``),
+whose workspaces ``shutdown`` frees.
 """
 
 from __future__ import annotations
@@ -28,11 +31,13 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+from ceres_slam_tpu_torch.ops import allreduce_kernel
 from ceres_slam_tpu_torch.utils import device as device_mod
 
 _ENV_COORD = "CERES_COORDINATOR_ADDRESS"
 _ENV_NPROC = "CERES_NUM_PROCESSES"
 _ENV_PID = "CERES_PROCESS_ID"
+_hosts: list = []  # every rank's host name, by global rank (initialize)
 
 
 def initialize(coordinator_address: str | None = None, num_processes: int | None = None,
@@ -75,12 +80,25 @@ def initialize(coordinator_address: str | None = None, num_processes: int | None
     url = coordinator_address if "://" in coordinator_address else f"tcp://{coordinator_address}"
     dist.init_process_group(backend, init_method=url, world_size=num_processes, rank=process_id,
                             timeout=datetime.timedelta(seconds=timeout_s), **kwargs)
+    _hosts[:] = [None] * num_processes
+    dist.all_gather_object(_hosts, socket.gethostname())
     return True
 
 
 def shutdown():
+    """Free the peer all-reduce's workspaces (every rank together), then end
+    the process group."""
     if dist.is_initialized():
+        allreduce_kernel.close_all()
         dist.destroy_process_group()
+    _hosts.clear()
+
+
+def on_one_host(group=None) -> bool:
+    """Whether every rank of ``group`` (default: all) runs on one host, by
+    the host names ``initialize`` gathered."""
+    ranks = dist.get_process_group_ranks(group or dist.group.WORLD)
+    return len({_hosts[r] for r in ranks}) == 1
 
 
 def _world() -> int:
@@ -105,12 +123,10 @@ def make_global_mesh(axis_name: str = "obs") -> DeviceMesh:
 def _ranks_per_node() -> int:
     """The ranks each node holds, from the ranks' host names; raises unless
     every node holds as many, numbered node-major."""
-    hosts = [None] * dist.get_world_size()
-    dist.all_gather_object(hosts, socket.gethostname())
-    n = hosts.count(hosts[0])
-    runs = [hosts[i:i + n] for i in range(0, len(hosts), n)]
+    n = _hosts.count(_hosts[0])
+    runs = [_hosts[i:i + n] for i in range(0, len(_hosts), n)]
     if not (all(r == [r[0]] * n for r in runs) and len({r[0] for r in runs}) == len(runs)):
-        raise ValueError(f"ranks are not node-major with as many on every node: {hosts}")
+        raise ValueError(f"ranks are not node-major with as many on every node: {_hosts}")
     return n
 
 

@@ -12,24 +12,32 @@ arrays: a sharded problem is one rank's padded, contiguous observation
 shard with the replicated rest (``shard_problem``). Every reduction goes
 through ``psum``, which packs its tensors into one buffer and all-reduces
 it once per mesh dimension, inner (``obs``) first and outer (``dcn``) last,
-as JAX's ``psum`` over every mesh axis. The sums inside a rank have a fixed
-order (``dense.gather_sum`` through the shard's ``dense.block_tables``),
-and every rank receives the same bits from an all-reduce, so the loop's
+as JAX's ``psum`` over every mesh axis. On an NCCL mesh whose ranks share a
+host, each of those all-reduces is the port's kernel
+(``ops/allreduce_kernel.peer_all_reduce``: every rank reads its peers'
+buffers and sums them in rank order); across hosts it is NCCL's, and on
+gloo ranks gloo's. The sums inside a rank have a fixed order
+(``dense.gather_sum`` through the shard's ``dense.block_tables``), and
+every rank receives the same bits from an all-reduce, so the loop's
 decisions, which read only reduced or replicated values, are the same on
 every rank.
 
 The loop's forms, as JAX's ``lax.while_loop`` under ``jax.jit``
-(``resolve_loop``): on a mesh of one NCCL rank by default the whole LM
-solve is one conditional WHILE node on the card (``lm.device_loop``), the
-all-reduces captured inside it (NCCL's kernels are graph nodes); on gloo
-ranks (the CPU, or ranks that share a card) the loop runs on the host
-(``lm.host_loop``), and ``device`` there raises: gloo's collectives run on
-the host, which a graph cannot capture. Across several NCCL ranks the
-node hung on four cards, so there too the host form is the default and
-``device`` raises. The two forms give the same bits.
-What the loop reads is built before it: the shard's gather tables and the
-sun and prior terms (``dense.aux_terms``). ``gn_step_sharded`` replays one
-captured graph per shape when given a ``StepGraph`` (JAX jits that step).
+(``resolve_loop``): on an NCCL mesh whose every dimension stays on one
+host (one rank, the ranks of one machine's cards, the hybrid mesh on one
+machine) by default the whole LM solve is one conditional WHILE node on
+the card (``lm.device_loop``), the peer all-reduce kernels captured inside
+it; on gloo ranks (the CPU, or ranks that share a card) the loop runs on
+the host (``lm.host_loop``), and ``device`` there raises: gloo's
+collectives run on the host, which a graph cannot capture. So does a mesh
+that spans hosts, whose all-reduce stays NCCL's: captured on several ranks
+it holds event record and wait nodes, which a WHILE body cannot hold
+(ROADMAP item 21b). The two forms give the same bits.
+What the loop reads is built before it: the shard's gather tables, the
+sun and prior terms (``dense.aux_terms``) and the all-reduce's workspaces
+(``reserve``, at the largest buffer the loop reduces). ``gn_step_sharded``
+replays one captured graph per shape when given a ``StepGraph`` (JAX jits
+that step).
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from ceres_slam_tpu_torch.ops import graph_loop
+from ceres_slam_tpu_torch.ops import allreduce_kernel, graph_loop
 from ceres_slam_tpu_torch.parallel import multihost
 from ceres_slam_tpu_torch.solver import dense, lm
 
@@ -50,18 +58,30 @@ def make_mesh() -> DeviceMesh:
     return multihost.make_global_mesh(OBS_AXIS)
 
 
+def peer_route(group) -> bool:
+    """Whether ``psum`` reduces over ``group`` with the peer all-reduce
+    kernel: an NCCL group whose ranks share a host."""
+    return dist.get_backend(group) == "nccl" and multihost.on_one_host(group)
+
+
 def psum(mesh: DeviceMesh, *tensors: torch.Tensor) -> tuple:
     """Sum of each tensor over every rank of ``mesh``: the tensors (of one
     dtype) packed into one buffer, all-reduced once per mesh dimension,
-    the inner dimension first; returns the sums in the tensors' shapes.
-    Counts its collectives and their bytes in ``psum.collectives`` and
-    ``psum.bytes`` (its ``counters``: a captured loop that lists ``psum``
-    in its ``counted`` scales them by the iterations the card ran). Safe
-    under a capture: the all-reduce is issued on the current stream's
-    order and waited for on the device, with no host synchronization."""
+    the inner dimension first (``peer_all_reduce`` where ``peer_route``
+    holds, else the group's backend); returns the sums in the tensors'
+    shapes. Counts its collectives and their bytes in ``psum.collectives``
+    and ``psum.bytes`` (its ``counters``: a captured loop that lists
+    ``COUNTED`` scales them, and the kernel's launches, by the iterations
+    the card ran). Safe under a capture on a peer route: one kernel on the
+    current stream, no host synchronization (its workspace ``reserve``d
+    before)."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
     for dim in reversed(range(mesh.ndim)):
-        dist.all_reduce(flat, group=mesh.get_group(dim))
+        group = mesh.get_group(dim)
+        if peer_route(group):
+            allreduce_kernel.peer_all_reduce(flat, group)
+        else:
+            dist.all_reduce(flat, group=group)
     psum.collectives += mesh.ndim
     psum.bytes += mesh.ndim * flat.numel() * flat.element_size()
     return tuple(x.view(t.shape) for x, t in zip(flat.split([t.numel() for t in tensors]),
@@ -71,6 +91,24 @@ def psum(mesh: DeviceMesh, *tensors: torch.Tensor) -> tuple:
 psum.collectives = 0
 psum.bytes = 0
 psum.counters = ("collectives", "bytes")
+# the wrappers whose counts a captured sharded loop scales per iteration
+COUNTED = (psum, allreduce_kernel.peer_all_reduce)
+
+
+def reserve(mesh: DeviceMesh, numel: int, like: torch.Tensor) -> None:
+    """Make the peer all-reduce's workspaces of ``mesh`` hold a packed
+    buffer of ``numel`` elements of ``like``'s dtype on its device, before a
+    loop (every rank together; nothing where ``peer_route`` does not hold)."""
+    for dim in range(mesh.ndim):
+        group = mesh.get_group(dim)
+        if peer_route(group):
+            allreduce_kernel.reserve(group, numel * like.element_size(), like.device)
+
+
+def dense_psum_numel(K: int, J: int) -> int:
+    """The largest buffer a dense sharded solve reduces: the block system
+    ``Hpp``, ``Hll``, ``W``, ``gp``, ``gl``."""
+    return K * 36 + J * 9 + K * J * 18 + K * 6 + J * 3
 
 
 def pad_obs_to_multiple(stereo: dense.StereoObs, n: int) -> dense.StereoObs:
@@ -110,23 +148,27 @@ def shard_problem(problem: dense.StereoBAProblem, mesh: DeviceMesh) -> dense.Ste
 
 def resolve_loop(mesh: DeviceMesh, loop: str | None, name: str = "LM loop",
                  switch: str = "lm_loop") -> str:
-    """The form of a sharded loop (``graph_loop.resolve_loop``'s): on a mesh
-    of one NCCL rank ``"device"`` by default; on gloo ranks and on NCCL
-    meshes of several ranks ``"host"``, where ``"device"`` raises, naming
-    the cause: gloo runs its all-reduce on the host, which a captured loop
-    cannot hold; across several NCCL ranks the captured loop hung (four
-    ranks on four cards, ``apps/probe_graph_loop.py psum_in_while --world
-    4``), so the captured forms are verified on one rank only. Nothing
-    falls back."""
-    backend, n = dist.get_backend(mesh.get_group(0)), mesh.size()
+    """The form of a sharded loop (``graph_loop.resolve_loop``'s): on an
+    NCCL mesh whose every dimension's ranks share a host (``peer_route``)
+    ``"device"`` by default; on gloo ranks and on NCCL meshes that span
+    hosts ``"host"``, where ``"device"`` raises, naming the cause: gloo runs
+    its all-reduce on the host, which a captured loop cannot hold; across
+    hosts the all-reduce is NCCL's, whose capture on several ranks holds
+    event record and wait nodes (its graph-mixing support), which a WHILE
+    body cannot hold (on four cards such a node hung; ROADMAP item 21b).
+    Nothing falls back."""
+    backend = dist.get_backend(mesh.get_group(0))
     cause = None
     if backend != "nccl":
-        cause = (f"it captures its all-reduces in a CUDA graph, which takes NCCL's collectives "
-                 f"only ({backend} ranks run theirs on the host)")
-    elif n > 1:
-        cause = (f"captured NCCL all-reduces are verified on one rank only; on 4 NCCL ranks a "
-                 f"WHILE node around them hung (probe_graph_loop psum_in_while --world 4), and "
-                 f"this mesh has {n}")
+        cause = (f"it captures its all-reduces in a CUDA graph, which takes NCCL meshes only "
+                 f"({backend} ranks run theirs on the host)")
+    else:
+        spans = [dim for dim in range(mesh.ndim) if not peer_route(mesh.get_group(dim))]
+        if spans:
+            cause = (f"mesh dimension(s) {spans} span hosts, where the all-reduce is NCCL's, "
+                     f"whose capture holds event record and wait nodes, which a WHILE body "
+                     f"cannot hold (ROADMAP item 21b); the captured forms take the peer "
+                     f"all-reduce of the ranks of one host")
     if loop == "device" and cause:
         raise ValueError(f"the device {name} cannot run here: {cause}: use {switch}='host'")
     return graph_loop.resolve_loop("cpu" if cause else "cuda", loop, name, switch)
@@ -204,8 +246,8 @@ def solve_ba_sharded(problem: dense.StereoBAProblem, state0: dense.BAState, mesh
     rank calls it with the whole problem and the same ``state0``; every
     rank returns the same ``(state, SolveSummary)``.
 
-    ``lm_loop``: ``"device"`` (the default on a mesh of one NCCL rank) runs
-    the loop as one WHILE node with the all-reduces inside, kept in
+    ``lm_loop``: ``"device"`` (the default on an NCCL mesh of one host)
+    runs the loop as one WHILE node with the all-reduces inside, kept in
     ``graph`` (an ``lm.LMGraph``) for the next solve of the same shape,
     which copies its ``dense.dense_loop_inputs`` in and restarts it;
     ``"host"`` (the default elsewhere, where ``"device"`` raises:
@@ -214,12 +256,13 @@ def solve_ba_sharded(problem: dense.StereoBAProblem, state0: dense.BAState, mesh
     if lm_loop == "host" and graph is not None:
         raise ValueError("an LMGraph keeps the device LM loop: lm_loop='host' takes none")
     shard = shard_problem(problem, mesh)
+    reserve(mesh, dense_psum_numel(state0.poses.shape[0], state0.points.shape[0]), state0.poses)
     tables, terms = dense.block_tables(shard), dense.aux_terms(shard)
     fns = lm_functions(shard, mesh, tables, terms)
     if lm_loop == "host":
         return lm.lm_solve(state0, config, *fns, loop="host")
     state0 = lm.tree_map(torch.clone, state0)  # the loop's own: a restart copies into it
-    return lm.lm_solve(state0, config, *fns, loop="device", counted=(psum,), graph=graph,
+    return lm.lm_solve(state0, config, *fns, loop="device", counted=COUNTED, graph=graph,
                        inputs=dense.dense_loop_inputs(shard, state0, terms, tables),
                        key=loop_key(shard, mesh, "sharded dense"))
 
@@ -263,6 +306,7 @@ class StepGraph:
         stream, its result dropped (the libraries' handles and workspaces
         are made there)."""
         problem, state = lm.tree_map(torch.clone, problem), lm.tree_map(torch.clone, state)
+        reserve(mesh, dense_psum_numel(state.poses.shape[0], state.points.shape[0]), state.poses)
         tables, terms = dense.block_tables(problem), dense.aux_terms(problem)
         normal_eq = make_sharded_normal_eq(mesh, tables, terms)
         device, out = state.poses.get_device(), []
@@ -275,7 +319,7 @@ class StepGraph:
         with torch.cuda.stream(stream):
             fn()
         torch.cuda.current_stream().wait_stream(stream)
-        graph = graph_loop.DeviceGraph(lambda: out.append(fn()), device, counted=(psum,))
+        graph = graph_loop.DeviceGraph(lambda: out.append(fn()), device, counted=COUNTED)
         return [dense.dense_loop_inputs(problem, state, terms, tables), graph, out, None]
 
     def close(self) -> None:
@@ -289,7 +333,8 @@ def gn_step_sharded(problem: dense.StereoBAProblem, state: dense.BAState,
                     mesh: DeviceMesh, graph: StepGraph | None = None) -> dense.BAState:
     """One Gauss-Newton step of a sharded problem (``shard_problem``):
     the sharded assembly, then ``gn_step``, replicated. With a ``graph``
-    (a ``StepGraph``, a mesh of one NCCL rank only) the step replays its captured graph
+    (a ``StepGraph``, on an NCCL mesh of one host only: ``resolve_loop``)
+    the step replays its captured graph
     for this shape (captured at the first step of the shape); without one
     it runs launch by launch. Both give the same bits."""
     if graph is not None:

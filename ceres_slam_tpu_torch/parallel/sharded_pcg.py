@@ -13,13 +13,14 @@ decisions read only all-reduced or replicated values, so every rank takes
 the same branches and runs the same number of iterations.
 
 The loops' forms, as JAX's ``lax.while_loop``s under ``shard_map`` in one
-``jax.jit`` (``solve_ba_pcg_sharded``, ``sharded_ba.resolve_loop``): on a
-mesh of one NCCL rank by default the LM loop is one conditional WHILE node
-on the card (``lm.device_loop``) whose body holds the CG loop as a WHILE
-node of its own (``pcg.inner_cg`` on fixed ``pcg.CGBuffers``), the
-all-reduces captured in both; on gloo ranks and on NCCL meshes of several
-ranks (where the node hung on four cards) both loops run on the host
-(``lm.host_loop`` around ``pcg.cg``), and ``device`` raises there. ``lm_loop="host"`` with
+``jax.jit`` (``solve_ba_pcg_sharded``, ``sharded_ba.resolve_loop``): on an
+NCCL mesh of one host (one rank, or the ranks of one machine's cards, 1-D
+or hybrid) by default the LM loop is one conditional WHILE node on the
+card (``lm.device_loop``) whose body holds the CG loop as a WHILE node of
+its own (``pcg.inner_cg`` on fixed ``pcg.CGBuffers``), the peer all-reduce
+kernels (``ops/allreduce_kernel``) captured in both; on gloo ranks and on
+NCCL meshes that span hosts both loops run on the host (``lm.host_loop``
+around ``pcg.cg``), and ``device`` raises there. ``lm_loop="host"`` with
 ``cg_loop="device"`` runs the CG loop's own node once per LM iteration
 (``pcg.device_cg``); the device LM loop with the host CG loop raises.
 Every form gives the same bits.
@@ -54,8 +55,9 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from ceres_slam_tpu_torch.ops import full_batch_plan, lie, stereo_factor_kernel
-from ceres_slam_tpu_torch.parallel.sharded_ba import (local_rows, loop_key, make_sharded_cost,
-                                                      psum, resolve_loop, shard_problem)
+from ceres_slam_tpu_torch.parallel.sharded_ba import (COUNTED, local_rows, loop_key,
+                                                      make_sharded_cost, psum, reserve,
+                                                      resolve_loop, shard_problem)
 from ceres_slam_tpu_torch.solver import banded, dense, lm, pcg
 
 
@@ -155,10 +157,10 @@ def make_sharded_pcg_step(mesh: DeviceMesh, layout: _ShardLayout, terms: dense.A
 
         if buffers is not None:
             dp, iters = pcg.inner_cg(matvec, precond, rhs, max_cg_iters, cg_tol, buffers,
-                                     counted=(psum,))
+                                     counted=COUNTED)
         elif cg_loop == "device":
             dp, iters = pcg.device_cg(matvec, precond, rhs, max_cg_iters, cg_tol,
-                                      counted=(psum,), graph=graph,
+                                      counted=COUNTED, graph=graph,
                                       inputs=None if graph is None else pcg.loop_inputs(b, precond))
         else:
             dp, iters = pcg.cg(matvec, precond, rhs, max_cg_iters, cg_tol)
@@ -172,7 +174,7 @@ def make_sharded_pcg_step(mesh: DeviceMesh, layout: _ShardLayout, terms: dense.A
 
 def resolve_loops(mesh: DeviceMesh, cg_loop: str | None, lm_loop: str | None) -> tuple:
     """The ``(CG, LM)`` loops of a sharded solve (``sharded_ba.resolve_loop``
-    for each): on a mesh of one NCCL rank both on the card unless asked
+    for each): on an NCCL mesh of one host both on the card unless asked
     otherwise, elsewhere both on the host, where ``device`` raises; the
     host CG loop takes the host LM loop, and the device LM loop with the
     host CG loop raises."""
@@ -197,10 +199,11 @@ class ShardedSolve(NamedTuple):
 
 def prepare(problem: dense.StereoBAProblem, state0: dense.BAState, mesh: DeviceMesh,
             precond: str = "jacobi") -> ShardedSolve:
-    """The shard of ``problem`` and what its loop reads, built on the host
-    (``precond``: ``'jacobi'``, the exact block-Jacobi of S, or ``'banded'``,
-    the cyclic-reduction factorization of S's banded part, for contiguous
-    bounded tracks)."""
+    """The shard of ``problem`` and what its loop reads, built on the host,
+    and the all-reduce's workspaces reserved at the largest buffer the loop
+    reduces (``precond``: ``'jacobi'``, the exact block-Jacobi of S, or
+    ``'banded'``, the cyclic-reduction factorization of S's banded part,
+    for contiguous bounded tracks)."""
     tracks = slot_idx = None
     if precond == "banded":
         st = problem.stereo
@@ -219,7 +222,11 @@ def prepare(problem: dense.StereoBAProblem, state0: dense.BAState, mesh: DeviceM
     elif precond != "jacobi":
         raise ValueError(f"unknown preconditioner: {precond!r}")
     shard = shard_problem(problem, mesh)
-    n_slots = 0 if tracks is None else state0.points.shape[0] * tracks.L
+    K, J = state0.poses.shape[0], state0.points.shape[0]
+    # the step's blocks; the preconditioner's rows with the right-hand side
+    reserve(mesh, max(K * 42 + J * 12, 0 if tracks is None else J * tracks.L * 18 + K * 6),
+            state0.poses)
+    n_slots = 0 if tracks is None else J * tracks.L
     return ShardedSolve(shard, _shard_layout(shard, slot_idx, n_slots), dense.aux_terms(shard),
                         tracks)
 
@@ -260,14 +267,14 @@ def solve_ba_pcg_sharded(problem: dense.StereoBAProblem, state0: dense.BAState, 
 
     ``precond``: ``'jacobi'`` (the exact block-Jacobi of S) or ``'banded'``
     (``prepare``). ``lm_loop``, ``cg_loop``: ``"device"`` (the defaults on
-    a mesh of one NCCL rank) runs the LM loop as one WHILE node with the CG loop's node
-    nested in it, K2 counted per LM iteration and ``psum`` per iteration
-    the card ran; the capture is kept in ``graph`` (an ``lm.LMGraph``) for
-    the next solve of the same shape, which copies its ``loop_inputs`` in
-    and restarts it. ``"host"`` (the defaults elsewhere, where
-    ``"device"`` raises: ``sharded_ba.resolve_loop``) iterates on the host; ``lm_loop="host"`` with
-    ``cg_loop="device"`` runs the CG node once per LM iteration. Every
-    form gives the same bits."""
+    an NCCL mesh of one host) runs the LM loop as one WHILE node with the CG
+    loop's node nested in it, K2 counted per LM iteration and ``psum`` and
+    its kernel per iteration the card ran; the capture is kept in ``graph``
+    (an ``lm.LMGraph``) for the next solve of the same shape, which copies
+    its ``loop_inputs`` in and restarts it. ``"host"`` (the defaults
+    elsewhere, where ``"device"`` raises: ``sharded_ba.resolve_loop``)
+    iterates on the host; ``lm_loop="host"`` with ``cg_loop="device"`` runs
+    the CG node once per LM iteration. Every form gives the same bits."""
     cg_loop, lm_loop = resolve_loops(mesh, cg_loop, lm_loop)
     if lm_loop == "host" and graph is not None:
         raise ValueError("an LMGraph keeps the device LM loop: lm_loop='host' takes none")
@@ -284,7 +291,7 @@ def solve_ba_pcg_sharded(problem: dense.StereoBAProblem, state0: dense.BAState, 
     buffers = pcg.cg_buffers(state0.poses.new_zeros((state0.poses.shape[0], 6)))
     return lm.lm_solve(state0, config, *lm_functions(prep, mesh, max_cg_iters, cg_tol,
                                                       buffers=buffers),
-                       loop="device", counted=(stereo_factor_kernel.stereo_factor_sums, psum),
+                       loop="device", counted=(stereo_factor_kernel.stereo_factor_sums, *COUNTED),
                        graph=graph, inputs=loop_inputs(prep, state0),
                        key=loop_key(prep.problem, mesh, "sharded pcg", pcg._lm_key(
                            prep.problem, max_cg_iters, cg_tol, prep.layout.plan, prep.tracks)))

@@ -8,9 +8,11 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
   device   the card's name and power limit (nvidia-smi), torch and CUDA versions
   build    compiles the kernels K1 (csrc/window_factor_blocks.cu), K2
            (csrc/stereo_factor_blocks.cu), K3 (csrc/schur_uy.cu), K4
-           (csrc/bilinear_sample_imgs.cu), P (csrc/double_kernel.cu) and S
+           (csrc/bilinear_sample_imgs.cu), P (csrc/double_kernel.cu), S
            (csrc/subspace_step.cu, the dogleg's 2x2 subproblem, a kernel of
-           the port) and the device WHILE loop (csrc/graph_while.cu) with nvcc, one
+           the port), AR (csrc/peer_allreduce.cu, the sharded solves'
+           all-reduce on the ranks of one host, a kernel of the port) and
+           the device WHILE loop (csrc/graph_while.cu) with nvcc, one
            process each, all started together; the loop's build checks that
            the toolkit, the driver and PyTorch's runtime are CUDA 12.3 or
            newer (conditional graph nodes; 12.4 for a node nested in
@@ -157,17 +159,25 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
   dist     the distributed layer (parallel/*) with its ranks as child
            processes of this script, each joined through
            multihost.initialize and the CERES_* environment: (a) kitti1100's
-           full batch (N 124,480, J 16,640, f64) on one NCCL rank,
+           full batch (N 124,480, J 16,640, f64) on one NCCL rank: first AR
+           (the peer all-reduce, psum's route on NCCL ranks of one host)
+           against its plain version at the path's sizes (a CG iteration's
+           U^T v and U y, the LM step's blocks): bit-equal, also after 3
+           replays of a captured graph and in a WHILE node run and
+           restarted, its time beside the plain version's,
+           dist.all_reduce's on the same buffer and its bound; then
            solve_ba_pcg_sharded (block-Jacobi, solve_full's configuration)
            with the LM loop in a WHILE node (the CG node nested, the
            all-reduces captured), on the host, and in the node again
-           (restarted): the same bits, iterations and collectives, against
-           the JAX full-batch cost and ATE, K2 once per LM iteration on the
-           rank's shard plan, ms per CG iteration of each form beside the
-           single-card solve_ba_pcg's in this process, one CG iteration of
-           each form profiled (the node: 0 launches, syncs and copies);
+           (restarted): the same bits, iterations and collectives, every
+           collective one AR launch, against the JAX full-batch cost and
+           ATE, K2 once per LM iteration on the rank's shard plan, ms per CG
+           iteration of each form beside the single-card solve_ba_pcg's in
+           this process, one CG iteration of each form profiled (the node:
+           0 launches, syncs and copies);
            (b) triangle200 on two gloo ranks sharing the card (host form;
-           the device form's refusal logged): the sharded normal equations against
+           the device form's refusal logged; AR checked across the two
+           processes, bit-equal): the sharded normal equations against
            the single-card ones, gn_step_sharded, solve_ba_sharded and
            solve_ba_pcg_sharded (jacobi, banded) against the JAX sharded
            costs and the port's single-card solves, both ranks the same
@@ -177,11 +187,14 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            poses, 2,048 landmarks, 65,536 observations, f32) on the ranks of
            (a) and (b), eagerly and (NCCL) replayed from its captured graph
            (bit-equal), with the collectives and bytes per step; where more
-           than one card is visible (a machine of several cards), (e) (a) on
-           every card, one NCCL rank a card, and (f) (c) as a 2 x n/2 mesh
-           of NCCL ranks with its block-Jacobi solve; on several NCCL ranks
-           the loops run on the host and the device form's refusal is logged
-           (the node hung across four ranks: sharded_ba.resolve_loop)
+           than one card is visible (a machine of several cards), the graph
+           probe's psum_in_while on every card (must pass) and nccl_in_while
+           (NCCL's own all-reduce in the same stages: its kernels and node
+           types, reported), then (e) (a) on every card, one NCCL rank a
+           card, every form gated as in (a) and on every rank the same bits,
+           ms per CG iteration of each form beside the earlier figures
+           of PERF.md, and (f) (c) as a 2 x n/2 mesh of NCCL ranks with its
+           block-Jacobi solve in the node (the default) and host forms
   cpu      triangle200 float64 once more on the CPU, through both BA CLIs
            (poses must equal the CUDA runs' to 1e-6; all runs draw the same
            RANSAC hypotheses: seed 42 + pair, the threefry draw is integer
@@ -424,6 +437,14 @@ JAX_LIVE_VO_ATE, LIVE_VO_RTOL = 0.9849833301897621, 0.10
 # largest entry (H reaches 1.5e8 here, where an absolute 1e-9 is below one
 # ulp).
 DIST_CONFIG = dict(max_iters=1000, nonmonotonic=True, ftol=1e-6, xtol=1e-6)
+# NVLink between the cards of one H100 host, each way (data sheet): the peer
+# all-reduce's bound reads (n - 1) x the buffer from the peers over it
+NVLINK_BYTES_PER_S = 450e9
+# what the sharded CG iteration is read against: the earlier figures of
+# PERF.md (4 ranks with the host loop; one NCCL rank, node restarted and
+# host form)
+DIST_CG_MS_BEFORE = ("PERF.md: 4 ranks, host loop: 1.500 ms; one rank: node 0.6265-0.6293 ms, "
+                     "host 0.8771-1.1008 ms")
 JAX_DIST = {"gn_step": 604221.8305333192, "solve_ba": 18365.436329814467,
             "jacobi": 18365.43632981848, "banded": 18365.436329814467}
 DIST_COST_RTOL, DIST_POSE_ATOL, DIST_NORMAL_EQ_RTOL = 1e-6, 1e-6, 1e-9
@@ -2805,11 +2826,81 @@ def _profile_sharded_cg(problem, state, mesh):
     return out
 
 
+def _peer_check(group, sizes, timed):
+    """The peer all-reduce kernel against its plain version on this rank's
+    ``group`` at the path's ``sizes`` ({name: numel}, float64, seeded per
+    rank): max |kernel - plain| (0: the same sums in the same order), the
+    same bits from a second call, from 3 replays of a captured graph of 3
+    in-place calls and from a 3-iteration WHILE node run twice (the second a
+    restart); with ``timed`` the median ms of the kernel, the plain version
+    and ``dist.all_reduce`` (the library call) on the same buffer, and the
+    kernel's bound. Its launches here are taken back (not the main path's)."""
+    import torch
+    import torch.distributed as dist
+
+    from ceres_slam_tpu_torch.ops import allreduce_kernel as ar
+    from ceres_slam_tpu_torch.ops import graph_loop
+
+    n, rank = dist.get_world_size(group), dist.get_rank(group)
+    launches, out = ar.peer_all_reduce.launches, {}
+    for name, numel in sizes.items():
+        x = torch.randn(numel, generator=torch.Generator().manual_seed(7 + rank),
+                        dtype=torch.float64).cuda()
+        ar.reserve(group, numel * 8, x.device)
+
+        def plain(k, start=x):
+            y = start.clone()
+            for _ in range(k):
+                ar.peer_all_reduce_plain(y, group)
+            return y
+
+        ref = plain(1)
+        k1, k2 = (ar.peer_all_reduce(x.clone(), group) for _ in range(2))
+        buf = x.clone()
+        g = graph_loop.DeviceGraph(lambda: [ar.peer_all_reduce(buf, group) for _ in range(3)],
+                                   x.get_device())
+        for _ in range(3):
+            g.replay()
+        g.close()
+        nbuf, i = x.clone(), torch.zeros(1, dtype=torch.int32, device="cuda")
+        pred = torch.ones(1, dtype=torch.int32, device="cuda")
+
+        def body():
+            ar.peer_all_reduce(nbuf, group)
+            i.add_(1)
+            pred.copy_(i < 3)
+
+        node, runs = graph_loop.DeviceWhile(body, pred), []
+        for _ in range(2):
+            nbuf.copy_(x)
+            i.zero_()
+            pred.fill_(1)
+            runs.append((node.run(), nbuf.clone()))
+        node.close()
+        ref3 = plain(3)
+        r = {"numel": numel, "max_abs_err": float((k1 - ref).abs().max()),
+             "equal": bool(torch.equal(k1, ref) and torch.equal(k2, ref)),
+             "graph_equal": bool(torch.equal(buf, plain(9))),
+             "node_equal": all(m == 3 and torch.equal(y, ref3) for m, y in runs)}
+        if timed:
+            lib = x.clone()
+            ms, plain_ms, lib_ms = _medians_ms(torch, [
+                lambda: ar.peer_all_reduce(x.clone(), group), lambda: plain(1),
+                lambda: dist.all_reduce(lib.copy_(x), group=group)], reps=30)
+            nbytes = numel * 8
+            t_hbm = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+            t_link = (n - 1) * nbytes / NVLINK_BYTES_PER_S * 1e3
+            r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=max(t_hbm, t_link),
+                     bound_by="bytes", bound_what="NVLink" if t_link > t_hbm else "HBM")
+        out[name] = r
+    ar.peer_all_reduce.launches = launches
+    return out
+
+
 # the sharded solves of each dist group: (name, preconditioner or None for
-# solve_ba_sharded, LM loop form, None for the mesh's default): on one NCCL
-# rank the node form, the host form and the node again (restarted through
-# one LMGraph), in turns; on several NCCL ranks the default is the host form
-# (the node hung across four: sharded_ba.resolve_loop)
+# solve_ba_sharded, LM loop form, None for the mesh's default): on NCCL
+# ranks of one host the node form, the host form and the node again
+# (restarted through one LMGraph), in turns; gloo ranks take the host form
 DIST_SOLVES = {
     "kitti1100": [("jacobi", "jacobi", None), ("jacobi host", "jacobi", "host"),
                   ("jacobi device", "jacobi", None)],
@@ -2826,12 +2917,15 @@ def _dist_child(group, data):
     triangle200 (two gloo ranks on the card), hybrid (four, a 2x2 mesh) and
     hybrid_nccl (a 2 x n/2 mesh of NCCL ranks, one a card). On NCCL ranks
     the solves run in the node form and the host form in turns; on gloo
-    ranks in the host form, and the device form's refusal is logged."""
+    ranks in the host form, and the device form's refusal is logged. The
+    peer all-reduce kernel is checked against its plain version first (on
+    kitti1100's ranks at its path's sizes, timed; on the two gloo ranks
+    sharing the card, across the two processes)."""
     import pickle
 
     import torch
 
-    from ceres_slam_tpu_torch.ops import stereo_factor_kernel
+    from ceres_slam_tpu_torch.ops import allreduce_kernel, stereo_factor_kernel
     from ceres_slam_tpu_torch.parallel import multihost, sharded_ba, sharded_pcg
     from ceres_slam_tpu_torch.solver import dense, lm
 
@@ -2855,6 +2949,11 @@ def _dist_child(group, data):
         else:
             mesh = sharded_ba.make_mesh()
             shard = sharded_ba.shard_problem(problem, mesh)
+        K, J = state.poses.shape[0], state.points.shape[0]
+        if group in ("kitti1100", "triangle200"):  # a CG iteration's two, the LM step's blocks
+            times["peer"] = _peer_check(mesh.get_group(0), {"utv": J * 3, "uy": K * 6,
+                                                            "lm": K * 42 + J * 12},
+                                        timed=group == "kitti1100")
         if group != "kitti1100":
             H, g = sharded_ba.make_sharded_normal_eq(mesh)(shard, state)
             arrays["H"], arrays["g"] = H.cpu().numpy(), g.cpu().numpy()
@@ -2871,7 +2970,7 @@ def _dist_child(group, data):
                 runs["refused"] = str(e)
         for name, precond, loop in DIST_SOLVES.get(group, []):
             loop = loop or form
-            k2.launches = 0
+            k2.launches = allreduce_kernel.peer_all_reduce.launches = 0
             c0, b0 = sharded_ba.psum.collectives, sharded_ba.psum.bytes
             captures = lm.GRAPH_STATS["captures"]
             t0 = time.perf_counter()
@@ -2889,6 +2988,7 @@ def _dist_child(group, data):
                           "lm": summ.iterations, "cg": summ.linear_iterations, "k2": k2.launches,
                           "collectives": sharded_ba.psum.collectives - c0,
                           "bytes": sharded_ba.psum.bytes - b0, "loop": loop,
+                          "peer": allreduce_kernel.peer_all_reduce.launches,
                           "captured": lm.GRAPH_STATS["captures"] - captures}
         if not group.startswith("hybrid"):
             times["gn_step_bench"] = _time_gn_step(mesh)
@@ -2988,7 +3088,8 @@ def _bench_line(fig):
 def _gate_forms(label, fig, arr, names):
     """Fail unless the solves ``names`` (one problem in several loop forms)
     gave the same bits, iterations and collectives, K2 ran once per LM
-    iteration in each, and a device form after the first restarted its
+    iteration in each, on NCCL ranks every collective was one launch of the
+    peer all-reduce kernel, and a device form after the first restarted its
     capture. Logs each form's ms per CG iteration."""
     import numpy as np
 
@@ -2997,7 +3098,8 @@ def _gate_forms(label, fig, arr, names):
         r, wall = fig["runs"][name], fig["times"][name]
         log(f"[dist] {label} {name} ({r['loop']} LM loop{', captured' if r['captured'] else ''})"
             f": {r['lm']} LM / {r['cg']} CG iterations, {r['collectives']} collectives of "
-            f"{r['bytes'] / 1e6:.2f} MB, K2 {r['k2']}, solve {wall:.3f} s = "
+            f"{r['bytes'] / 1e6:.2f} MB, K2 {r['k2']}, peer all-reduce {r['peer']}, solve "
+            f"{wall:.3f} s = "
             f"{1e3 * wall / max(r['cg'], r['lm'], 1):.4f} ms per "
             f"{'CG' if r['cg'] else 'LM'} iteration")
         same = {k: first[k] for k in ("cost", "initial_cost", "lm", "cg", "collectives", "bytes")}
@@ -3006,16 +3108,65 @@ def _gate_forms(label, fig, arr, names):
                  f"({first['loop']})")
         if r["k2"] and r["k2"] != r["lm"]:
             fail(f"dist {label} {name}: {r['k2']} K2 launches for {r['lm']} LM iterations")
+        if fig["backend"] == "nccl" and not r["peer"] == r["collectives"] > 0:
+            fail(f"dist {label} {name}: {r['peer']} peer all-reduce launches for "
+                 f"{r['collectives']} collectives")
     devices = [fig["runs"][n] for n in names if fig["runs"][n]["loop"] == "device"]
     if len(devices) > 1 and any(r["captured"] for r in devices[1:]):
         fail(f"dist {label}: a later device solve captured again instead of restarting")
 
 
-def phase_dist(kernels, data, smi):
+def _log_peer(label, fig, results):
+    """Log and gate a group's peer all-reduce check (``_peer_check``): the
+    kernel equals its plain version bit for bit, also replayed and in a
+    restarted WHILE node. A timed check's figures go into ``results`` (the
+    kernels line, the CG iteration's U^T v as its shape)."""
+    for name, r in fig["times"]["peer"].items():
+        times = "" if "ms" not in r else (
+            f"; {r['ms'] * 1e3:.2f} us a call (CUDA events, host included), plain "
+            f"{r['plain_ms'] * 1e3:.2f} us, dist.all_reduce ({fig['backend']}) "
+            f"{r['library_ms'] * 1e3:.2f} us, {_bound_str(r)} over {r['bound_what']}")
+        log(f"[dist] peer all-reduce, {label}, {name} ({r['numel']:,} f64): max |kernel - plain| "
+            f"{r['max_abs_err']:.3e}, bit-equal {r['equal']}, after 3 graph replays "
+            f"{r['graph_equal']}, in a WHILE node run and restarted {r['node_equal']}{times}")
+        if not (r["equal"] and r["graph_equal"] and r["node_equal"]):
+            fail(f"dist {label}: the peer all-reduce kernel differs from its plain version ({name})")
+        if "ms" in r and name == "utv":
+            results[("AR", "utv", "f64")] = {k: r[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+
+
+def _probe_on_cards(n):
+    """The graph probe's distributed cases on ``n`` cards, one NCCL rank a
+    card (apps/probe_graph_loop.py): psum_in_while must pass (the peer
+    all-reduce eagerly, in a replayed graph, in a flat and a nested WHILE
+    node); nccl_in_while (NCCL's all-reduce in the same stages, its kernels
+    and node types) is reported only."""
+    for args, gate in ((["psum_in_while", "--world", str(n)], True),
+                       (["nccl_in_while", "--world", str(n), "--variant", "default"], False)):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "ceres_slam_tpu_torch.apps.probe_graph_loop",
+                            *args], capture_output=True, text=True, timeout=300, cwd=ROOT)
+        with open(os.path.join(ROOT, "build", "chip_smoke_data", f"probe_{args[0]}.log"),
+                  "w") as f:
+            f.write(r.stdout + r.stderr)
+        lines = [ln for ln in r.stdout.splitlines()
+                 if "runs on the device" in ln or "nodes" in ln or ln.startswith(
+                     (args[0], f"rank 0 of {n}: {args[0]}"))]
+        for ln in lines:
+            log(f"[dist] probe {args[0]} --world {n}: {ln[:400]}")
+        log(f"[dist] probe {' '.join(args)}: exit {r.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if gate and r.returncode != 0:
+            fail(f"dist: probe {' '.join(args)} failed:\n{(r.stdout + r.stderr)[-3000:]}")
+
+
+def phase_dist(kernels, data, smi, results):
     """The distributed layer (parallel/*): its ranks are child processes of
     this script (no process group here), jax and ceres_slam_tpu blocked as
-    here. Returns K2's and K3's launches: the ranks' and this process's
-    single-card solves."""
+    here. Returns K2's, K3's and the peer all-reduce's launches: the ranks'
+    and this process's single-card solves; the peer all-reduce's timed
+    check goes into ``results``."""
     import numpy as np
     import torch
 
@@ -3024,11 +3175,11 @@ def phase_dist(kernels, data, smi):
     from ceres_slam_tpu_torch.utils import csvio
 
     k2, k3 = kernels["K2"].stereo_factor_sums, kernels["K3"].schur_uy
-    kernels["K2"].build()
-    kernels["K3"].build()
+    for name in ("K2", "K3", "AR"):
+        kernels[name].build()
     _make_sims(data)
     config = lm.SolveConfig(**DIST_CONFIG)
-    total = {"K2": 0, "K3": 0}
+    total = {"K2": 0, "K3": 0, "AR": 0}
 
     # (a) kitti1100 full batch, one NCCL rank, block-Jacobi, the node and
     # host forms in turns
@@ -3038,7 +3189,10 @@ def phase_dist(kernels, data, smi):
     gt = csvio.read_poses_csv(os.path.join(data, "kitti1100_gt_poses.csv"))
     kitti_state = state
     fig, arr, _ = _run_ranks("kitti1100", 1, data, 900)
-    total["K2"] += _gate_kitti1100(fig, arr, gt, kitti_state, smi)
+    _log_peer("kitti1100, 1 NCCL rank", fig, results)
+    launches = _gate_kitti1100(fig, arr, gt, kitti_state, smi)
+    for name in ("K2", "AR"):
+        total[name] += launches[name]
     k2.launches = k3.launches = 0
     t0 = time.perf_counter()
     ref, rsumm = pcg.solve_ba_pcg(problem, state, config, precond="jacobi")
@@ -3061,6 +3215,7 @@ def phase_dist(kernels, data, smi):
     log(f"[dist] triangle200 on gloo ranks, lm_loop='device' refused: {refused}")
     if not refused or "NCCL" not in refused:
         fail("dist triangle200: the device LM loop was not refused on gloo ranks")
+    _log_peer("two processes sharing the card (a gloo group)", fig, results)
     H, g = dense.ba_normal_equations(problem, state)
     _normal_eq_gate("triangle200, 2 ranks", arr["H"], arr["g"], H, g)
     k2.launches = k3.launches = 0
@@ -3095,18 +3250,22 @@ def phase_dist(kernels, data, smi):
     _normal_eq_gate("triangle200, 2x2 hybrid mesh", arr["H"], arr["g"], H, g)
 
     # (e), (f) where more than one card is visible: (a) on every card, one
-    # NCCL rank a card; and (c) as a 2 x n/2 mesh of NCCL ranks, with its
+    # NCCL rank a card, in the node and host forms (the peer all-reduce
+    # checked and timed on them first), after the graph probe's
+    # distributed cases; and (c) as a 2 x n/2 mesh of NCCL ranks, with its
     # block-Jacobi solve in the node and host forms
     n = torch.cuda.device_count()
     if n > 1:
+        _probe_on_cards(n)
         fig, arr, _ = _run_ranks("kitti1100", n, data, 900)
-        total["K2"] += n * _gate_kitti1100(fig, arr, gt, kitti_state, smi)
+        _log_peer(f"kitti1100, {n} NCCL ranks", fig, results)
+        launches = _gate_kitti1100(fig, arr, gt, kitti_state, smi)
+        for name in ("K2", "AR"):
+            total[name] += n * launches[name]
     if n >= 4 and n % 2 == 0:
         fig, arr, _ = _run_ranks("hybrid_nccl", n, data, 600)
         _normal_eq_gate(f"triangle200, 2x{n // 2} hybrid mesh of NCCL ranks", arr["H"], arr["g"],
                         H, g)
-        log(f"[dist] triangle200 on the 2x{n // 2} NCCL mesh, lm_loop='device' refused: "
-            f"{fig['runs']['refused']}")
         _gate_forms(f"triangle200, 2x{n // 2} NCCL mesh", fig, arr, ["jacobi", "jacobi host"])
         r = fig["runs"]["jacobi"]
         dev = abs(r["cost"] - JAX_DIST["jacobi"]) / JAX_DIST["jacobi"]
@@ -3114,7 +3273,11 @@ def phase_dist(kernels, data, smi):
             f"{dev:.2e} from JAX's sharded (bound {DIST_COST_RTOL:g})")
         if dev > DIST_COST_RTOL:
             fail(f"dist triangle200 2x{n // 2} NCCL mesh: cost {r['cost']:.9e}")
-        total["K2"] += n * sum(fig["runs"][k]["k2"] for k in ("jacobi", "jacobi host"))
+        if r["loop"] != "device":
+            fail(f"dist triangle200 2x{n // 2} NCCL mesh: the default form is {r['loop']}")
+        forms = [fig["runs"][k] for k in ("jacobi", "jacobi host")]
+        total["K2"] += n * sum(r["k2"] for r in forms)
+        total["AR"] += n * sum(r["peer"] for r in forms)
     return total
 
 
@@ -3122,8 +3285,9 @@ def _gate_kitti1100(fig, arr, gt, state, smi):
     """Log the sharded kitti1100 solves (the node and host forms in turns)
     and one CG iteration of each form profiled, and fail unless the forms
     gave the same bits, the cost and ATE are within the full-batch bounds of
-    JAX's and K2 ran once per LM iteration on each rank. Returns a rank's K2
-    launches."""
+    JAX's, K2 ran once per LM iteration on each rank, the node form ran and
+    made no host launch, sync or copy a CG iteration. Returns a rank's K2
+    and peer all-reduce launches."""
     from ceres_slam_tpu_torch.utils import metrics
 
     names = [name for name, _, _ in DIST_SOLVES["kitti1100"]]
@@ -3148,13 +3312,16 @@ def _gate_kitti1100(fig, arr, gt, state, smi):
         f"{h['wall_us']:.1f} us; most device time: "
         + ", ".join(f"{name} {us:.2f} us" for name, us in h["top_us"]))
     if d is None:
-        log(f"[dist] kitti1100 sharded on {ranks}: the device loops refused: "
-            f"{fig['runs']['refused']}")
-    else:
-        log(f"[dist] kitti1100 sharded, one CG iteration in its WHILE node ({ranks}, rank 0): "
-            f"{d['device_us']:.2f} us of device time (CUDA events), {d['launches']:g} launches, "
-            f"{d['graph_launches']:g} graph launches, {d['syncs']:g} syncs, {d['copies']:g} "
-            f"copies (profiled), wall {d['wall_us']:.1f} us")
+        fail(f"dist kitti1100, {ranks}: the device loops did not run on NCCL ranks of one host")
+    log(f"[dist] kitti1100 sharded, one CG iteration in its WHILE node ({ranks}, rank 0): "
+        f"{d['device_us']:.2f} us of device time (CUDA events), {d['launches']:g} launches, "
+        f"{d['graph_launches']:g} graph launches, {d['syncs']:g} syncs, {d['copies']:g} "
+        f"copies (profiled), wall {d['wall_us']:.1f} us")
+    per_cg = {name: 1e3 * fig["times"][name] / max(fig["runs"][name]["cg"], 1) for name in names}
+    log(f"[dist] kitti1100 sharded on {ranks}, ms a CG iteration (solve wall over CG "
+        f"iterations): node {per_cg['jacobi']:.4f} (with its capture), host "
+        f"{per_cg['jacobi host']:.4f}, node restarted {per_cg['jacobi device']:.4f}; read "
+        f"against {DIST_CG_MS_BEFORE}; on {smi}")
     log(_bench_line(fig))
     if not (dev <= FULL_COST_RTOL["kitti1100"]
             and abs(ate - ate_ref) <= FULL_ATE_ATOL["kitti1100"]):
@@ -3162,11 +3329,10 @@ def _gate_kitti1100(fig, arr, gt, state, smi):
              f"{cost_ref:.6e} / {ate_ref:.4f}")
     if not r["k2"] == r["lm"] > 0:
         fail(f"dist kitti1100, {ranks}: {r['k2']} K2 launches for {r['lm']} LM iterations")
-    if d is None and "NCCL" not in (fig["runs"].get("refused") or ""):
-        fail(f"dist kitti1100, {ranks}: neither the node form nor its refusal")
-    if d is not None and any(d[k] != 0 for k in ("launches", "syncs", "copies")):
+    if any(d[k] != 0 for k in ("launches", "syncs", "copies")):
         fail(f"dist kitti1100, {ranks}: host work per CG iteration in the node: {d}")
-    return sum(fig["runs"][name]["k2"] for name in names)
+    return {"K2": sum(fig["runs"][name]["k2"] for name in names),
+            "AR": sum(fig["runs"][name]["peer"] for name in names)}
 
 
 def phase_cpu(kernels, data, window_poses, full_poses, dense_pose, graph_poses):
@@ -3230,6 +3396,13 @@ KERNELS = (
     ("P", "double_kernel", "double_kernel.cu", "scripts/probe_pallas_scan.py:27", "2x512", "f32",
      "first form: 4 blocks of 256 threads or 1 looping block, thin launch path, capturable "
      "in a CUDA graph and runs in a conditional WHILE node (grid_in_while); latency-bound"),
+    ("AR", "peer_all_reduce", "peer_allreduce.cu",
+     "none: a kernel of the port; the JAX package reduces with XLA's psum inside its compiled "
+     "loops (ceres_slam_tpu/parallel/sharded_pcg.py:91, sharded_ba.py:113, :159)", "utv", "f64",
+     "first form: the ranks of one host read each other's buffers through CUDA IPC, one chunk a "
+     "block, two flag rounds (ready, done) with system-scope release and acquire, the sum in "
+     "rank order (the same bits on every rank, no atomics); runs inside the sharded LM and CG "
+     "WHILE nodes; psum's route on NCCL ranks of one host"),
     ("S", "subspace_step", "subspace_step.cu",
      "none: a kernel of the port (the JAX package runs it as jnp operations, "
      "ceres_slam_tpu/solver/dogleg.py:171 subspace_step, :83 _boundary_min)", "B=2", "f64",
@@ -3262,13 +3435,14 @@ def main():
         fail("torch.cuda.is_available() is false: this smoke test needs an NVIDIA GPU")
     sys.path.insert(0, ROOT)
     try:
-        from ceres_slam_tpu_torch.ops import (bilinear_kernel, double_kernel, graph_loop,
-                                              schur_kernel, stereo_factor_kernel,
+        from ceres_slam_tpu_torch.ops import (allreduce_kernel, bilinear_kernel, double_kernel,
+                                              graph_loop, schur_kernel, stereo_factor_kernel,
                                               subspace_kernel, window_kernel)
     except ImportError as e:
         fail(f"cannot import the port: {e}")
     kernels = {"K1": window_kernel, "K2": stereo_factor_kernel, "K3": schur_kernel,
-               "K4": bilinear_kernel, "P": double_kernel, "S": subspace_kernel}
+               "K4": bilinear_kernel, "P": double_kernel, "S": subspace_kernel,
+               "AR": allreduce_kernel}
 
     smi = phase_device(torch)
     if "build" in phases or "kernels" in phases:
@@ -3300,7 +3474,7 @@ def main():
     if "live_vo" in phases:
         phase_live_vo(data, smi)
     if "dist" in phases:
-        for name, n in phase_dist(kernels, data, smi).items():
+        for name, n in phase_dist(kernels, data, smi, k).items():
             launches[name] += n
     if "cpu" in phases:
         phase_cpu(kernels, data, window_poses, full_poses, dense_pose, graph_poses)

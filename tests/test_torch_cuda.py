@@ -18,8 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from ceres_slam_tpu_torch.ops import (bilinear_kernel, double_kernel, full_batch_plan, lie,
-                                      subspace_kernel,
+from ceres_slam_tpu_torch.ops import (allreduce_kernel, bilinear_kernel, double_kernel,
+                                      full_batch_plan, graph_loop, lie, subspace_kernel,
                                       full_batch_trace, schur_kernel, stereo_factor_kernel,
                                       window_kernel)
 from ceres_slam_tpu_torch.parallel import multihost, sharded_ba, sharded_pcg
@@ -436,22 +436,47 @@ def _sharded_host_work(mesh, problem, state, small, small_state) -> dict:
     return out
 
 
-def _sharded_forms_child(_, rendezvous, out):
-    """One NCCL rank (a child process): the sharded solves in each loop form,
-    the restart of a captured solve and the captured GN step; pickles what
-    each run returned and counted."""
+def _nccl_world() -> int:
+    """NCCL ranks a card test spawns: 4 or 2 where that many cards are
+    visible, else 1."""
+    n = torch.cuda.device_count()
+    return 4 if n >= 4 else (2 if n >= 2 else 1)
+
+
+def _spawn_ranks(fn, world, tmp_path, *args) -> list:
+    """``fn(rank, world, rendezvous, out, *args)`` in ``world`` child
+    processes; returns each rank's pickled results."""
     import pickle
 
-    assert multihost.initialize(f"file://{rendezvous}", 1, 0, device="cuda", timeout_s=60)
+    outs = [tmp_path / f"rank{r}.pkl" for r in range(world)]
+    torch.multiprocessing.spawn(fn, args=(world, str(tmp_path / "rdv"), [str(o) for o in outs],
+                                          *args), nprocs=world, join=True)
+    results = []
+    for o in outs:
+        with open(o, "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+def _sharded_forms_child(rank, world, rendezvous, outs):
+    """One NCCL rank (a child process, one a card): the sharded solves in
+    each loop form, the restart of a captured solve and the captured GN
+    step; pickles what each run returned and counted."""
+    import pickle
+
+    assert multihost.initialize(f"file://{rendezvous}", world, rank, device="cuda",
+                                timeout_s=60)
     k2, ps = stereo_factor_kernel.stereo_factor_sums, sharded_ba.psum
+    peer = allreduce_kernel.peer_all_reduce
     res = {}
 
     def run(name, fn):
-        k2.launches, ps.collectives, ps.bytes = 0, 0, 0
+        k2.launches, ps.collectives, ps.bytes, peer.launches = 0, 0, 0, 0
         sol, summ = fn()
         torch.cuda.synchronize()
         res[name] = {"state": _host_tree(tuple(sol)), "summary": _host_tree(tuple(summ)),
-                     "k2": k2.launches, "collectives": ps.collectives, "bytes": ps.bytes}
+                     "k2": k2.launches, "collectives": ps.collectives, "bytes": ps.bytes,
+                     "peer": peer.launches}
 
     try:
         mesh = sharded_ba.make_mesh()
@@ -490,7 +515,7 @@ def _sharded_forms_child(_, rendezvous, out):
         steps.close()
     finally:
         multihost.shutdown()
-    with open(out, "wb") as f:
+    with open(outs[rank], "wb") as f:
         pickle.dump(res, f)
 
 
@@ -501,35 +526,37 @@ def _same_run(a, b):
 
 @pytest.mark.cuda
 def test_sharded_node_forms_equal_host_forms(tmp_path):
-    """On one NCCL rank (a child process), at triangle200's full-batch shape:
-    the sharded PCG solve (block-Jacobi and banded) with its LM loop in a
-    WHILE node and the CG node nested in it, and with the CG node under the
-    host LM loop, gives the host loops' bits (summary and history
-    included); K2 launches once per LM iteration and ``psum`` counts, per
-    iteration the card ran, the collectives and bytes the host form makes.
-    A second solve through one ``LMGraph`` restarts the capture (no new
-    capture) and gives the host form's bits on its own state. The sharded
-    dense solve in its node equals its host form; ``gn_step_sharded``
-    replayed through a ``StepGraph`` equals the eager step. A restarted
-    solve in its node makes the same host launches, syncs and copies at 3
-    and at 8 LM iterations: none per LM or CG iteration."""
+    """On 4 or 2 NCCL ranks, one a card, where that many cards are visible
+    (else one; child processes), at triangle200's full-batch shape: the
+    sharded PCG solve (block-Jacobi and banded) with its LM loop in a WHILE
+    node and the CG node nested in it, and with the CG node under the host
+    LM loop, gives the host loops' bits (summary and history included) on
+    every rank; K2 launches once per LM iteration, and ``psum`` counts, per
+    iteration the card ran, the collectives and bytes the host form makes,
+    each collective one launch of the peer all-reduce kernel. A second solve
+    through one ``LMGraph`` restarts the capture (no new capture) and gives
+    the host form's bits on its own state. The sharded dense solve in its
+    node equals its host form; ``gn_step_sharded`` replayed through a
+    ``StepGraph`` equals the eager step. A restarted solve in its node makes
+    the same host launches, syncs and copies at 3 and at 8 LM iterations:
+    none per LM or CG iteration."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    import pickle
-
-    out = tmp_path / "forms.pkl"
-    torch.multiprocessing.spawn(_sharded_forms_child, args=(str(tmp_path / "rdv"), str(out)),
-                                nprocs=1, join=True)
-    with open(out, "rb") as f:
-        res = pickle.load(f)
+    ranks = _spawn_ranks(_sharded_forms_child, _nccl_world(), tmp_path)
+    res = ranks[0]
+    for other in ranks[1:]:
+        for name, run in res.items():
+            if isinstance(run, dict) and "state" in run:
+                _same_run(other[name], run)
     for precond in ("jacobi", "banded"):
         ref = res[f"{precond} host/host"]
         assert ref["k2"] == ref["summary"][0] > 2 and ref["summary"][5] > ref["summary"][0]
-        for form in ("host/device", "device/device"):
+        for form in ("host/host", "host/device", "device/device"):
             got = res[f"{precond} {form}"]
             _same_run(got, ref)
             assert (got["k2"], got["collectives"], got["bytes"]) == (
                 ref["k2"], ref["collectives"], ref["bytes"]), (precond, form)
+            assert got["peer"] == got["collectives"], (precond, form)
     for name, counts in res["host_work"].items():  # no host work per LM or CG iteration
         assert (counts[3][0], counts[8][0]) == (3, 8), name
         assert counts[3][1:] == counts[8][1:], (name, counts)
@@ -545,6 +572,95 @@ def test_sharded_node_forms_equal_host_forms(tmp_path):
             np.testing.assert_array_equal(x, y)
         # one all-reduce a replay (the first step also runs the step once eagerly)
         assert collectives == 2 - i
+
+
+# the peer all-reduce at a CG iteration's U^T v of triangle200 and kitti1100,
+# the LM step's blocks, odd sizes and one element
+PEER_SIZES = (1, 7, 1344, 2049, 49920, 245880)
+
+
+def _peer_child(rank, world, rendezvous, outs, share):
+    """One rank (a child process): the peer all-reduce kernel and its plain
+    version on seeded per-rank buffers of ``PEER_SIZES`` in float64 and
+    float32, twice, after 3 replays of a captured graph of 3 in-place calls,
+    and in a 3-iteration WHILE node run twice (restarted). ``share``: every
+    rank on card 0, a gloo group; else NCCL, one rank a card."""
+    import pickle
+
+    assert multihost.initialize(f"file://{rendezvous}", world, rank, device="cuda",
+                                timeout_s=60, local_device_ids=[0] if share else None,
+                                backend="gloo" if share else None)
+    peer, plain = allreduce_kernel.peer_all_reduce, allreduce_kernel.peer_all_reduce_plain
+    group, res = torch.distributed.group.WORLD, {}
+    try:
+        for dtype in (torch.float64, torch.float32):
+            for numel in PEER_SIZES:
+                gen = torch.Generator().manual_seed(1000 * rank + numel)
+                x = torch.randn(numel, generator=gen, dtype=dtype).cuda()
+                allreduce_kernel.reserve(group, numel * x.element_size(), x.device)
+
+                def plain_n(k):
+                    y = x.clone()
+                    for _ in range(k):
+                        plain(y, group)
+                    return y.cpu()
+
+                before = peer.launches
+                eager = [peer(x.clone(), group).cpu() for _ in range(2)]
+                launches = peer.launches - before
+                buf = x.clone()
+                g = graph_loop.DeviceGraph(lambda: [peer(buf, group) for _ in range(3)],
+                                           x.get_device())
+                for _ in range(3):
+                    g.replay()
+                g.close()
+                nbuf, i = x.clone(), torch.zeros(1, dtype=torch.int32, device="cuda")
+                pred = torch.ones(1, dtype=torch.int32, device="cuda")
+
+                def body():
+                    peer(nbuf, group)
+                    i.add_(1)
+                    pred.copy_(i < 3)
+
+                node, runs = graph_loop.DeviceWhile(body, pred), []
+                for _ in range(2):
+                    nbuf.copy_(x)
+                    i.zero_()
+                    pred.fill_(1)
+                    runs.append((node.run(), nbuf.cpu()))
+                node.close()
+                res[(str(dtype), numel)] = {
+                    "plain": plain_n(1), "eager": eager, "launches": launches,
+                    "graph": buf.cpu(), "plain9": plain_n(9), "node": runs,
+                    "plain3": plain_n(3)}
+    finally:
+        multihost.shutdown()
+    with open(outs[rank], "wb") as f:
+        pickle.dump(res, f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [False, True], ids=["nccl", "shared_card"])
+def test_peer_all_reduce_matches_plain(tmp_path, share):
+    """The peer all-reduce kernel equals its plain version (all_gather, then
+    the sum in rank order) bit for bit on every rank, in float64 and
+    float32 at the path's sizes and odd ones: twice in a row, after 3
+    replays of a captured graph of 3 in-place calls (9 reductions), and in a
+    3-iteration WHILE node run and restarted; one launch a call. On 4 or 2
+    NCCL ranks, one a card, where that many cards are visible (else one),
+    and on 2 processes sharing card 0 (a gloo group: CUDA IPC on one card,
+    the processes taking turns)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    ranks = _spawn_ranks(_peer_child, 2 if share else _nccl_world(), tmp_path, share)
+    for key, r in ranks[0].items():
+        for other in ranks[1:]:
+            assert torch.equal(other[key]["eager"][0], r["eager"][0]), key
+        assert r["launches"] == 2, key
+        assert all(torch.equal(e, r["plain"]) for e in r["eager"]), key
+        assert torch.equal(r["graph"], r["plain9"]), key
+        for n, y in r["node"]:
+            assert n == 3 and torch.equal(y, r["plain3"]), key
 
 
 def test_distributed_cuda_without_a_card_raises(monkeypatch):

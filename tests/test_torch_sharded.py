@@ -18,7 +18,12 @@ Tolerances, JAX's own (tests/test_parallel.py): normal equations 1e-9
 absolute, plus 1e-12 relative (H's entries reach 6e7, where 1e-9 is below
 one ulp; JAX's ``np.allclose`` adds its default 1e-5 relative); the sharded
 LM solve cost 1e-6 relative, poses 1e-7; the GN step poses 1e-7. Every rank
-must return the same bits.
+must return the same bits. A ``peer:`` case runs with ``psum`` on the peer
+all-reduce's route (``ops/allreduce_kernel``; on the CPU its plain version:
+all_gather and the sum in rank order), as NCCL ranks of one host reduce,
+and is held to the same tolerances; the plain all-reduce itself equals
+gloo's ``all_reduce`` within float64 rounding (its sums in another order:
+n ulps of the sum of magnitudes).
 """
 
 import os
@@ -30,6 +35,7 @@ import pytest
 import torch
 import torch.multiprocessing
 
+from ceres_slam_tpu_torch.ops import allreduce_kernel
 from ceres_slam_tpu_torch.parallel import multihost, sharded_ba, sharded_pcg
 from ceres_slam_tpu_torch.solver import banded, dense, lm, pcg
 
@@ -88,13 +94,30 @@ def _run_case(meshes, kind, mesh_name, *args):
     """One case on this rank: the port's sharded function on the numpy
     inputs; returns numpy results. ``solve_body``, ``pcg_body``: the
     device LM loop's body (``pcg_body``: with the CG loop on fixed
-    buffers, ``pcg.inner_cg``) iterated on the host."""
+    buffers, ``pcg.inner_cg``) iterated on the host. ``peer:<kind>``:
+    ``kind`` with ``psum`` on the peer all-reduce's route."""
+    if kind.startswith("peer:"):
+        route = sharded_ba.peer_route
+        sharded_ba.peer_route = lambda group: True
+        try:
+            return _run_case(meshes, kind[len("peer:"):], mesh_name, *args)
+        finally:
+            sharded_ba.peer_route = route
     mesh = meshes[mesh_name]
     args = [_to_torch(a) for a in args]
     if kind == "meshes":
         return {name: tuple(m.shape) for name, m in meshes.items()}
     if kind == "refusals":
         return {"messages": _refusals(mesh, *args)}
+    if kind == "all_reduce":  # seeded per rank; the plain peer all-reduce and gloo's
+        x = torch.as_tensor(np.random.default_rng(100 + torch.distributed.get_rank()).normal(
+            size=args[0]) * 10.0 ** np.arange(args[0][-1]))
+        group = mesh.get_group(0)
+        ref = x.clone()
+        torch.distributed.all_reduce(ref, group=group)
+        return {"peer": allreduce_kernel.peer_all_reduce(x.clone(), group).numpy(),
+                "gloo": ref.numpy(), "abs_sum": _abs_sum(x, group).numpy(),
+                "launches": allreduce_kernel.peer_all_reduce.launches}
     if kind == "normal_eq":
         problem, state = args
         H, g = sharded_ba.make_sharded_normal_eq(mesh)(
@@ -125,6 +148,12 @@ def _run_case(meshes, kind, mesh_name, *args):
     return {"poses": sol.poses.numpy(), "points": sol.points.numpy(),
             "cost": summ.final_cost, "iterations": summ.iterations,
             "cg_iterations": summ.linear_iterations}
+
+
+def _abs_sum(x, group):
+    a = x.abs()
+    torch.distributed.all_reduce(a, group=group)
+    return a
 
 
 def _rank_main(rank, world, rendezvous, out_dir, cases, ranks_per_node):
@@ -217,10 +246,16 @@ def runs(tmp_path_factory):
         "solve": ("solve_ba", "global", *problems["solve"][2:], cfg),
         "solve_body": ("solve_body", "global", *problems["solve"][2:], cfg),
         "refusals": ("refusals", "global", *problems["solve"][2:], cfg),
-        "gn_step": ("gn_step", "global", *problems["gn_step"][2:])})
+        "gn_step": ("gn_step", "global", *problems["gn_step"][2:]),
+        "all_reduce": ("all_reduce", "global", (5, 7)),
+        "solve_peer": ("peer:solve_ba", "global", *problems["solve"][2:], cfg),
+        "gn_step_peer": ("peer:gn_step", "global", *problems["gn_step"][2:])})
     wait4 = start_ranks(tmp, 4, {
         "hybrid": ("normal_eq", "hybrid", *problems["hybrid"][2:]),
-        "normal_eq": ("normal_eq", "global", *problems["normal_eq"][2:])}, ranks_per_node=2)
+        "normal_eq": ("normal_eq", "global", *problems["normal_eq"][2:]),
+        "all_reduce": ("all_reduce", "global", (3, 11)),
+        "hybrid_peer": ("peer:normal_eq", "hybrid", *problems["hybrid"][2:])},
+        ranks_per_node=2)
 
     mesh = jsharded_ba.make_mesh()
     hmesh = Mesh(np.asarray(jax.devices()).reshape(2, -1), ("dcn", "obs"))
@@ -241,22 +276,46 @@ def runs(tmp_path_factory):
     return {"ref": ref, "problems": problems, 2: wait2(), 4: wait4()}
 
 
-@pytest.mark.parametrize("world,name", [(2, "normal_eq"), (4, "normal_eq"), (4, "hybrid")],
-                         ids=["2", "4", "hybrid2x2"])
+@pytest.mark.parametrize("world,name", [(2, "normal_eq"), (4, "normal_eq"), (4, "hybrid"),
+                                        (4, "hybrid_peer")],
+                         ids=["2", "4", "hybrid2x2", "hybrid2x2_peer"])
 def test_normal_eq_matches_jax(runs, world, name):
     ranks = runs[world]
     assert_ranks_identical(ranks, name)
-    ref = runs["ref"][name]
+    ref = runs["ref"][name.removesuffix("_peer")]
     np.testing.assert_allclose(ranks[0][name]["H"], ref["H"], rtol=1e-12, atol=1e-9)
     np.testing.assert_allclose(ranks[0][name]["g"], ref["g"], rtol=1e-12, atol=1e-9)
 
 
-def test_sharded_solve_matches_jax(runs):
+@pytest.mark.parametrize("name", ["solve", "solve_peer"])
+def test_sharded_solve_matches_jax(runs, name):
     ranks, ref = runs[2], runs["ref"]["solve"]
-    assert_ranks_identical(ranks, "solve")
-    got = ranks[0]["solve"]
+    assert_ranks_identical(ranks, name)
+    got = ranks[0][name]
     np.testing.assert_allclose(got["cost"], ref["cost"], rtol=1e-6)
     np.testing.assert_allclose(got["poses"], ref["poses"], rtol=0, atol=1e-7)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_peer_all_reduce_plain_matches_all_reduce(runs, world):
+    """The peer all-reduce's plain version (gloo ranks on the CPU: all_gather
+    and the sum in rank order, left to right) gives every rank the same
+    bits, equal to gloo's all_reduce within float64 rounding: n ulps of the
+    sum of magnitudes, entries spread over 11 decades. It launches no
+    kernel."""
+    ranks = runs[world]
+    assert_ranks_identical(ranks, "all_reduce")
+    got = ranks[0]["all_reduce"]
+    bound = world * np.finfo(np.float64).eps * got["abs_sum"]
+    assert np.all(np.abs(got["peer"] - got["gloo"]) <= bound)
+    assert got["launches"] == 0
+    # rank order, left to right: the plain sum of the seeded inputs
+    parts = [np.random.default_rng(100 + r).normal(size=got["peer"].shape)
+             * 10.0 ** np.arange(got["peer"].shape[-1]) for r in range(world)]
+    acc = parts[0].copy()
+    for p in parts[1:]:
+        acc += p
+    assert np.array_equal(got["peer"], acc)
 
 
 def test_node_body_on_the_host_equals_host_loop(runs):
@@ -279,13 +338,17 @@ def test_device_loops_refused_on_gloo(runs):
     assert messages[4] is not None and "needs cg_loop='device'" in messages[4], messages
 
 
-@pytest.mark.parametrize("ranks,form", [(1, "device"), (4, "host")])
-def test_loop_form_on_nccl_meshes(monkeypatch, ranks, form):
-    """On a mesh of one NCCL rank the device form is the default; on several
-    NCCL ranks (where the captured loop hung on four cards) the host form
-    is, and the device form raises, naming the cause."""
+@pytest.mark.parametrize("ranks,hosts,form", [(1, 1, "device"), (4, 1, "device"),
+                                              (4, 2, "host")])
+def test_loop_form_on_nccl_meshes(monkeypatch, ranks, hosts, form):
+    """On an NCCL mesh whose ranks share a host (one rank, or four, where the
+    all-reduce is the peer kernel) the device form is the default; on a mesh
+    that spans hosts (its all-reduce stays NCCL's) the host form is, and the
+    device form raises, naming the cause."""
 
-    class Mesh:  # an NCCL mesh of ``ranks`` ranks, as resolve_loop reads it
+    class Mesh:  # a 1-D NCCL mesh of ``ranks`` ranks, as resolve_loop reads it
+        ndim = 1
+
         def get_group(self, dim):
             return None
 
@@ -293,21 +356,24 @@ def test_loop_form_on_nccl_meshes(monkeypatch, ranks, form):
             return ranks
 
     monkeypatch.setattr(sharded_ba.dist, "get_backend", lambda group=None: "nccl")
+    monkeypatch.setattr(sharded_ba.multihost, "on_one_host", lambda group=None: hosts == 1)
     assert sharded_ba.resolve_loop(Mesh(), None) == form
     assert sharded_pcg.resolve_loops(Mesh(), None, None) == (form, form)
-    if ranks > 1:
-        with pytest.raises(ValueError, match="verified on one rank only"):
+    assert sharded_ba.resolve_loop(Mesh(), "host") == "host"
+    if hosts > 1:
+        with pytest.raises(ValueError, match="span hosts"):
             sharded_ba.resolve_loop(Mesh(), "device")
     else:
-        assert sharded_ba.resolve_loop(Mesh(), "host") == "host"
+        assert sharded_ba.resolve_loop(Mesh(), "device") == "device"
 
 
-def test_gn_step_matches_jax(runs):
+@pytest.mark.parametrize("name", ["gn_step", "gn_step_peer"])
+def test_gn_step_matches_jax(runs, name):
     """The sharded GN step reduces the cost from a perturbed state (as JAX's
     test asserts) and lands on JAX's step."""
     ranks, ref = runs[2], runs["ref"]["gn_step"]
-    assert_ranks_identical(ranks, "gn_step")
-    got = ranks[0]["gn_step"]
+    assert_ranks_identical(ranks, name)
+    got = ranks[0][name]
     assert np.all(np.isfinite(got["poses"]))
     np.testing.assert_allclose(got["poses"], ref["poses"], rtol=0, atol=1e-7)
     problem, init = (_to_torch(x) for x in runs["problems"]["gn_step"][2:])

@@ -9,7 +9,10 @@ computes. On the CPU K2 runs its plain version on each rank's shard plan.
 
 Tolerances, JAX's own: block-Jacobi PCG final cost 1e-5 relative, poses
 1e-5; banded PCG and the hybrid mesh 1e-6 and 1e-6. Every rank must return
-the same bits.
+the same bits. The ``_peer`` cases run with ``psum`` on the peer
+all-reduce's route (its plain version here: the sum in rank order, as NCCL
+ranks of one host reduce; tests/test_torch_sharded.py), held to the same
+tolerances.
 """
 
 import numpy as np
@@ -94,8 +97,11 @@ def runs(tmp_path_factory):
              2: start_ranks(tmp, 2, {**{name: case(name, "global") for name in CASES
                                         if name != "hybrid"},
                                      **{f"{name}_body": case(name, "global", "pcg_body")
-                                        for name in BODY_CASES}}),
-             4: start_ranks(tmp, 4, {"hybrid": case("hybrid", "hybrid")}, ranks_per_node=2)}
+                                        for name in BODY_CASES},
+                                     "jacobi_peer": case("jacobi", "global", "peer:pcg")}),
+             4: start_ranks(tmp, 4, {"hybrid": case("hybrid", "hybrid"),
+                                     "hybrid_peer": case("hybrid", "hybrid", "peer:pcg")},
+                            ranks_per_node=2)}
 
     mesh = jsharded_ba.make_mesh()
     hmesh = Mesh(np.asarray(jax.devices()).reshape(2, -1), ("dcn", "obs"))
@@ -111,14 +117,15 @@ def runs(tmp_path_factory):
 
 @pytest.mark.parametrize("world,name", [(1, "jacobi"), (2, "jacobi"), (2, "banded"),
                                         (2, "banded_132"), (2, "masked_jacobi"),
-                                        (2, "masked_banded"), (4, "hybrid")],
+                                        (2, "masked_banded"), (4, "hybrid"), (2, "jacobi_peer"),
+                                        (4, "hybrid_peer")],
                          ids=["jacobi1", "jacobi2", "banded2", "banded_132obs", "masked_jacobi",
-                              "masked_banded", "hybrid2x2"])
+                              "masked_banded", "hybrid2x2", "jacobi2_peer", "hybrid2x2_peer"])
 def test_sharded_pcg_matches_jax(runs, world, name):
-    ranks, ref = runs[world], runs["ref"][name]
+    ranks, ref = runs[world], runs["ref"][name.removesuffix("_peer")]
     assert_ranks_identical(ranks, name)
     got = ranks[0][name]
-    tol = TOL[name]
+    tol = TOL[name.removesuffix("_peer")]
     assert got["cg_iterations"] >= got["iterations"] > 0
     np.testing.assert_allclose(got["cost"], ref["cost"], rtol=tol)
     np.testing.assert_allclose(got["poses"], ref["poses"], rtol=0, atol=tol)
