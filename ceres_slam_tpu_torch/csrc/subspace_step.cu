@@ -15,26 +15,47 @@
 // multiplier, then the best of four candidates), and the predicted decrease
 // -(g.y + 0.5 y.B y).
 //
-// Design: one thread per window, everything in registers. Every operation
-// is the plain version's, in its order, rounded once as PyTorch's
-// elementwise kernels round it: the _rn intrinsics keep nvcc from fusing a
-// product and a sum into an FMA, the clamps and maxima propagate NaN as
-// PyTorch's do, and the minimum of the four candidates is the first lowest
-// (a NaN first). So the kernel equals its plain version on the card bit
-// for bit, in float32 and float64.
+// Every operation is the plain version's, in its order, rounded once as
+// PyTorch's elementwise kernels round it: the _rn intrinsics keep nvcc from
+// fusing a product and a sum into an FMA, the clamps and maxima propagate
+// NaN as PyTorch's do, and the minimum of the four candidates is the first
+// lowest (a NaN first). So the kernel equals its plain version on the card
+// bit for bit, in float32 and float64.
 //
 // What bounds it on an H100: latency. B windows move 9 values each (6 read,
-// 3 written: 72 bytes in float64) and do ~600 dependent flops, a few
-// microseconds of one thread's latency; at the flagship's B = 2 and the
-// grid's B = 15 one block of 128 threads is almost empty. Its design does
-// nothing about that: the gain is the ~830 launches it replaces.
+// 3 written: 72 bytes in float64); what takes the time is one window's
+// chain of dependent operations, and above all the bisection's: each step
+// needs the previous step's interval, and each takes two divisions. The chain
+// of the design below is counted, and its operations' latencies measured,
+// in apps/probe_op_latency.py (csrc/op_chain.cu).
+//
+// Design: one warp a window (kWarps windows a block), so B = 15 windows run
+// side by side as B = 2 do. Every lane computes the eigenbasis, the bracket
+// and, after the bisection, the four candidates, the same values in
+// lockstep; lane 0 writes. The 64-step bisection runs in 13 rounds of 5
+// levels (the last of 4: 64 = 12 x 5 + 4). In a round, lane l < 31 takes
+// node l (heap order) of the complete binary tree of the next 5 steps from
+// the current (lo, hi): it computes its node's interval by repeating, along
+// the path from the root, the sequential step's own updates (mid = 0.5 (lo +
+// hi); lo = mid to the right, hi = mid to the left), then its node's mid and
+// the test too_big(mid) with its two divisions. __ballot_sync gathers the
+// 31 answers; every lane walks the levels from the root by the ballot's bits
+// to the last level's node, and takes that node's interval and mid from the
+// lane that computed them (__shfl_sync): the last step gives the new
+// (lo, hi). A node on the walked path holds the sequential loop's interval
+// at that step, computed by the same operations on the same values, so the
+// round ends on the sequential loop's (lo, hi), bit for bit. One round's
+// chain is 4 path steps, the mid, one test (one division deep), a ballot, a
+// few integer steps and a shuffle: 13 divisions deep where the loop was 64.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kWarps = 4;  // windows a block
+constexpr int kThreads = 32 * kWarps;
 constexpr int kBisections = 64;
+constexpr int kLevels = 5;  // bisection steps a round: 31 tree nodes, one a lane
 
 template <typename T>
 struct R;
@@ -89,8 +110,53 @@ __device__ __forceinline__ T model_value(T B00, T B01, T B11, T g0, T g1, T y0, 
                 r::add(r::mul(g0, y0), r::mul(g1, y1)));
 }
 
+// The sequential step's test: whether |y(mid)| > r.
 template <typename T>
-__device__ void boundary_min(T B00, T B01, T B11, T g0, T g1, T rad, T* out0, T* out1) {
+__device__ __forceinline__ bool too_big(T mid, T e1, T e2, T ngh1, T ngh2, T rr) {
+  using r = R<T>;
+  const T tiny = T(1e-30);
+  const T y1 = r::div(ngh1, clamp_min(r::add(e1, mid), tiny));
+  const T y2 = r::div(ngh2, clamp_min(r::add(e2, mid), tiny));
+  return r::add(r::mul(y1, y1), r::mul(y2, y2)) > rr;
+}
+
+// The plain version's 64 steps
+//   mid = 0.5 (lo + hi); lo = too_big(mid) ? mid : lo; hi = too_big(mid) ? hi : mid
+// as 13 rounds of a warp (see the header): (lo, hi) in every lane on entry
+// and on return, the same values in every lane.
+template <typename T>
+__device__ __forceinline__ void bisect(T& lo, T& hi, T e1, T e2, T ngh1, T ngh2, T rr,
+                                       int lane) {
+  using r = R<T>;
+  const unsigned path = lane + 1;  // heap node lane, plus one: a leading one, then the path
+  const int depth = 31 - __clz(path);
+#pragma unroll 1
+  for (int done = 0; done < kBisections; done += kLevels) {
+    const int levels = kBisections - done < kLevels ? kBisections - done : kLevels;
+    T a = lo, b = hi;  // this lane's node's interval: the steps along its path
+#pragma unroll
+    for (int j = kLevels - 2; j >= 0; --j) {
+      const T mid = r::mul(T(0.5), r::add(a, b));
+      const bool step = j < depth, right = (path >> j) & 1u;
+      a = step && right ? mid : a;
+      b = step && !right ? mid : b;
+    }
+    const T mid = r::mul(T(0.5), r::add(a, b));
+    const unsigned bits = __ballot_sync(0xffffffffu, too_big(mid, e1, e2, ngh1, ngh2, rr));
+    int node = 0;
+    for (int k = 1; k < levels; ++k) node = 2 * node + 1 + static_cast<int>((bits >> node) & 1u);
+    const T na = __shfl_sync(0xffffffffu, a, node);
+    const T nb = __shfl_sync(0xffffffffu, b, node);
+    const T nm = __shfl_sync(0xffffffffu, mid, node);
+    const bool up = (bits >> node) & 1u;
+    lo = up ? nm : na;
+    hi = up ? nb : nm;
+  }
+}
+
+template <typename T>
+__device__ void boundary_min(T B00, T B01, T B11, T g0, T g1, T rad, int lane, T* out0,
+                             T* out1) {
   using r = R<T>;
   const T tiny = T(1e-30);
   const T mean = r::mul(T(0.5), r::add(B00, B11));
@@ -115,14 +181,7 @@ __device__ void boundary_min(T B00, T B01, T B11, T g0, T g1, T rad, T* out0, T*
   T lo = clamp_min(-e1, T(0));
   T hi = maximum(r::add(lo, tiny), r::add(-e1, r::div(gnorm, clamp_min(rad, tiny))));
   const T rr = r::mul(rad, rad);
-  for (int i = 0; i < kBisections; ++i) {
-    const T mid = r::mul(T(0.5), r::add(lo, hi));
-    const T y1 = r::div(ngh1, clamp_min(r::add(e1, mid), tiny));
-    const T y2 = r::div(ngh2, clamp_min(r::add(e2, mid), tiny));
-    const bool too_big = r::add(r::mul(y1, y1), r::mul(y2, y2)) > rr;
-    lo = too_big ? mid : lo;
-    hi = too_big ? hi : mid;
-  }
+  bisect(lo, hi, e1, e2, ngh1, ngh2, rr, lane);
   const T lam = r::mul(T(0.5), r::add(lo, hi));
   T yh1 = r::div(ngh1, clamp_min(r::add(e1, lam), tiny));
   T yh2 = r::div(ngh2, clamp_min(r::add(e2, lam), tiny));
@@ -155,11 +214,12 @@ __device__ void boundary_min(T B00, T B01, T B11, T g0, T g1, T rad, T* out0, T*
 }
 
 template <typename T>
-__global__ void subspace_step_kernel(const T* __restrict__ model, const T* __restrict__ radius,
+__global__ void __launch_bounds__(kThreads)
+    subspace_step_kernel(const T* __restrict__ model, const T* __restrict__ radius,
                                      T* __restrict__ out, int B) {
   using r = R<T>;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  const int b = blockIdx.x * kWarps + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (b >= B) return;  // the whole warp: the ballots below see all 32 lanes
   const T B00 = model[5 * b], B01 = model[5 * b + 1], B11 = model[5 * b + 2];
   const T g0 = model[5 * b + 3], g1 = model[5 * b + 4];
   const T rad = radius[b];
@@ -171,14 +231,16 @@ __global__ void subspace_step_kernel(const T* __restrict__ model, const T* __res
   const bool interior =
       posdef && (r::add(r::mul(yi0, yi0), r::mul(yi1, yi1)) <= r::mul(rad, rad));
   T yb0, yb1;
-  boundary_min(B00, B01, B11, g0, g1, rad, &yb0, &yb1);
+  boundary_min(B00, B01, B11, g0, g1, rad, lane, &yb0, &yb1);
   const T y0 = interior ? yi0 : yb0;
   const T y1 = interior ? yi1 : yb1;
   const T lin = r::add(r::mul(g0, y0), r::mul(g1, y1));
   const T pred = -r::add(lin, r::mul(T(0.5), quad(B00, B01, B11, y0, y1)));
-  out[3 * b] = y0;
-  out[3 * b + 1] = y1;
-  out[3 * b + 2] = pred;
+  if (lane == 0) {
+    out[3 * b] = y0;
+    out[3 * b + 1] = y1;
+    out[3 * b + 2] = pred;
+  }
 }
 
 template <typename T>
@@ -189,7 +251,7 @@ int launch(const void* model, const void* radius, void* out, int B, int device, 
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (B < 1) return 0;
-  subspace_step_kernel<T><<<(B + kThreads - 1) / kThreads, kThreads, 0,
+  subspace_step_kernel<T><<<(B + kWarps - 1) / kWarps, kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(model), static_cast<const T*>(radius), static_cast<T*>(out), B);
   return static_cast<int>(cudaGetLastError());

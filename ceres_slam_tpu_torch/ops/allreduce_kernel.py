@@ -7,15 +7,18 @@ compiled loops (``ceres_slam_tpu/parallel/sharded_ba.py``,
 the card (``ops/graph_loop.py``), and ``parallel/sharded_ba.psum`` reduces
 through ``peer_all_reduce`` on the ranks of one host: one kernel
 (``csrc/peer_allreduce.cu``) in which every rank reads its peers' copies of
-the buffer through CUDA IPC mappings and sums them in rank order 0..n-1.
-So the sums are the same bits on every rank, in the host form and in the
-node form, and the collective is one kernel node a conditional body holds.
-It replaces no Pallas kernel.
+the buffer through CUDA IPC mappings (16-byte loads) and sums them in rank
+order 0..n-1, after one round of flags (two slots a rank, one a round's
+parity). So the sums are the same bits on every rank, in the host form and
+in the node form, and the collective is one kernel node a conditional body
+holds. On one rank the kernel returns at once (the sum is the buffer); the
+launch stays, one a collective. It replaces no Pallas kernel.
 
-A ``Workspace`` per process group holds this rank's slot and flags, mapped
-by every peer; it is made (a collective: the ranks swap IPC handles through
-the group) by ``reserve``, before a loop, at the largest packed buffer the
-loop reduces. Under a capture nothing is allocated or swapped: a buffer
+A ``Workspace`` per process group holds this rank's two slots and flags,
+mapped by every peer, and the grid every call on it launches (``grid_for``:
+fixed, so that every block runs every round); it is made (a collective: the
+ranks swap IPC handles through the group) by ``reserve``, before a loop, at
+the largest packed buffer the loop reduces. Under a capture nothing is allocated or swapped: a buffer
 larger than the workspace raises there. A larger reservation outside a
 capture adds a workspace and keeps the old ones, which graphs captured
 earlier still read; ``close_all`` frees them all (``multihost.shutdown``).
@@ -39,13 +42,30 @@ _fns: dict = {}
 _workspaces: dict = {}  # id(group) -> [Workspace, ...], the newest last
 _HANDLE_BYTES = 64  # sizeof(cudaIpcMemHandle_t)
 _SLOT_QUANTUM = 1 << 20
+# the kernel's launch shape (csrc/peer_allreduce.cu: kThreads, kMaxBlocks,
+# kMaxRanks) and the bytes of one load from a peer's slot
+THREADS, BLOCKS, MAX_RANKS, VECTOR_BYTES = 512, 32, 8, 16
+
+
+def grid_for(n: int) -> int:
+    """The blocks of every call on a workspace of ``n`` ranks: one where
+    the kernel returns at once (one rank), else ``BLOCKS`` (all resident on
+    an H100 together, 16,384 threads: one or two vectors a thread at a CG
+    iteration's U^T v of kitti1100)."""
+    return 1 if n == 1 else BLOCKS
+
+
+def padded_bytes(numel: int, itemsize: int) -> int:
+    """The slot bytes a buffer takes: whole 16-byte vectors, the last one
+    zero-padded."""
+    return -(-numel * itemsize // VECTOR_BYTES) * VECTOR_BYTES
 
 
 def build() -> str:
     """Compile (at first use) and load the kernel; returns the library path."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    # x, numel, bases, rank, n, slot_bytes, device, multi_device, stream
-    sig = [p, ll, p, i, i, ll, i, i, p]
+    # x, numel, bases, rank, n, slot_bytes, blocks, device, multi_device, stream
+    sig = [p, ll, p, i, i, ll, i, i, i, p]
     lib = cuda_build.load("peer_allreduce", _SOURCES, {
         "peer_allreduce_f32": sig, "peer_allreduce_f64": sig,
         # slot_bytes, n, device, base, handle
@@ -64,15 +84,20 @@ def _barrier(group) -> None:
 
 
 class Workspace:
-    """This rank's slot and flags for ``group``, and the addresses of every
-    rank's in this process (``bases``, an int64 device array). Made by every
-    rank of the group together."""
+    """This rank's two slots of ``slot_bytes`` and its flags for ``group``,
+    the addresses of every rank's in this process (``bases``, an int64
+    device array) and the grid of every call on it (``blocks``). Made by
+    every rank of the group together."""
 
     def __init__(self, group, slot_bytes: int, device: int):
         if not _fns:
             build()
         self.group, self.device, self.slot_bytes = group, device, slot_bytes
         self.rank, self.n = dist.get_rank(group), dist.get_world_size(group)
+        if self.n > MAX_RANKS:
+            raise ValueError(f"peer_all_reduce reduces over at most {MAX_RANKS} ranks of one "
+                             f"host, not {self.n}")
+        self.blocks = grid_for(self.n)
         base, handle = ctypes.c_void_p(), ctypes.create_string_buffer(_HANDLE_BYTES)
         err = _fns["create"](slot_bytes, self.n, device, ctypes.byref(base), handle)
         if err:
@@ -179,12 +204,12 @@ def peer_all_reduce(x: torch.Tensor, group) -> torch.Tensor:
         return peer_all_reduce_plain(x, group)
     if x.device.type != "cuda":
         raise ValueError(f"peer_all_reduce runs on cpu or cuda, not {x.device}")
-    ws = reserve(group, x.numel() * x.element_size(), x.device)
+    ws = reserve(group, padded_bytes(x.numel(), x.element_size()), x.device)
     dev = x.get_device()
     if ws.device != dev:
         raise ValueError(f"the buffer is on cuda:{dev}, the group's workspace on cuda:{ws.device}")
     err = _fns[x.dtype](x.data_ptr(), x.numel(), ws.bases.data_ptr(), ws.rank, ws.n,
-                        ws.slot_bytes, dev, torch.cuda.device_count() > 1,
+                        ws.slot_bytes, ws.blocks, dev, torch.cuda.device_count() > 1,
                         cuda_build.current_stream(dev))
     if err:
         raise cuda_build.launch_error(err, "peer_all_reduce")

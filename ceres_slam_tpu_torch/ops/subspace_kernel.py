@@ -9,10 +9,12 @@ operations per window. ``subspace_step_plain`` is their port as tensor
 functions over a batch of windows, in the model's dtype; written as PyTorch
 operations it is ~13 kernels per bisection step, ~830 per trust-region
 iteration inside the window loop's WHILE node. ``subspace_step`` is the
-same function as one kernel (``csrc/subspace_step.cu``): one thread per
-window, everything in registers, every operation rounded as the plain
-version's (no FMA contraction), so the two give the same bits on the card.
-This is a kernel of the port: the JAX package has no Pallas kernel for it.
+same function as one kernel (``csrc/subspace_step.cu``): one warp per
+window, the 64 bisection steps as 13 rounds in which the warp's lanes test
+the 31 nodes of the next 5 steps' tree at once, every operation rounded as
+the plain version's (no FMA contraction), so the two give the same bits on
+the card. This is a kernel of the port: the JAX package has no Pallas
+kernel for it.
 
 The model of window b is ``model[b] = (B00, B01, B11, g0, g1)`` (the
 projected Hessian and gradient) with its trust radius ``radius[b]``; the
@@ -32,12 +34,34 @@ _SOURCES = ("subspace_step.cu",)
 _fns: dict = {}
 TINY = 1e-30
 BISECTIONS = 64
+# the kernel's rounds (csrc/subspace_step.cu: kBisections, kLevels): LEVELS
+# bisection steps a round, a tree of 2**LEVELS - 1 nodes, one a lane
+LEVELS = 5
+ROUNDS = -(-BISECTIONS // LEVELS)
 
 
 def _model_value(B00, B01, B11, g0, g1, y0, y1):
     """``0.5 (B00 y0^2 + 2 B01 y0 y1 + B11 y1^2) + (g0 y0 + g1 y1)``."""
     quad = B00 * y0 * y0 + 2.0 * B01 * y0 * y1 + B11 * y1 * y1
     return 0.5 * quad + (g0 * y0 + g1 * y1)
+
+
+def too_big(mid, e1, e2, ngh1, ngh2, rr):
+    """The bisection's test at the multiplier ``mid``: ``|y(mid)|^2 > r^2``."""
+    y1 = ngh1 / torch.clamp(e1 + mid, min=TINY)
+    y2 = ngh2 / torch.clamp(e2 + mid, min=TINY)
+    return y1 * y1 + y2 * y2 > rr
+
+
+def bisect(lo, hi, e1, e2, ngh1, ngh2, rr):
+    """``BISECTIONS`` steps on the multiplier's bracket ``(lo, hi)``: ``mid =
+    0.5 (lo + hi)``, then ``lo = mid`` where ``too_big(mid)``, else ``hi =
+    mid``. Returns ``(lo, hi)``."""
+    for _ in range(BISECTIONS):
+        mid = 0.5 * (lo + hi)
+        big = too_big(mid, e1, e2, ngh1, ngh2, rr)
+        lo, hi = torch.where(big, mid, lo), torch.where(big, hi, mid)
+    return lo, hi
 
 
 def boundary_min(B00, B01, B11, g0, g1, r):
@@ -70,12 +94,7 @@ def boundary_min(B00, B01, B11, g0, g1, r):
     lo = torch.clamp(-e1, min=0.0)
     hi = torch.maximum(lo + TINY, -e1 + gnorm / torch.clamp(r, min=TINY))
     rr = r * r
-    for _ in range(BISECTIONS):
-        mid = 0.5 * (lo + hi)
-        y1 = ngh1 / torch.clamp(e1 + mid, min=TINY)
-        y2 = ngh2 / torch.clamp(e2 + mid, min=TINY)
-        too_big = y1 * y1 + y2 * y2 > rr
-        lo, hi = torch.where(too_big, mid, lo), torch.where(too_big, hi, mid)
+    lo, hi = bisect(lo, hi, e1, e2, ngh1, ngh2, rr)
     lam = 0.5 * (lo + hi)
     yh1 = ngh1 / torch.clamp(e1 + lam, min=TINY)
     yh2 = ngh2 / torch.clamp(e2 + lam, min=TINY)
@@ -128,8 +147,8 @@ def build() -> str:
     """Compile (at first use) and load the kernel; returns the library path."""
     p, i = ctypes.c_void_p, ctypes.c_int
     sig = [p, p, p, i, i, i, p]  # model, radius, out, B, device, multi_device, stream
-    lib = cuda_build.load("subspace_step", _SOURCES,
-                          {"subspace_step_f32": sig, "subspace_step_f64": sig})
+    lib = cuda_build.load("subspace_step", _SOURCES, {
+        "subspace_step_f32": sig, "subspace_step_f64": sig})
     _fns.update({torch.float32: lib.subspace_step_f32, torch.float64: lib.subspace_step_f64})
     return str(cuda_build.library_path("subspace_step", _SOURCES))
 

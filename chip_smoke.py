@@ -47,7 +47,10 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            and to the same loop on the host; S (subspace_step) at B 1, 2
            and 15 and each of its seven cases alone (interior, boundary,
            indefinite, hard case, degenerate basis, zero gradient, not
-           finite), float64 and float32, bit-equal to its plain version; and
+           finite), float64 and float32, bit-equal to its plain version,
+           with its latency bound (a window's chain counted from the
+           source at the latencies apps/probe_op_latency measures on the
+           card) and, in the profile phase, each case's device time alone; and
            the host cost of the two ways to read PyTorch's current stream
   slice    generates triangle200 and kitti1100 with the port's make_sim and
            runs both CLIs on CUDA: the flagship sliding window (dataset_vo_sun,
@@ -162,10 +165,12 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            full batch (N 124,480, J 16,640, f64) on one NCCL rank: first AR
            (the peer all-reduce, psum's route on NCCL ranks of one host)
            against its plain version at the path's sizes (a CG iteration's
-           U^T v and U y, the LM step's blocks): bit-equal, also after 3
-           replays of a captured graph and in a WHILE node run and
-           restarted, its time beside the plain version's,
-           dist.all_reduce's on the same buffer and its bound; then
+           U^T v and U y, the LM step's blocks, f64; U^T v in f32):
+           bit-equal, also after 3 replays of a captured graph and in a
+           WHILE node run and restarted; its time a call in a captured run
+           of 21 in-place calls less a run of 1 (CUDA events; the device
+           time by torch.profiler the same way) beside the plain version's
+           and dist.all_reduce's (in place, back to back) and its bound; then
            solve_ba_pcg_sharded (block-Jacobi, solve_full's configuration)
            with the LM loop in a WHILE node (the CG node nested, the
            all-reduces captured), on the host, and in the node again
@@ -1111,10 +1116,15 @@ SUBSPACE_OPS = 40 + 64 * 11 + 15 + 40
 
 def _kernel_subspace(torch, sk, results, jobs):
     """The subspace_step kernel (the 2x2 subproblem of SUBSPACE_DOGLEG, one
-    thread a window) against its plain version bit for bit, float64 and
-    float32, at B 1, 2 (the flagship's two passes) and 15 (the grid), and
-    each of the subproblem's cases alone (interior, boundary, indefinite,
-    hard case, degenerate basis, zero gradient, not finite)."""
+    warp a window, the bisection in 13 rounds) against its plain version bit
+    for bit, float64 and float32, at B 1, 2 (the flagship's two passes) and
+    15 (the grid), and each of the subproblem's cases alone (interior,
+    boundary, indefinite, hard case, degenerate basis, zero gradient, not
+    finite). Its latency bound: one window's dependent chain
+    (``apps/probe_op_latency.CHAIN``, counted from the source) at the
+    operations' latencies the probe measures on this card."""
+    from ceres_slam_tpu_torch.apps import probe_op_latency as probe
+
     cases = {}
     for dtype in (torch.float64, torch.float32):
         tag = "f64" if dtype == torch.float64 else "f32"
@@ -1131,6 +1141,21 @@ def _kernel_subspace(torch, sk, results, jobs):
         if not same:
             fail(f"subspace_step {tag} {what}: kernel differs from its plain version "
                  f"({got.tolist()} vs {plain.tolist()})")
+    names = ("interior", "boundary", "indefinite", "hard case", "degenerate basis",
+             "zero gradient", "not finite")
+    for i, name in enumerate(names):  # device time of each case alone, and of random windows
+        m, r = cases[("f64", i)]
+        jobs.append((f"S subspace_step B=1 {name} f64", lambda m=m, r=r: sk.subspace_step(m, r),
+                     None))
+    m, r = (t[7:].contiguous() for t in sk.random_models(22, torch.float64, "cuda", seed=15))
+    jobs.append(("S subspace_step B=15 random models only f64",
+                 lambda m=m, r=r: sk.subspace_step(m, r), None))
+    lat = {}
+    for tag, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        lat[tag] = probe.op_latencies(dtype)
+        log(f"[kernels] subspace_step {tag} latencies (apps/probe_op_latency, ns an operation): "
+            + ", ".join(f"{k} {lat[tag][k]:.3f}" for k in probe.CHAIN) + f"; a window's chain "
+            f"{probe.CHAIN}: latency bound {probe.latency_bound_us(lat[tag]):.3f} us")
     for B in SUBSPACE_BATCHES:
         for tag in ("f64", "f32"):
             m, r = cases[(tag, f"B={B}")]
@@ -1140,13 +1165,15 @@ def _kernel_subspace(torch, sk, results, jobs):
             host_us = _host_us(torch, lambda: sk.subspace_step(m, r))
             row = results[("S", f"B={B}", tag)] = {
                 "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                **_bound((m, r), out, SUBSPACE_OPS * B, tag), "library_ms": None}
+                **_bound((m, r), out, SUBSPACE_OPS * B, tag), "library_ms": None,
+                "latency_bound_ms": probe.latency_bound_us(lat[tag]) / 1e3}
             jobs.append((f"S subspace_step B={B} {tag}", lambda m=m, r=r: sk.subspace_step(m, r),
                          row))
             log(f"[kernels] subspace_step B={B} {tag}: kernel {ms * 1e3:.1f} us (host "
                 f"{host_us:.1f} us per call back to back), plain {plain_ms * 1e3:.1f} us, "
-                f"{_bound_str(row)}; bit-equal to its plain version, and so is each of the 7 "
-                "cases alone, in float64 and float32")
+                f"{_bound_str(row)}, latency bound {row['latency_bound_ms'] * 1e3:.3f} us; "
+                "bit-equal to its plain version, and so is each of the 7 cases alone, in "
+                "float64 and float32")
 
 
 def _p_while_times(torch, x):
@@ -2826,15 +2853,75 @@ def _profile_sharded_cg(problem, state, mesh):
     return out
 
 
+# the calls of AR's timed graph: the first lines the ranks up
+PEER_CALLS = 21
+
+
+def _peer_device_ms(call):
+    """AR's device time a call: the median of its kernel's device times over
+    PEER_CALLS eager calls of ``call`` back to back under torch.profiler, as
+    the other kernels are timed (the first call, which waits for the other
+    ranks, does not move the median). One session: every rank makes the
+    same calls, so none is retried. NaN if it recorded no AR kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PEER_CALLS):
+            call()
+        torch.cuda.synchronize()
+    times = [e.device_time_total for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "peer_allreduce" in e.name]
+    return statistics.median(times) / 1e3 if times else math.nan
+
+
+def _peer_times(group, x):
+    """AR's time a call at ``x``'s size, in place, nothing else in the timed
+    calls: graphs of 1 and of PEER_CALLS calls captured and replayed between
+    CUDA events, (t(PEER_CALLS) - t(1)) / (PEER_CALLS - 1) (the replay's
+    launch and the ranks' skew, which the first call absorbs, cancel); the
+    kernel's device time from torch.profiler over eager calls back to back
+    (``_peer_device_ms``); the plain version and ``dist.all_reduce`` (the
+    library call) in place, PEER_CALLS calls back to back between CUDA
+    events, a call's share. The values grow with every in-place sum; only
+    the times are read."""
+    import torch
+    import torch.distributed as dist
+
+    from ceres_slam_tpu_torch.ops import allreduce_kernel as ar
+    from ceres_slam_tpu_torch.ops import graph_loop
+
+    buf, pbuf, lib = x.clone(), x.clone(), x.clone()
+    graphs = {k: graph_loop.DeviceGraph(
+        lambda k=k: [ar.peer_all_reduce(buf, group) for _ in range(k)], x.get_device())
+        for k in (1, PEER_CALLS)}
+    t1, tk = _medians_ms(torch, [graphs[1].replay, graphs[PEER_CALLS].replay], reps=20)
+    for g in graphs.values():
+        g.close()
+    device_ms = _peer_device_ms(lambda: ar.peer_all_reduce(buf, group))
+
+    def calls(fn):
+        return lambda: [fn() for _ in range(PEER_CALLS)]
+
+    plain_ms, lib_ms = (t / PEER_CALLS for t in _medians_ms(torch, [
+        calls(lambda: ar.peer_all_reduce_plain(pbuf, group)),
+        calls(lambda: dist.all_reduce(lib, group=group))], reps=10))
+    return {"ms": (tk - t1) / (PEER_CALLS - 1), "device_ms": device_ms,
+            "graph1_ms": t1, "plain_ms": plain_ms, "library_ms": lib_ms}
+
+
 def _peer_check(group, sizes, timed):
     """The peer all-reduce kernel against its plain version on this rank's
-    ``group`` at the path's ``sizes`` ({name: numel}, float64, seeded per
+    ``group`` at the path's ``sizes`` ({name: (numel, dtype)}, seeded per
     rank): max |kernel - plain| (0: the same sums in the same order), the
     same bits from a second call, from 3 replays of a captured graph of 3
     in-place calls and from a 3-iteration WHILE node run twice (the second a
-    restart); with ``timed`` the median ms of the kernel, the plain version
-    and ``dist.all_reduce`` (the library call) on the same buffer, and the
-    kernel's bound. Its launches here are taken back (not the main path's)."""
+    restart); with ``timed`` its time a call (``_peer_times``) beside the
+    plain version's and ``dist.all_reduce``'s, and the kernel's bound: the
+    bytes it must move over NVLink or HBM, 0 on one rank, where the sum is
+    the buffer and the kernel returns at once (a launch and nothing more).
+    Its launches here are taken back (not the main path's)."""
     import torch
     import torch.distributed as dist
 
@@ -2843,10 +2930,11 @@ def _peer_check(group, sizes, timed):
 
     n, rank = dist.get_world_size(group), dist.get_rank(group)
     launches, out = ar.peer_all_reduce.launches, {}
-    for name, numel in sizes.items():
+    for name, (numel, dtype) in sizes.items():
         x = torch.randn(numel, generator=torch.Generator().manual_seed(7 + rank),
-                        dtype=torch.float64).cuda()
-        ar.reserve(group, numel * 8, x.device)
+                        dtype=dtype).cuda()
+        nbytes = numel * x.element_size()
+        ar.reserve(group, ar.padded_bytes(numel, x.element_size()), x.device)
 
         def plain(k, start=x):
             y = start.clone()
@@ -2878,20 +2966,18 @@ def _peer_check(group, sizes, timed):
             runs.append((node.run(), nbuf.clone()))
         node.close()
         ref3 = plain(3)
-        r = {"numel": numel, "max_abs_err": float((k1 - ref).abs().max()),
+        r = {"numel": numel, "dtype": str(dtype).split(".")[-1],
+             "max_abs_err": float((k1 - ref).abs().max()),
              "equal": bool(torch.equal(k1, ref) and torch.equal(k2, ref)),
              "graph_equal": bool(torch.equal(buf, plain(9))),
              "node_equal": all(m == 3 and torch.equal(y, ref3) for m, y in runs)}
         if timed:
-            lib = x.clone()
-            ms, plain_ms, lib_ms = _medians_ms(torch, [
-                lambda: ar.peer_all_reduce(x.clone(), group), lambda: plain(1),
-                lambda: dist.all_reduce(lib.copy_(x), group=group)], reps=30)
-            nbytes = numel * 8
-            t_hbm = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+            t_hbm = 2 * nbytes / HBM_BYTES_PER_S * 1e3 if n > 1 else 0.0
             t_link = (n - 1) * nbytes / NVLINK_BYTES_PER_S * 1e3
-            r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=max(t_hbm, t_link),
-                     bound_by="bytes", bound_what="NVLink" if t_link > t_hbm else "HBM")
+            what = ("NVLink" if t_link > t_hbm else "HBM") if n > 1 else (
+                "no bytes: one rank's sum is its buffer, the launch alone")
+            r.update(_peer_times(group, x), bound_ms=max(t_hbm, t_link), bound_by="bytes",
+                     bound_what=what, ranks=n)
         out[name] = r
     ar.peer_all_reduce.launches = launches
     return out
@@ -2951,9 +3037,15 @@ def _dist_child(group, data):
             shard = sharded_ba.shard_problem(problem, mesh)
         K, J = state.poses.shape[0], state.points.shape[0]
         if group in ("kitti1100", "triangle200"):  # a CG iteration's two, the LM step's blocks
-            times["peer"] = _peer_check(mesh.get_group(0), {"utv": J * 3, "uy": K * 6,
-                                                            "lm": K * 42 + J * 12},
-                                        timed=group == "kitti1100")
+            f64, f32 = torch.float64, torch.float32
+            sizes = {"utv": (J * 3, f64), "uy": (K * 6, f64), "lm": (K * 42 + J * 12, f64),
+                     "utv_f32": (J * 3, f32)}
+            if group == "triangle200":  # the path's sizes of kitti1100 across two ranks
+                _, Jk, Kk = FULL_SHAPES["kitti1100"]
+                sizes.update({f"kitti1100 {name}{tag}": (numel, dtype)
+                              for name, numel in (("utv", Jk * 3), ("lm", Kk * 42 + Jk * 12))
+                              for tag, dtype in (("", f64), ("_f32", f32))})
+            times["peer"] = _peer_check(mesh.get_group(0), sizes, timed=group == "kitti1100")
         if group != "kitti1100":
             H, g = sharded_ba.make_sharded_normal_eq(mesh)(shard, state)
             arrays["H"], arrays["g"] = H.cpu().numpy(), g.cpu().numpy()
@@ -3123,17 +3215,22 @@ def _log_peer(label, fig, results):
     kernels line, the CG iteration's U^T v as its shape)."""
     for name, r in fig["times"]["peer"].items():
         times = "" if "ms" not in r else (
-            f"; {r['ms'] * 1e3:.2f} us a call (CUDA events, host included), plain "
-            f"{r['plain_ms'] * 1e3:.2f} us, dist.all_reduce ({fig['backend']}) "
-            f"{r['library_ms'] * 1e3:.2f} us, {_bound_str(r)} over {r['bound_what']}")
-        log(f"[dist] peer all-reduce, {label}, {name} ({r['numel']:,} f64): max |kernel - plain| "
+            f"; {r['ms'] * 1e3:.3f} us a call in a captured run of {PEER_CALLS} (CUDA events; "
+            f"a graph of 1 call {r['graph1_ms'] * 1e3:.2f} us), device {r['device_ms'] * 1e3:.3f} "
+            f"us a call (torch.profiler, the median of {PEER_CALLS} eager calls), plain {r['plain_ms'] * 1e3:.2f} us,"
+            f" dist.all_reduce ({fig['backend']}) {r['library_ms'] * 1e3:.2f} us (in place, "
+            f"{PEER_CALLS} back to back), {_bound_str(r)}: {r['bound_what']} "
+            f"({r['ranks']} rank(s))")
+        log(f"[dist] peer all-reduce, {label}, {name} ({r['numel']:,} {r['dtype']}): "
+            f"max |kernel - plain| "
             f"{r['max_abs_err']:.3e}, bit-equal {r['equal']}, after 3 graph replays "
             f"{r['graph_equal']}, in a WHILE node run and restarted {r['node_equal']}{times}")
         if not (r["equal"] and r["graph_equal"] and r["node_equal"]):
             fail(f"dist {label}: the peer all-reduce kernel differs from its plain version ({name})")
         if "ms" in r and name == "utv":
             results[("AR", "utv", "f64")] = {k: r[k] for k in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}
 
 
 def _probe_on_cards(n):
@@ -3399,16 +3496,20 @@ KERNELS = (
     ("AR", "peer_all_reduce", "peer_allreduce.cu",
      "none: a kernel of the port; the JAX package reduces with XLA's psum inside its compiled "
      "loops (ceres_slam_tpu/parallel/sharded_pcg.py:91, sharded_ba.py:113, :159)", "utv", "f64",
-     "first form: the ranks of one host read each other's buffers through CUDA IPC, one chunk a "
-     "block, two flag rounds (ready, done) with system-scope release and acquire, the sum in "
-     "rank order (the same bits on every rank, no atomics); runs inside the sharded LM and CG "
-     "WHILE nodes; psum's route on NCCL ranks of one host"),
+     "redesigned: one flag round a call (two slots a rank, one a round's parity; a grid fixed "
+     "per workspace, every block in every round), a system-scope release per block, peers' "
+     "slots read as 16-byte vectors with all loads in flight before the first add, the sum in "
+     "rank order (the same bits on every rank, no atomics); on one rank the kernel returns at "
+     "once; runs inside the sharded LM and CG WHILE nodes; psum's route on NCCL ranks of one "
+     "host"),
     ("S", "subspace_step", "subspace_step.cu",
      "none: a kernel of the port (the JAX package runs it as jnp operations, "
      "ceres_slam_tpu/solver/dogleg.py:171 subspace_step, :83 _boundary_min)", "B=2", "f64",
-     "first form: one thread a window, the 64-step bisection in registers, every operation "
-     "rounded as the plain version's (bit-equal); runs inside the window loop's WHILE node; "
-     "latency-bound"),
+     "redesigned: one warp a window, 4 a block; the 64-step bisection in 13 rounds, the warp's "
+     "lanes testing the 31 nodes of the next 5 steps' tree at once (ballot, walk, shuffle), "
+     "every operation rounded as the plain version's (bit-equal); runs inside the window "
+     "loop's WHILE node; latency-bound (latency_bound_ms: a window's chain at the measured "
+     "latencies)"),
 )
 
 
@@ -3435,6 +3536,7 @@ def main():
         fail("torch.cuda.is_available() is false: this smoke test needs an NVIDIA GPU")
     sys.path.insert(0, ROOT)
     try:
+        from ceres_slam_tpu_torch.apps import probe_op_latency
         from ceres_slam_tpu_torch.ops import (allreduce_kernel, bilinear_kernel, double_kernel,
                                               graph_loop, schur_kernel, stereo_factor_kernel,
                                               subspace_kernel, window_kernel)
@@ -3446,7 +3548,7 @@ def main():
 
     smi = phase_device(torch)
     if "build" in phases or "kernels" in phases:
-        phase_build({**kernels, "loop": graph_loop})
+        phase_build({**kernels, "loop": graph_loop, "probe": probe_op_latency})
     launches = {name: 0 for name in kernels}
     k, jobs = {}, []
     if "kernels" in phases:

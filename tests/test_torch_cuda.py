@@ -663,6 +663,97 @@ def test_peer_all_reduce_matches_plain(tmp_path, share):
             assert n == 3 and torch.equal(y, r["plain3"]), key
 
 
+# a CG iteration's U^T v and U y of kitti1100, in turns
+PEER_ALTERNATING = (49920, 6600)
+
+
+def _peer_alternating_child(rank, world, rendezvous, outs, share):
+    """One rank: the peer all-reduce on two buffers of ``PEER_ALTERNATING``
+    sizes, in place, in turns (49,920, 6,600, 49,920, ...), float64 and
+    float32: 6 calls eagerly, 3 replays of a captured graph of 4 calls, and
+    a WHILE node of 3 calls an iteration (an odd number: the round's parity
+    flips every iteration) run for 3 iterations, then restarted; each
+    buffer against the plain version applied as often."""
+    import pickle
+
+    assert multihost.initialize(f"file://{rendezvous}", world, rank, device="cuda",
+                                timeout_s=60, local_device_ids=[0] if share else None,
+                                backend="gloo" if share else None)
+    peer, plain = allreduce_kernel.peer_all_reduce, allreduce_kernel.peer_all_reduce_plain
+    group, res = torch.distributed.group.WORLD, {}
+    try:
+        for dtype in (torch.float64, torch.float32):
+            xs = [torch.randn(numel, generator=torch.Generator().manual_seed(100 * rank + numel),
+                              dtype=dtype).cuda() for numel in PEER_ALTERNATING]
+            allreduce_kernel.reserve(group, xs[0].numel() * xs[0].element_size(), xs[0].device)
+
+            def plain_n(k):
+                out = []
+                for x, times in zip(xs, k):
+                    y = x.clone()
+                    for _ in range(times):
+                        plain(y, group)
+                    out.append(y.cpu())
+                return out
+
+            eager = [x.clone() for x in xs]
+            for k in range(6):
+                peer(eager[k % 2], group)
+            bufs = [x.clone() for x in xs]
+            g = graph_loop.DeviceGraph(lambda: [peer(bufs[k % 2], group) for k in range(4)],
+                                       xs[0].get_device())
+            for _ in range(3):
+                g.replay()
+            g.close()
+            nbufs = [x.clone() for x in xs]
+            i = torch.zeros(1, dtype=torch.int32, device="cuda")
+            pred = torch.ones(1, dtype=torch.int32, device="cuda")
+
+            def body():
+                for k in range(3):
+                    peer(nbufs[k % 2], group)
+                i.add_(1)
+                pred.copy_(i < 3)
+
+            node, runs = graph_loop.DeviceWhile(body, pred), []
+            for _ in range(2):
+                for b, x in zip(nbufs, xs):
+                    b.copy_(x)
+                i.zero_()
+                pred.fill_(1)
+                runs.append((node.run(), [b.cpu() for b in nbufs]))
+            node.close()
+            res[str(dtype)] = {"eager": [b.cpu() for b in eager], "plain_eager": plain_n((3, 3)),
+                               "graph": [b.cpu() for b in bufs], "plain_graph": plain_n((6, 6)),
+                               "node": runs, "plain_node": plain_n((6, 3))}
+    finally:
+        multihost.shutdown()
+    with open(outs[rank], "wb") as f:
+        pickle.dump(res, f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [False, True], ids=["nccl", "shared_card"])
+def test_peer_all_reduce_alternating_sizes(tmp_path, share):
+    """The peer all-reduce with calls whose sizes alternate (the two slots'
+    parity argument: one flag round a call, the grid fixed per workspace)
+    equals its plain version bit for bit on every rank, eagerly, replayed
+    in a captured graph and in a WHILE node run and restarted. On 4 or 2
+    NCCL ranks where that many cards are visible (else one: the kernel
+    returns at once), and on 2 processes sharing card 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    ranks = _spawn_ranks(_peer_alternating_child, 2 if share else _nccl_world(), tmp_path, share)
+    for key, r in ranks[0].items():
+        for other in ranks[1:]:
+            for a, b in zip(other[key]["eager"], r["eager"]):
+                assert torch.equal(a, b), key
+        for got, ref in ((r["eager"], r["plain_eager"]), (r["graph"], r["plain_graph"])):
+            assert all(torch.equal(a, b) for a, b in zip(got, ref)), key
+        for n, ys in r["node"]:
+            assert n == 3 and all(torch.equal(a, b) for a, b in zip(ys, r["plain_node"])), key
+
+
 def test_distributed_cuda_without_a_card_raises(monkeypatch):
     """``device="cuda"`` without a card raises before any process group
     starts; nothing falls back to gloo or the CPU (the card is hidden here,
@@ -1100,11 +1191,12 @@ def test_resumed_pass_is_bit_equal(tmp_path, monkeypatch):
 
 # The 2x2 subproblem of SUBSPACE_DOGLEG (ops/subspace_kernel.py): the kernel
 # equals its plain version on the card bit for bit (every operation rounded
-# as PyTorch rounds it), NaN where the model is not finite.
+# as PyTorch rounds it), NaN where the model is not finite. One warp a
+# window, 4 a block: B 1, 2, 15 and 67 leave the last block part empty.
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
-@pytest.mark.parametrize("B", [1, 2, 15, 40])
+@pytest.mark.parametrize("B", [1, 2, 15, 40, 64, 67])
 def test_subspace_kernel_matches_plain(B, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -1116,6 +1208,22 @@ def test_subspace_kernel_matches_plain(B, dtype):
     ref = subspace_kernel.subspace_step_plain(model, radius)
     assert got.shape == (B, 3) and torch.equal(torch.isnan(got), torch.isnan(ref))
     assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_op_latency_probe(dtype):
+    """The latency probe (apps/probe_op_latency.py, csrc/op_chain.cu) builds,
+    launches and gives every kind of the subspace kernel's chain a positive
+    latency; the bound is the chain at those latencies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ceres_slam_tpu_torch.apps import probe_op_latency as probe
+
+    lat = probe.op_latencies(dtype, n=1 << 12, reps=3)
+    assert set(lat) == set(probe.CHAIN) and all(v > 0 for v in lat.values()), lat
+    assert probe.latency_bound_us(lat) == pytest.approx(
+        sum(n * lat[k] for k, n in probe.CHAIN.items()) / 1e3)
 
 
 # The window trust-region loops in a conditional WHILE node
