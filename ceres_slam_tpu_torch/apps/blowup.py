@@ -177,7 +177,7 @@ def run(num_poses: int = 1000, verbose: bool = True, device="cuda",
 
 
 def main(argv=None):
-    from ceres_slam_tpu_torch.apps.common import base_parser, resolve_device
+    from ceres_slam_tpu_torch.apps.common import base_parser, resolve_device, traced
 
     p = base_parser("blowup: covariance propagation experiment")
     p.add_argument("--num-poses", type=int, default=1000)
@@ -185,7 +185,9 @@ def main(argv=None):
                    help="the chain as a WHILE node on the card, each step's LM loop nested in "
                         "it (the default there), or on the host (the CPU's form)")
     args = p.parse_args(argv)
-    return run(args.num_poses, device=resolve_device(args.device), chain_loop=args.chain_loop)
+    with traced(args):
+        return run(args.num_poses, device=resolve_device(args.device),
+                   chain_loop=args.chain_loop)
 
 
 if __name__ == "__main__":

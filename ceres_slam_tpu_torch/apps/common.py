@@ -3,6 +3,8 @@
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
 
 import torch
@@ -21,7 +23,20 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     p.add_argument("--report", default="none", choices=["none", "brief", "full"],
                    help="per-window solver report (Ceres Brief/FullReport equivalent; "
                         "full records the per-iteration history)")
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="record the program's spans and write them (spans.json) into DIR; "
+                        "no profiler runs, since WHILE nodes captured under it can fault")
     return p
+
+
+def traced(args):
+    """The context an app runs in: under ``--trace DIR``, the program's
+    spans recorded (``telemetry.record``) into ``DIR/spans.json``; else
+    nothing."""
+    if not args.trace:
+        return contextlib.nullcontext()
+    os.makedirs(args.trace, exist_ok=True)
+    return telemetry.record(os.path.join(args.trace, "spans.json"))
 
 
 def resolve_device(name: str) -> torch.device:

@@ -50,6 +50,14 @@ def main(argv=None):
     """Run the app; returns the run's walls, per-stage figures and outputs."""
     args = build_parser().parse_args(argv)
     from ceres_slam_tpu_torch.apps import common
+
+    with common.traced(args):
+        return _run(args)
+
+
+def _run(args):
+    """``main`` on its parsed ``args``."""
+    from ceres_slam_tpu_torch.apps import common
     from ceres_slam_tpu_torch.problems.dataset_phong import DatasetProblemPhong
     from ceres_slam_tpu_torch.solver import lm, phong
 

@@ -59,6 +59,14 @@ def main(argv=None) -> dict:
     """Run the app; returns the run's phase walls, iteration counts and outputs."""
     args = build_parser().parse_args(argv)
     from ceres_slam_tpu_torch.apps import common
+
+    with common.traced(args):
+        return _run(args)
+
+
+def _run(args) -> dict:
+    """``main`` on its parsed ``args``."""
+    from ceres_slam_tpu_torch.apps import common
     from ceres_slam_tpu_torch.problems.dataset import DatasetProblem
     from ceres_slam_tpu_torch.solver.lm import SolveConfig
 

@@ -133,6 +133,14 @@ def main(argv=None) -> dict:
     p = build_parser()
     args = p.parse_args(argv)
     from ceres_slam_tpu_torch.apps import common
+
+    with common.traced(args):
+        return _run(args, p)
+
+
+def _run(args, p) -> dict:
+    """``main`` on its parsed ``args`` (``p``: the parser, for its errors)."""
+    from ceres_slam_tpu_torch.apps import common
     from ceres_slam_tpu_torch.problems import batch_scan
     from ceres_slam_tpu_torch.utils import csvio
 

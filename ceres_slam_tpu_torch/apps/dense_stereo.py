@@ -360,6 +360,14 @@ def main(argv=None) -> dict:
     args = p.parse_args(argv)
     if args.pairs < 1 or (args.images and args.pairs != 1):
         p.error("--pairs takes N >= 1 synthetic pairs (not with --images)")
+    with common.traced(args):
+        return _run(args)
+
+
+def _run(args) -> dict:
+    """``main`` on its parsed ``args``."""
+    from ceres_slam_tpu_torch.apps import common
+
     loops = dict(lm_loop=args.lm_loop, match_loop=args.match_loop)
     device = common.resolve_device(args.device)
 

@@ -119,6 +119,14 @@ def build_parser():
 def main(argv=None) -> dict:
     """Run the app; returns the run's counts and walls."""
     args = build_parser().parse_args(argv)
+    from ceres_slam_tpu_torch.apps import common
+
+    with common.traced(args):
+        return _run(args)
+
+
+def _run(args) -> dict:
+    """``main`` on its parsed ``args``."""
     from ceres_slam_tpu_torch.apps.common import resolve_device
     from ceres_slam_tpu_torch.frontend.stereo_vo import FRAME_STATS, OnlineStereoVO
     from ceres_slam_tpu_torch.models.stereo_camera import StereoCamera

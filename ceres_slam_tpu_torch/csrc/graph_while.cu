@@ -15,20 +15,28 @@
 // The graph built here, for segments s_0 .. s_{n-1}, each a plain segment
 // or an inner loop with its own predicate:
 //
-//   enter (kernel: counts = 0; condition = pred != 0)
+//   enter (kernel: counts = 0; ns = 0; stamp the start; condition = pred != 0)
 //     -> WHILE node [ s_0 -> s_1 -> ... -> s_{n-1}
-//                     -> next (kernel: counts[0] += 1; condition = pred != 0) ]
+//                     -> next (kernel: counts[0] += 1; condition = pred != 0;
+//                              once it is 0, ns[0] += now - start) ]
 //
 // where a plain segment is a child graph node (the capture) and an inner
 // loop k is
 //
-//   enter_inner (kernel: condition_k = pred_k != 0)
+//   enter_inner (kernel: stamp inner loop k's start; condition_k = pred_k != 0)
 //     -> WHILE node [ child graph (the capture)
 //                     -> next_inner (kernel: counts[1 + k] += 1;
-//                                    condition_k = pred_k != 0) ]
+//                                    condition_k = pred_k != 0; once it is 0,
+//                                    ns[1 + k] += now - inner start) ]
 //
 // so every loop may run zero times, as lax.while_loop may, and counts[1 +
-// k] sums inner loop k's iterations over the whole run. A segment that holds
+// k] sums inner loop k's iterations over the whole run. The device timers
+// ride in those kernels (no node of their own): ns[0] is the node's
+// nanoseconds on the device's global timer (%globaltimer), from its entry
+// to its last test, and ns[1 + k] inner loop k's, from each entry to its
+// last test, summed over the run; a loop that runs zero times adds nothing.
+// ns holds 2 * num_counts int64: the sums, then each loop's start stamp
+// (the outer loop's, then inner loop k's at num_counts + 1 + k). A segment that holds
 // a node type a conditional body cannot hold (a host node, an event record
 // or wait: what a library may add to a capture) is refused, naming the
 // segment and the type, before anything is built; graph_node_types lists a
@@ -38,7 +46,8 @@
 //
 // What bounds it on an H100: the graph launch (one host call for the whole
 // loop) and, per iteration, the bodies' own kernels plus the conditionals'
-// re-launch of their bodies on the device; the small kernels move 8 bytes.
+// re-launch of their bodies on the device; the small kernels move a few
+// bytes and read the global timer.
 // Conditional nodes need CUDA 12.3 or newer, in the toolkit and the driver;
 // a conditional node inside a conditional body (the nested loop) is listed
 // among the node types a body may hold in CUDA 12.9's headers
@@ -53,17 +62,36 @@
 
 namespace {
 
+__device__ __forceinline__ long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return static_cast<long long>(t);
+}
+
 __global__ void loop_enter(cudaGraphConditionalHandle handle, const int* pred, int* counts,
-                           int num_counts) {
-  for (int i = 0; i < num_counts; ++i) counts[i] = 0;
+                           long long* ns, int num_counts) {
+  for (int i = 0; i < num_counts; ++i) {
+    counts[i] = 0;
+    ns[i] = 0;
+  }
+  ns[num_counts] = global_ns();
   cudaGraphSetConditional(handle, *pred != 0);
 }
 
-// The condition of a loop from its predicate; with a count, the count of
-// the iteration that just ran first.
-__global__ void loop_test(cudaGraphConditionalHandle handle, const int* pred, int* count) {
-  if (count) *count += 1;
-  cudaGraphSetConditional(handle, *pred != 0);
+// The condition of a loop from its predicate. With a count (a loop's test
+// after an iteration): the count of the iteration that just ran first, and
+// once the predicate is 0, the time since the loop's start stamp (*start)
+// added to *ns. Without one (an inner loop's entry): the start stamped.
+__global__ void loop_test(cudaGraphConditionalHandle handle, const int* pred, int* count,
+                          long long* start, long long* ns) {
+  const bool go = *pred != 0;
+  if (count) {
+    *count += 1;
+    if (!go) *ns += global_ns() - *start;
+  } else {
+    *start = global_ns();
+  }
+  cudaGraphSetConditional(handle, go);
 }
 
 struct Loop {
@@ -100,10 +128,11 @@ cudaError_t add_while(cudaGraphNode_t* node, cudaGraph_t graph, const cudaGraphN
   return err;
 }
 
-// `loop_test(handle, pred, count)` as a kernel node after `dep`.
+// `loop_test(handle, pred, count, start, ns)` as a kernel node after `dep`.
 cudaError_t add_test(cudaGraphNode_t* node, cudaGraph_t graph, const cudaGraphNode_t* dep,
-                     cudaGraphConditionalHandle handle, const int* pred, int* count) {
-  void* args[] = {&handle, &pred, &count};  // copied into the node when it is added
+                     cudaGraphConditionalHandle handle, const int* pred, int* count,
+                     long long* start, long long* ns) {
+  void* args[] = {&handle, &pred, &count, &start, &ns};  // copied into the node
   return add_kernel(node, graph, dep, dep ? 1 : 0, reinterpret_cast<void*>(loop_test), args);
 }
 
@@ -167,11 +196,11 @@ cudaError_t refused_type(cudaGraph_t graph, int* type) {
 
 // The loop around segments[0..n): preds[i] null for a plain segment, else
 // the predicate of inner loop k (k counts the inner loops in order), whose
-// iterations go to counts[1 + k]. A segment holding a node type a
-// conditional body cannot hold is refused (cudaErrorNotSupported), its
-// index and that type in refused[0..2).
+// iterations go to counts[1 + k] and its nanoseconds to ns[1 + k]. A
+// segment holding a node type a conditional body cannot hold is refused
+// (cudaErrorNotSupported), its index and that type in refused[0..2).
 cudaError_t build(Loop* loop, cudaGraph_t* segments, const int* const* preds, int n,
-                  const int* pred, int* counts, int num_counts, int* refused) {
+                  const int* pred, int* counts, long long* ns, int num_counts, int* refused) {
   for (int i = 0; i < n; ++i) {
     int type;
     CHECK(refused_type(segments[i], &type));
@@ -184,7 +213,7 @@ cudaError_t build(Loop* loop, cudaGraph_t* segments, const int* const* preds, in
   CHECK(cudaGraphCreate(&loop->graph, 0));
   cudaGraphConditionalHandle handle;
   CHECK(cudaGraphConditionalHandleCreate(&handle, loop->graph, 0, 0));
-  void* args[] = {&handle, &pred, &counts, &num_counts};
+  void* args[] = {&handle, &pred, &counts, &ns, &num_counts};
   cudaGraphNode_t enter, cond;
   CHECK(add_kernel(&enter, loop->graph, nullptr, 0, reinterpret_cast<void*>(loop_enter), args));
   cudaGraph_t body;
@@ -203,16 +232,18 @@ cudaError_t build(Loop* loop, cudaGraph_t* segments, const int* const* preds, in
     cudaGraphConditionalHandle inner;
     CHECK(cudaGraphConditionalHandleCreate(&inner, body, 0, 0));
     cudaGraphNode_t inner_enter, child, inner_next;
-    CHECK(add_test(&inner_enter, body, deps, inner, preds[i], nullptr));
+    long long* start = ns + num_counts + 1 + k;
+    CHECK(add_test(&inner_enter, body, deps, inner, preds[i], nullptr, start, nullptr));
     cudaGraph_t inner_body;
     CHECK(add_while(&prev, body, &inner_enter, inner, &inner_body));
     CHECK(cudaGraphAddChildGraphNode(&child, inner_body, nullptr, 0, segments[i]));
-    CHECK(add_test(&inner_next, inner_body, &child, inner, preds[i], counts + 1 + k));
+    CHECK(add_test(&inner_next, inner_body, &child, inner, preds[i], counts + 1 + k, start,
+                   ns + 1 + k));
     ++k;
   }
   const cudaGraphNode_t dep = prev;
   cudaGraphNode_t next;
-  CHECK(add_test(&next, body, dep ? &dep : nullptr, handle, pred, counts));
+  CHECK(add_test(&next, body, dep ? &dep : nullptr, handle, pred, counts, ns + num_counts, ns));
   return cudaGraphInstantiate(&loop->exec, loop->graph, 0);
 }
 
@@ -235,17 +266,19 @@ extern "C" int graph_while_versions(int* runtime, int* driver) {
 // Builds and instantiates the loop around the body segments[0..n) (each a
 // cudaGraph_t, cloned into the loop); preds[i]: null for a plain segment,
 // else the int32 predicate of an inner loop whose body is segments[i];
-// pred: the loop's predicate; counts: 1 + (number of inner loops) int32,
-// all on `device`. The loop runs the body while *pred != 0, checked
-// before every iteration, and leaves its iterations in counts[0] and
-// inner loop k's, summed over the run, in counts[1 + k]. Writes the loop's
+// pred: the loop's predicate; counts: num_counts = 1 + (number of inner
+// loops) int32; ns: 2 * num_counts int64; all on `device`. The loop runs
+// the body while *pred != 0, checked before every iteration, and leaves its
+// iterations in counts[0] and inner loop k's, summed over the run, in
+// counts[1 + k]; their device nanoseconds likewise in ns[0] and ns[1 + k]
+// (ns[num_counts..] holds the start stamps). Writes the loop's
 // handle to *out; returns a CUDA error code (nothing is left allocated on
 // error). A segment that holds a node a conditional body cannot hold (a host
 // node, an event record or wait, ...) is refused with cudaErrorNotSupported,
 // its index and the node's cudaGraphNodeType in refused[0] and refused[1].
 extern "C" int graph_while_create(void** segments, void** preds, int n, const void* pred,
-                                  void* counts, int num_counts, int device, int multi_device,
-                                  int* refused, void** out) {
+                                  void* counts, void* ns, int num_counts, int device,
+                                  int multi_device, int* refused, void** out) {
   *out = nullptr;
   refused[0] = refused[1] = -1;
   if (multi_device) {
@@ -256,7 +289,7 @@ extern "C" int graph_while_create(void** segments, void** preds, int n, const vo
   const cudaError_t err = build(loop, reinterpret_cast<cudaGraph_t*>(segments),
                                 reinterpret_cast<const int* const*>(preds), n,
                                 static_cast<const int*>(pred), static_cast<int*>(counts),
-                                num_counts, refused);
+                                static_cast<long long*>(ns), num_counts, refused);
   if (err != cudaSuccess) {
     destroy(loop);
     return static_cast<int>(err);

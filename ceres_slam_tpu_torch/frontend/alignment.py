@@ -31,6 +31,7 @@ import torch
 
 from ceres_slam_tpu_torch.models.stereo_camera import StereoCamera
 from ceres_slam_tpu_torch.ops import lie, prng
+from ceres_slam_tpu_torch.utils import telemetry
 
 
 def umeyama_moments(pts_0: torch.Tensor, pts_1: torch.Tensor):
@@ -102,7 +103,8 @@ def draw_jax_hypotheses(valid: torch.Tensor, num_iters: int, seeds: torch.Tensor
     three of those bits are the same picks."""
     if keys is None:
         keys = prng.prng_key(seeds.reshape(-1))
-    bits = prng.key_bits32(keys.to(valid.device), (num_iters, valid.shape[-1])) >> 9
+    bits = prng.key_bits32(telemetry.to_device(keys, valid.device),
+                           (num_iters, valid.shape[-1])) >> 9
     return _top3(bits, valid)
 
 

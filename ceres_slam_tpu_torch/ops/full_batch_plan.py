@@ -26,6 +26,7 @@ import torch
 
 from ceres_slam_tpu_torch.models.stereo_camera import StereoCamera
 from ceres_slam_tpu_torch.ops import lie
+from ceres_slam_tpu_torch.utils import telemetry
 
 REC = 12  # K2's record per observation, in pose order: uvd (3) | stiffness row-major (9)
 GROUP_SLOTS = 128  # K3's landmark groups: whole landmarks, at most this many slots...
@@ -143,22 +144,22 @@ def make_plan(camera: StereoCamera, K: int, J: int, pose_idx, point_idx, uvd, st
     groups = _landmark_groups(pt_start)
     G = groups.size - 1
 
-    ints = torch.as_tensor(np.concatenate([
+    ints = telemetry.to_device(np.concatenate([
         pt_start, order_l, pose_idx[order_l], rank_p[order_l], groups, ps_start, order_p,
-        point_idx[order_p]]), dtype=torch.int32).to(device)
+        point_idx[order_p]]), device, torch.int32)
     pt_start_t, pt_obs, pt_pose, pt_q, groups_t, ps_start_t, ps_obs, ps_point = ints.split(
         [J + 1, N, N, N, G + 1, K + 1, N, N])
-    flags = torch.as_tensor(np.concatenate([valid, valid[order_p], contig, arrays["free_pose"],
-                                            arrays["point_valid"]])).to(device)
+    flags = telemetry.to_device(np.concatenate([valid, valid[order_p], contig,
+                                                arrays["free_pose"], arrays["point_valid"]]),
+                                device)
     valid_t, ps_valid, ps_contig, free_t, pv_t = flags.split([N, N, K, K, J])
-    floats = torch.as_tensor(np.concatenate([rec.reshape(-1), arrays["uvd"].reshape(-1),
-                                             arrays["stiffness"].reshape(-1)]),
-                             dtype=dtype).to(device)
+    floats = telemetry.to_device(np.concatenate([rec.reshape(-1), arrays["uvd"].reshape(-1),
+                                                 arrays["stiffness"].reshape(-1)]), device, dtype)
     rec_t, uvd_t, stiff_t = floats.split([N * REC, 3 * N, 9 * N])
     # rec and hg lead their buffers: the kernels move them in 16-byte words
     scratch = torch.empty(N * REC + J * 4, dtype=dtype, device=device)
     hg, y = scratch.split([N * REC, J * 4])
-    idx = torch.as_tensor(np.stack([pose_idx, point_idx])).to(device)
+    idx = telemetry.to_device(np.stack([pose_idx, point_idx]), device)
 
     args = None
     if device.type == "cuda":

@@ -53,6 +53,13 @@ naming the segment and the type (``csrc/graph_while.cu``), and
 ``node_types`` lists a captured graph's node types. ``CAPTURE_ERROR_MODE``
 is the captures' ``capture_error_mode`` (PyTorch's default ``"global"``).
 
+Device timers: the loop's condition kernels also stamp the device's
+global timer, so a run leaves the node's device nanoseconds (entry to its
+last test) and each inner loop's (summed over the run) in ``ns``, beside
+the iteration counts in ``count``; the host reads both in the one copy it
+makes after the loop (``readings``), and ``add_counts`` keeps them as
+``device_ns``. The stamps add no kernel and no node.
+
 Conditional nodes need CUDA 12.3 or newer in the toolkit, the driver and
 PyTorch's runtime, and a loop nested in another 12.4 or newer (CUDA 12.9's
 headers list conditional nodes among those a conditional body may hold);
@@ -110,8 +117,9 @@ def build() -> str:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib = cuda_build.load("graph_while", _SOURCES, {
         "graph_while_versions": [ctypes.POINTER(i), ctypes.POINTER(i)],
-        # segments, their preds, n, pred, counts, num_counts, device, multi_device, refused, out
-        "graph_while_create": [p, p, i, p, p, i, i, i, ctypes.POINTER(i), ctypes.POINTER(p)],
+        # segments, their preds, n, pred, counts, ns, num_counts, device, multi_device,
+        # refused, out
+        "graph_while_create": [p, p, i, p, p, p, i, i, i, ctypes.POINTER(i), ctypes.POINTER(p)],
         "graph_while_launch": [p, p],  # loop, stream
         "graph_while_destroy": [p],
         # graph, types, max, count
@@ -274,7 +282,7 @@ class DeviceWhile:
         self._handle = self._graph = None
         # [(PyTorch's capture, the inner loop's pred or None, its CapturedCounts or None)]
         self.segments: list = []
-        self.inner_iterations: list = []
+        self.iterations, self.inner_iterations, self.device_ns = 0, [], []
         counts = CapturedCounts(counted)
         t0 = time.perf_counter()
         self._pool = _pool(self.device)
@@ -293,6 +301,8 @@ class DeviceWhile:
         self.counts = counts
         inner = [(p, c) for _, p, c in self.segments if p is not None]
         self.count = torch.zeros(1 + len(inner), dtype=torch.int32, device=pred.device)
+        # the loops' device nanoseconds, then their start stamps (loop kernels alone write it)
+        self.ns = torch.zeros(2 * self.count.numel(), dtype=torch.int64, device=pred.device)
         t1 = time.perf_counter()
         n = len(self.segments)
         graphs = (ctypes.c_void_p * n)(*(g.raw_cuda_graph() for g, _, _ in self.segments))
@@ -300,8 +310,8 @@ class DeviceWhile:
                                         for _, p, _ in self.segments))
         handle, refused = ctypes.c_void_p(), (ctypes.c_int * 2)()
         err = _fns["create"](graphs, preds, n, pred.data_ptr(), self.count.data_ptr(),
-                             self.count.numel(), self.device, torch.cuda.device_count() > 1,
-                             refused, ctypes.byref(handle))
+                             self.ns.data_ptr(), self.count.numel(), self.device,
+                             torch.cuda.device_count() > 1, refused, ctypes.byref(handle))
         if err and refused[0] >= 0:
             raise RuntimeError(
                 f"graph_while_create: captured segment {refused[0]} of {n} holds a "
@@ -356,25 +366,36 @@ class DeviceWhile:
         if err:
             raise cuda_build.launch_error(err, "graph_while_launch")
 
+    def readings(self) -> list:
+        """What a run leaves for the host, to read in one copy
+        (``torch.cat`` them with whatever else it reads): ``count`` and the
+        loops' device nanoseconds."""
+        return [self.count, self.ns[:self.count.numel()]]
+
     def add_counts(self, counts) -> None:
-        """Give each counted wrapper its counts for a run whose ``count``
-        the host read as ``counts``: the loop's iterations, then each inner
-        loop's, summed over the run."""
+        """Give each counted wrapper its counts for a run whose
+        ``readings`` the host read as ``counts``: the loop's iterations, then
+        each inner loop's, summed over the run, then the same loops' device
+        nanoseconds (kept as ``device_ns``)."""
         counts = [int(c) for c in counts]
+        k = self.count.numel()
+        if len(counts) != 2 * k:
+            raise ValueError(f"expected {2 * k} readings (counts, then device ns), got "
+                             f"{len(counts)}")
         self.counts.add(counts[0])
         inner = [c for _, p, c in self.segments if p is not None]
-        for c, n in zip(inner, counts[1:]):
+        for c, n in zip(inner, counts[1:k]):
             c.add(n)
-        self.inner_iterations = counts[1:]
+        self.iterations, self.inner_iterations, self.device_ns = counts[0], counts[1:k], counts[k:]
 
     def run(self) -> int:
         """Run the loop and return its iterations, read once on the host
-        after the loop (with the inner loops' in ``inner_iterations``);
-        each counted wrapper gets its counts."""
+        after the loop (with the inner loops' in ``inner_iterations`` and
+        the device nanoseconds in ``device_ns``); each counted wrapper gets
+        its counts."""
         self.launch()
-        counts = self.count.tolist()
-        self.add_counts(counts)
-        return counts[0]
+        self.add_counts(torch.cat(self.readings()).tolist())
+        return self.iterations
 
     def close(self) -> None:
         """Free the executable graph and PyTorch's captures (their blocks go

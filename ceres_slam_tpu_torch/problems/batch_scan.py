@@ -41,6 +41,7 @@ import torch
 from ceres_slam_tpu_torch.solver import lm
 from ceres_slam_tpu_torch.solver import window as window_mod
 from ceres_slam_tpu_torch.utils import se3np
+from ceres_slam_tpu_torch.utils import telemetry
 
 
 class RunSpec(NamedTuple):
@@ -154,45 +155,51 @@ class BatchSolve:
         """Window ``k1`` of every chain that has one: the VO initial guess,
         then the windows solved together (the RANSAC-degenerate ones take the
         sequential pass's fallback), their covariance of pose 1 the next
-        prior. Returns the number of windows solved."""
-        k2, K, J = k1 + self.window, self.window, self.J
-        solve = []
-        for c in self.chains:
-            if k1 >= c.num_windows:
-                continue
-            if c.ds.compute_initial_guess(k1, k2):
-                solve.append(c)
-                continue
-            c.ds.poses[k2 - 1] = c.ds.poses[k1]  # RANSAC degeneracy fallback
-            c.ds.pose_covars[k2 - 1] = c.ds.pose_covars[k1]
-            c.ok.append(False)
-            c.ds.reset_points()
-        if not solve:
-            return 0
-        hosts = self._hosts(solve, k1)
-        layout, state = window_mod.build_batch_layout(
-            [h for h, _ in hosts], self._per_window(solve, [s for _, s in hosts], k1),
-            self.dtype, self.device)
-        sol, stats, cov = window_mod.solve_batch_with_covariance(
-            layout, state, 1, self.config, self.strategy, self.loop, self.graph)
-        f64 = torch.float64
-        out = torch.cat([sol.poses.flatten(1).to(f64), sol.points.flatten(1).to(f64),
-                         cov.flatten(1).to(f64), stats], dim=1).cpu().numpy()  # the one read
-        n = K * 12 + J * 3 + 36
-        summaries = window_mod.summaries(out[:, n:], self.config)
-        for c, (_, slots), row, summary in zip(solve, hosts, out, summaries):
-            ds = c.ds
-            ds.poses[k1:k2] = row[: K * 12].reshape(K, 12)
-            pts = row[K * 12: K * 12 + J * 3].reshape(J, 3)[: slots.size]
-            upd = ds.initialized_point[slots]
-            ds.map_points[slots[upd]] = pts[upd]
-            cv = row[K * 12 + J * 3: n].reshape(6, 6)
-            # covariance failure fallback: the previous window's
-            ds.pose_covars[k1 + 1] = cv if np.all(np.isfinite(cv)) else ds.pose_covars[k1]
-            c.summaries.append(summary)
-            c.ok.append(True)
-            ds.reset_points()
-        return len(solve)
+        prior. Returns the number of windows solved. A span ``window.step``
+        holds its phases' spans."""
+        with telemetry.span("window.step", k1=k1):
+            k2, K, J = k1 + self.window, self.window, self.J
+            solve = []
+            with telemetry.span("window.initial_guess"):
+                for c in self.chains:
+                    if k1 >= c.num_windows:
+                        continue
+                    if c.ds.compute_initial_guess(k1, k2):
+                        solve.append(c)
+                        continue
+                    c.ds.poses[k2 - 1] = c.ds.poses[k1]  # RANSAC degeneracy fallback
+                    c.ds.pose_covars[k2 - 1] = c.ds.pose_covars[k1]
+                    c.ok.append(False)
+                    c.ds.reset_points()
+            if not solve:
+                return 0
+            with telemetry.span("window.layout"):  # the host's tables and the one upload
+                hosts = self._hosts(solve, k1)
+                layout, state = window_mod.build_batch_layout(
+                    [h for h, _ in hosts], self._per_window(solve, [s for _, s in hosts], k1),
+                    self.dtype, self.device)
+            sol, stats, cov = window_mod.solve_batch_with_covariance(
+                layout, state, 1, self.config, self.strategy, self.loop, self.graph)
+            f64 = torch.float64
+            with telemetry.span("window.read"):  # the one read
+                out = torch.cat([sol.poses.flatten(1).to(f64), sol.points.flatten(1).to(f64),
+                                 cov.flatten(1).to(f64), stats], dim=1).cpu().numpy()
+            n = K * 12 + J * 3 + 36
+            with telemetry.span("window.absorb"):
+                summaries = window_mod.summaries(out[:, n:], self.config)
+                for c, (_, slots), row, summary in zip(solve, hosts, out, summaries):
+                    ds = c.ds
+                    ds.poses[k1:k2] = row[: K * 12].reshape(K, 12)
+                    pts = row[K * 12: K * 12 + J * 3].reshape(J, 3)[: slots.size]
+                    upd = ds.initialized_point[slots]
+                    ds.map_points[slots[upd]] = pts[upd]
+                    cv = row[K * 12 + J * 3: n].reshape(6, 6)
+                    # covariance failure fallback: the previous window's
+                    ds.pose_covars[k1 + 1] = cv if np.all(np.isfinite(cv)) else ds.pose_covars[k1]
+                    c.summaries.append(summary)
+                    c.ok.append(True)
+                    ds.reset_points()
+            return len(solve)
 
     def results(self) -> list:
         return [BatchResult(c.ds.poses, c.ds.pose_covars, c.summaries, np.asarray(c.ok, bool))

@@ -31,6 +31,7 @@ from ceres_slam_tpu_torch.solver import window as window_mod
 from ceres_slam_tpu_torch.utils import checkpoint as ckpt_mod
 from ceres_slam_tpu_torch.utils import csvio, se3np
 from ceres_slam_tpu_torch.utils import device as device_mod
+from ceres_slam_tpu_torch.utils import telemetry
 
 
 def run_batched_ransac(camera, pts0, pts1, valid, hyp_idx, ransac_thresh: float, device):
@@ -39,7 +40,7 @@ def run_batched_ransac(camera, pts0, pts1, valid, hyp_idx, ransac_thresh: float,
     ``hyp_idx [K, H, 3]`` the hypotheses. Returns numpy
     ``(T [K, 12], inliers [K, P], num_inliers [K])``."""
     def put(x):
-        return torch.as_tensor(x).to(device)
+        return telemetry.to_device(x, device)
 
     res = alignment.ransac_align(camera, put(pts0), put(pts1), put(valid), put(hyp_idx),
                                  thresh=ransac_thresh)
@@ -179,7 +180,7 @@ class DatasetProblem:
         """``[K, H, 3]`` hypothesis indices on ``device``: drawn from
         ``generator`` if given, else the JAX package's draw (pair k under
         seed ``rng_seed + k``), which reproduces the JAX trajectories."""
-        valid = torch.as_tensor(valid).to(self._device)
+        valid = telemetry.to_device(valid, self._device)
         if generator is not None:
             return alignment.draw_hypotheses(valid, self.ransac_iters, generator)
         seeds = self.rng_seed + torch.arange(self.num_states)
@@ -311,8 +312,8 @@ class DatasetProblem:
         pts = np.zeros((n_pts_pad, 3))
         pts[:n_pts] = self.map_points[slots]
         device = self._device if device is None else device
-        state = dense.BAState(poses=t(self.poses[k1:k2], dtype=dt).to(device),
-                              points=t(pts, dtype=dt).to(device))
+        state = dense.BAState(poses=telemetry.to_device(self.poses[k1:k2], device, dt),
+                              points=telemetry.to_device(pts, device, dt))
         return problem, state, slots
 
     def absorb_window_solution(self, k1, k2, state: dense.BAState, slots: np.ndarray):

@@ -34,6 +34,7 @@ from ceres_slam_tpu_torch.solver import lm as lm_mod
 from ceres_slam_tpu_torch.solver import phong as phong_mod
 from ceres_slam_tpu_torch.utils import csvio, se3np
 from ceres_slam_tpu_torch.utils import device as device_mod
+from ceres_slam_tpu_torch.utils import telemetry
 
 
 @dataclasses.dataclass
@@ -168,44 +169,46 @@ class DatasetProblemPhong:
             pts0[k, :n] = self._pts_c[idx_a]
             pts1[k, :n] = self._pts_c[idx_b]
             valid[k, :n] = True
-        hyp_idx = alignment.draw_jax_hypotheses(
-            torch.as_tensor(valid).to(self._device), self.ransac_iters,
-            self.rng_seed + torch.arange(K))
-        self._pair_T, self._pair_inliers, _ = run_batched_ransac(
-            self.camera, pts0, pts1, valid, hyp_idx, self.ransac_thresh, self._device)
+        with telemetry.span("phong.ransac"):
+            hyp_idx = alignment.draw_jax_hypotheses(
+                telemetry.to_device(valid, self._device), self.ransac_iters,
+                self.rng_seed + torch.arange(K))
+            self._pair_T, self._pair_inliers, _ = run_batched_ransac(
+                self.camera, pts0, pts1, valid, hyp_idx, self.ransac_thresh, self._device)
 
     def compute_initial_guess(self, k1: int = 0, k2: int = 0):
         """Materials (Phong (0, 0, 1), texture = the median observed
         intensity of the material), then the pair alignments chained over
         ``[k1, k2)``, initializing the inlier vertices' positions and
         normals; a pair with fewer than 3 matches carries the previous pose."""
-        if k1 >= k2:
-            k1, k2 = 0, self.num_states
-        self.precompute_pair_alignments()
-        for m in range(self.num_materials):
-            self.materials[m] = [0.0, 0.0, 1.0]
-            ints = self.int_list[self.obs_indices_for_material(m)]
-            if ints.size:
-                half = ints.size // 2
-                self.textures[m] = np.partition(ints, half)[half]
-        for k in range(k1 + 1, k2):
-            idx_a, _ = self._pair_match(k)
-            n = idx_a.size
-            if n < 3:
-                self.poses[k] = self.poses[k - 1]
-                continue
-            self.poses[k] = se3np.compose(self._pair_T[k], self.poses[k - 1])
-            inl = self._pair_inliers[k, :n]
-            jj = self.vertex_ids[idx_a[inl]]
-            new = ~self.initialized_vertex[jj]
-            if np.any(new):
-                T_inv = se3np.inverse(self.poses[k - 1])
-                p_g = se3np.transform_point(T_inv, self._pts_c[idx_a[inl]])
-                n_g = se3np.transform_vector(T_inv, self.normal_obs_list[idx_a[inl]])
-                self.vertex_positions[jj[new]] = p_g[new]
-                norms = np.linalg.norm(n_g[new], axis=-1, keepdims=True)
-                self.vertex_normals[jj[new]] = n_g[new] / np.maximum(norms, 1e-12)
-                self.initialized_vertex[jj[new]] = True
+        with telemetry.span("phong.initial_guess", k1=k1, k2=k2):
+            if k1 >= k2:
+                k1, k2 = 0, self.num_states
+            self.precompute_pair_alignments()
+            for m in range(self.num_materials):
+                self.materials[m] = [0.0, 0.0, 1.0]
+                ints = self.int_list[self.obs_indices_for_material(m)]
+                if ints.size:
+                    half = ints.size // 2
+                    self.textures[m] = np.partition(ints, half)[half]
+            for k in range(k1 + 1, k2):
+                idx_a, _ = self._pair_match(k)
+                n = idx_a.size
+                if n < 3:
+                    self.poses[k] = self.poses[k - 1]
+                    continue
+                self.poses[k] = se3np.compose(self._pair_T[k], self.poses[k - 1])
+                inl = self._pair_inliers[k, :n]
+                jj = self.vertex_ids[idx_a[inl]]
+                new = ~self.initialized_vertex[jj]
+                if np.any(new):
+                    T_inv = se3np.inverse(self.poses[k - 1])
+                    p_g = se3np.transform_point(T_inv, self._pts_c[idx_a[inl]])
+                    n_g = se3np.transform_vector(T_inv, self.normal_obs_list[idx_a[inl]])
+                    self.vertex_positions[jj[new]] = p_g[new]
+                    norms = np.linalg.norm(n_g[new], axis=-1, keepdims=True)
+                    self.vertex_normals[jj[new]] = n_g[new] / np.maximum(norms, 1e-12)
+                    self.initialized_vertex[jj[new]] = True
 
     # -- solving ---------------------------------------------------------------
 
@@ -246,56 +249,58 @@ class DatasetProblemPhong:
         the window's active vertices (in slots ``[0, n_vtx_pad)``), the
         global materials, textures and light. Returns ``(problem, state,
         slots)``, ``slots`` the global ids of the active vertices."""
-        Kw = k2 - k1
-        sel, slots, local_v = self._window_obs(k1, k2)
-        n_obs, n_vtx = sel.size, slots.size
-        if n_obs > n_obs_pad or n_vtx > n_vtx_pad:
-            raise ValueError("window pad budget too small")
-        dev, dt = self._device, self._dt
-        uvd = np.zeros((n_obs_pad, 3))
-        uvd[:n_obs] = self.obs_list[sel]
-        ints = np.zeros(n_obs_pad)
-        ints[:n_obs] = self.int_list[sel]
-        nobs = np.tile(np.array([0.0, 0.0, 1.0]), (n_obs_pad, 1))
-        nobs[:n_obs] = self.normal_obs_list[sel]
-        idx = np.zeros((3, n_obs_pad), np.int64)
-        idx[:, :n_obs] = [self.state_ids[sel] - k1, local_v, self.material_ids[sel]]
-        valid = np.arange(n_obs_pad) < n_obs
-        vertex_valid = np.zeros(n_vtx_pad, bool)
-        vertex_valid[:n_vtx] = self.initialized_vertex[slots]
+        with telemetry.span("phong.build_problem", k1=k1, k2=k2):
+            Kw = k2 - k1
+            sel, slots, local_v = self._window_obs(k1, k2)
+            n_obs, n_vtx = sel.size, slots.size
+            if n_obs > n_obs_pad or n_vtx > n_vtx_pad:
+                raise ValueError("window pad budget too small")
+            dev, dt = self._device, self._dt
+            uvd = np.zeros((n_obs_pad, 3))
+            uvd[:n_obs] = self.obs_list[sel]
+            ints = np.zeros(n_obs_pad)
+            ints[:n_obs] = self.int_list[sel]
+            nobs = np.tile(np.array([0.0, 0.0, 1.0]), (n_obs_pad, 1))
+            nobs[:n_obs] = self.normal_obs_list[sel]
+            idx = np.zeros((3, n_obs_pad), np.int64)
+            idx[:, :n_obs] = [self.state_ids[sel] - k1, local_v, self.material_ids[sel]]
+            valid = np.arange(n_obs_pad) < n_obs
+            vertex_valid = np.zeros(n_vtx_pad, bool)
+            vertex_valid[:n_vtx] = self.initialized_vertex[slots]
 
-        def put(x, dtype=dt):
-            return torch.as_tensor(x, dtype=dtype).to(dev)
+            def put(x, dtype=dt):
+                return telemetry.to_device(x, dev, dtype)
 
-        ii = put(idx, torch.int64)
-        obs = phong_mod.PhongObs(uvd=put(uvd), int_obs=put(ints), normal_obs=put(nobs),
-                                 pose_idx=ii[0], vertex_idx=ii[1], material_idx=ii[2],
-                                 valid=put(valid, torch.bool))
-        fixed = np.zeros(Kw, bool)
-        fixed[0] = True
-        problem = phong_mod.PhongBAProblem(
-            camera=self.camera, obs=obs,
-            stereo_stiffness=factors.inv_sqrt_psd(torch.diag(put(self.stereo_obs_var))),
-            normal_stiffness=factors.inv_sqrt_psd(torch.diag(put(self.normal_obs_var))),
-            int_stiffness=put(1.0 / np.sqrt(self.int_var)),
-            fixed_pose_mask=put(fixed, torch.bool), vertex_valid=put(vertex_valid, torch.bool))
-        pts = np.zeros((n_vtx_pad, 3))
-        pts[:n_vtx] = self.vertex_positions[slots]
-        nrm = np.tile(np.array([0.0, 0.0, 1.0]), (n_vtx_pad, 1))  # unit padding: the
-        nrm[:n_vtx] = self.vertex_normals[slots]  # projector of a zero normal is singular
-        state = phong_mod.PhongState(poses=put(self.poses[k1:k2]), points=put(pts),
-                                     normals=put(nrm), phong=put(self.materials),
-                                     textures=put(self.textures), light=put(self.light))
-        return problem, state, slots
+            ii = put(idx, torch.int64)
+            obs = phong_mod.PhongObs(uvd=put(uvd), int_obs=put(ints), normal_obs=put(nobs),
+                                     pose_idx=ii[0], vertex_idx=ii[1], material_idx=ii[2],
+                                     valid=put(valid, torch.bool))
+            fixed = np.zeros(Kw, bool)
+            fixed[0] = True
+            problem = phong_mod.PhongBAProblem(
+                camera=self.camera, obs=obs,
+                stereo_stiffness=factors.inv_sqrt_psd(torch.diag(put(self.stereo_obs_var))),
+                normal_stiffness=factors.inv_sqrt_psd(torch.diag(put(self.normal_obs_var))),
+                int_stiffness=put(1.0 / np.sqrt(self.int_var)),
+                fixed_pose_mask=put(fixed, torch.bool), vertex_valid=put(vertex_valid, torch.bool))
+            pts = np.zeros((n_vtx_pad, 3))
+            pts[:n_vtx] = self.vertex_positions[slots]
+            nrm = np.tile(np.array([0.0, 0.0, 1.0]), (n_vtx_pad, 1))  # unit padding: the
+            nrm[:n_vtx] = self.vertex_normals[slots]  # projector of a zero normal is singular
+            state = phong_mod.PhongState(poses=put(self.poses[k1:k2]), points=put(pts),
+                                         normals=put(nrm), phong=put(self.materials),
+                                         textures=put(self.textures), light=put(self.light))
+            return problem, state, slots
 
     def absorb_window_solution(self, k1, k2, sol: phong_mod.PhongState, slots: np.ndarray):
-        self.poses[k1:k2] = sol.poses.cpu().numpy()
-        upd = self.initialized_vertex[slots]
-        self.vertex_positions[slots[upd]] = sol.points.cpu().numpy()[:slots.size][upd]
-        self.vertex_normals[slots[upd]] = sol.normals.cpu().numpy()[:slots.size][upd]
-        self.materials = sol.phong.cpu().numpy().astype(np.float64)
-        self.textures = sol.textures.cpu().numpy().astype(np.float64)
-        self.light = sol.light.cpu().numpy().astype(np.float64)
+        with telemetry.span("phong.absorb", k1=k1, k2=k2):
+            self.poses[k1:k2] = sol.poses.cpu().numpy()
+            upd = self.initialized_vertex[slots]
+            self.vertex_positions[slots[upd]] = sol.points.cpu().numpy()[:slots.size][upd]
+            self.vertex_normals[slots[upd]] = sol.normals.cpu().numpy()[:slots.size][upd]
+            self.materials = sol.phong.cpu().numpy().astype(np.float64)
+            self.textures = sol.textures.cpu().numpy().astype(np.float64)
+            self.light = sol.light.cpu().numpy().astype(np.float64)
 
     def solve_full(self, window: int = 0, use_light: bool = True, multistage: bool = False,
                    config: lm_mod.SolveConfig | None = None, linear_solver: str = "auto",

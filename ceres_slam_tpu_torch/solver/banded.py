@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ceres_slam_tpu_torch.solver import lm
+from ceres_slam_tpu_torch.utils import telemetry
 
 
 class TrackInfo(NamedTuple):
@@ -137,7 +138,7 @@ def build_track_info(pose_idx, point_idx, K: int, J: int, L: int | None = None,
     arrays = list(_track_arrays(pose_idx[keep], point_idx[keep], K, J, L, L_cap))
     arrays[2] = keep[arrays[2]] * (arrays[3] > 0)  # slots -> original observation ids
     L, n_super, *tensors, frac = arrays
-    return TrackInfo(L, n_super, *(torch.as_tensor(x).to(device) for x in tensors), frac)
+    return TrackInfo(L, n_super, *(telemetry.to_device(x, device) for x in tensors), frac)
 
 
 def slot_scatter_index(t: TrackInfo, N: int) -> np.ndarray:

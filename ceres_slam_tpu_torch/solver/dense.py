@@ -39,6 +39,7 @@ from ceres_slam_tpu_torch.models.stereo_camera import StereoCamera
 from ceres_slam_tpu_torch.ops import factors, graph_loop, lie
 from ceres_slam_tpu_torch.solver import lm
 from ceres_slam_tpu_torch.solver import loss as loss_mod
+from ceres_slam_tpu_torch.utils import telemetry
 
 
 class StereoObs(NamedTuple):
@@ -83,7 +84,7 @@ class BAState(NamedTuple):
 def to_device(x, device):
     """Move every tensor of a (nested) NamedTuple to ``device``."""
     if isinstance(x, torch.Tensor):
-        return x.to(device)
+        return telemetry.to_device(x, device)
     if isinstance(x, tuple) and hasattr(x, "_fields"):
         return type(x)(*(to_device(v, device) for v in x))
     return x
@@ -173,9 +174,9 @@ def aux_terms(problem: StereoBAProblem) -> AuxTerms:
     terms once, before a loop that a CUDA graph captures."""
     dt, dev = problem.sun.dir_c.dtype, problem.sun.dir_c.device
     pr = problem.prior
-    valid = torch.tensor(bool(pr.valid), device=dev)
-    setting = torch.tensor([problem.sun_huber, problem.az_err_thresh, problem.zen_err_thresh],
-                           dtype=dt, device=dev)
+    valid = telemetry.to_device(bool(pr.valid), dev)
+    setting = telemetry.to_device([problem.sun_huber, problem.az_err_thresh,
+                                   problem.zen_err_thresh], dev, dt)
     return AuxTerms(problem.sun, pr._replace(T_ref=pr.T_ref.to(dev), stiffness=pr.stiffness.to(dev),
                                              valid=valid),
                     problem.fixed_pose_mask, problem.point_valid, *setting.unbind())

@@ -38,13 +38,13 @@ all-reduces captured in the node); gloo ranks run ``host_loop``.
 from __future__ import annotations
 
 import math
-import time
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from ceres_slam_tpu_torch.ops import graph_loop
+from ceres_slam_tpu_torch.utils import telemetry
 
 
 class SolveConfig(NamedTuple):
@@ -376,31 +376,37 @@ def _node_solve(state0, config: SolveConfig, make_loop: Callable, readout: Calla
     try:
         entry = graph.loops.get(key)
         if entry is None:
-            lp = make_loop()
-            device = lp.pred.get_device()
-            stream = graph_loop.capture_stream(device)
-            stream.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(stream):
-                if bool(lp.pred):
-                    lp.body()  # the first iteration, eagerly
-            torch.cuda.current_stream().wait_stream(stream)
-            node = graph_loop.DeviceWhile(lp.body, lp.pred, counted=counted)
-            graph.loops[key] = entry = (inputs, lp, node)
+            with telemetry.span("lm.capture"):
+                lp = make_loop()
+                device = lp.pred.get_device()
+                stream = graph_loop.capture_stream(device)
+                stream.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(stream):
+                    if bool(lp.pred):
+                        lp.body()  # the first iteration, eagerly
+                torch.cuda.current_stream().wait_stream(stream)
+                node = graph_loop.DeviceWhile(lp.body, lp.pred, counted=counted)
+                graph.loops[key] = entry = (inputs, lp, node)
             GRAPH_STATS["captures"] += 1
             GRAPH_STATS["capture_s"] += node.capture_s
             GRAPH_STATS["build_s"] += node.build_s
         else:
-            t0 = time.perf_counter()
-            _copy_inputs(entry[0], inputs)
-            entry[1].restart()
+            with telemetry.span("lm.restart") as restart:
+                _copy_inputs(entry[0], inputs)
+                entry[1].restart()
             GRAPH_STATS["restarts"] += 1
-            GRAPH_STATS["restart_s"] += time.perf_counter() - t0
+            GRAPH_STATS["restart_s"] += restart.seconds
         _, lp, node = entry
-        node.launch()
-        state, stats = readout(lp.carry)
-        host = torch.cat([stats, node.count.to(torch.float64)]).cpu()
-        node.add_counts(host[-node.count.numel():].tolist())
-        return tree_map(torch.clone, state), summary(host, report)
+        with telemetry.span("lm.node") as run:
+            node.launch()
+            state, stats = readout(lp.carry)
+            readings = node.readings()
+            host = torch.cat([x.to(torch.float64) for x in (stats, *readings)]).cpu()
+            node.add_counts(host[-sum(r.numel() for r in readings):].tolist())
+            run.set(iterations=node.iterations, inner_iterations=node.inner_iterations,
+                    device_ns=node.device_ns)
+        with telemetry.span("lm.readout"):
+            return tree_map(torch.clone, state), summary(host, report)
     finally:
         if own:
             graph.close()

@@ -65,6 +65,7 @@ from ceres_slam_tpu_torch.ops import (full_batch_plan, graph_loop, lie, schur_ke
                                       stereo_factor_kernel)
 from ceres_slam_tpu_torch.solver import dense, lm
 from ceres_slam_tpu_torch.solver.window import _damp, _inv3x3, _pin
+from ceres_slam_tpu_torch.utils import telemetry
 
 
 class ObsBlocks(NamedTuple):
@@ -121,7 +122,7 @@ def build_obs_tables(pose_idx, point_idx, K: int, J: int, device="cpu") -> ObsTa
     bk, bkw = group(pose_idx, K)
 
     def put(x):
-        return torch.as_tensor(x).to(device)
+        return telemetry.to_device(x, device)
 
     return ObsTables(by_point=put(bp), by_point_w=put(bpw), by_pose=put(bk), by_pose_w=put(bkw),
                      by_point_pose=put(pose_idx[bp].astype(np.int32)),
@@ -670,24 +671,28 @@ def prepare(problem: dense.StereoBAProblem, state0: dense.BAState,
     tracks short enough for the band); the sun and prior ``terms``."""
     K, J = state0.poses.shape[0], state0.points.shape[0]
     st = problem.stereo
-    if state0.poses.device.type == "cuda":
-        if tables is None:
-            tables = build_obs_tables(st.pose_idx.cpu(), st.point_idx.cpu(), K, J,
-                                      device=state0.poses.device)
-        if plan is None:
-            plan = full_batch_plan.plan_for_problem(problem)
-    tracks = None
-    if precond in ("banded", "auto"):
-        from ceres_slam_tpu_torch.solver import banded
+    with telemetry.span("pcg.prepare"):
+        if state0.poses.device.type == "cuda":
+            if tables is None:
+                with telemetry.span("pcg.tables"):
+                    tables = build_obs_tables(st.pose_idx.cpu(), st.point_idx.cpu(), K, J,
+                                              device=state0.poses.device)
+            if plan is None:
+                with telemetry.span("pcg.plan"):
+                    plan = full_batch_plan.plan_for_problem(problem)
+        tracks = None
+        if precond in ("banded", "auto"):
+            from ceres_slam_tpu_torch.solver import banded
 
-        tracks = banded.build_track_info(st.pose_idx.cpu(), st.point_idx.cpu(), K, J,
-                                         valid=dense.stereo_valid(problem).cpu(),
-                                         device=state0.poses.device)
-        if precond == "auto" and tracks.eligible_frac < 0.5:
-            tracks = None
-    elif precond != "jacobi":
-        raise ValueError(f"unknown preconditioner: {precond!r}")
-    return tables, plan, tracks, dense.aux_terms(problem)
+            with telemetry.span("pcg.tracks"):
+                tracks = banded.build_track_info(st.pose_idx.cpu(), st.point_idx.cpu(), K, J,
+                                                 valid=dense.stereo_valid(problem).cpu(),
+                                                 device=state0.poses.device)
+            if precond == "auto" and tracks.eligible_frac < 0.5:
+                tracks = None
+        elif precond != "jacobi":
+            raise ValueError(f"unknown preconditioner: {precond!r}")
+        return tables, plan, tracks, dense.aux_terms(problem)
 
 
 def lm_functions(problem, tables, plan, tracks, terms, max_cg_iters: int = 100,
@@ -746,24 +751,25 @@ def solve_ba_pcg(problem: dense.StereoBAProblem, state0: dense.BAState,
     ``solver/banded.py``) or ``'auto'`` (``prepare``). The 50% rule of
     ``'auto'`` is the JAX package's; on the card it is not yet decided from
     measurements (ROADMAP)."""
-    loop, lm_loop = resolve_loops(state0.poses.device, loop, lm_loop)
-    tables, plan, tracks, terms = prepare(problem, state0, tables, plan, precond)
-    if lm_loop == "device":
-        state0 = lm.tree_map(torch.clone, state0)  # the loop's own: a restart copies into it
-        buffers = cg_buffers(state0.poses.new_zeros((state0.poses.shape[0], 6)))
-        fns = lm_functions(problem, tables, plan, tracks, terms, max_cg_iters, cg_tol,
-                           buffers=buffers)
-        return lm.lm_solve(state0, config, *fns, loop="device",
-                           counted=(stereo_factor_kernel.stereo_factor_sums,), graph=graph,
-                           inputs=lm_loop_inputs(problem, state0, terms, tables, plan, tracks),
-                           key=_lm_key(problem, max_cg_iters, cg_tol, plan, tracks))
-    if graph is not None:
-        raise ValueError("an LMGraph keeps the device LM loop: lm_loop='host' takes none")
-    cg_graph = CGGraph() if loop == "device" else None  # one capture of the CG loop a solve
-    try:
-        return lm.lm_solve(state0, config, *lm_functions(
-            problem, tables, plan, tracks, terms, max_cg_iters, cg_tol, loop, cg_graph),
-            loop="host")
-    finally:
-        if cg_graph is not None:
-            cg_graph.close()
+    with telemetry.span("pcg.solve"):
+        loop, lm_loop = resolve_loops(state0.poses.device, loop, lm_loop)
+        tables, plan, tracks, terms = prepare(problem, state0, tables, plan, precond)
+        if lm_loop == "device":
+            state0 = lm.tree_map(torch.clone, state0)  # the loop's own: a restart copies into it
+            buffers = cg_buffers(state0.poses.new_zeros((state0.poses.shape[0], 6)))
+            fns = lm_functions(problem, tables, plan, tracks, terms, max_cg_iters, cg_tol,
+                               buffers=buffers)
+            return lm.lm_solve(state0, config, *fns, loop="device",
+                               counted=(stereo_factor_kernel.stereo_factor_sums,), graph=graph,
+                               inputs=lm_loop_inputs(problem, state0, terms, tables, plan, tracks),
+                               key=_lm_key(problem, max_cg_iters, cg_tol, plan, tracks))
+        if graph is not None:
+            raise ValueError("an LMGraph keeps the device LM loop: lm_loop='host' takes none")
+        cg_graph = CGGraph() if loop == "device" else None  # one capture of the CG loop a solve
+        try:
+            return lm.lm_solve(state0, config, *lm_functions(
+                problem, tables, plan, tracks, terms, max_cg_iters, cg_tol, loop, cg_graph),
+                loop="host")
+        finally:
+            if cg_graph is not None:
+                cg_graph.close()

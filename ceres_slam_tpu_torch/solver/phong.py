@@ -41,6 +41,7 @@ from ceres_slam_tpu_torch.models.stereo_camera import StereoCamera
 from ceres_slam_tpu_torch.ops import factors, graph_loop, lie
 from ceres_slam_tpu_torch.solver import dense, lm
 from ceres_slam_tpu_torch.solver.window import gather_table
+from ceres_slam_tpu_torch.utils import telemetry
 
 
 class PhongObs(NamedTuple):
@@ -180,8 +181,8 @@ def build_tables(problem: PhongBAProblem, M: int | None, keys=KINDS + PAIRS,
     ids = table_ids(o.pose_idx.cpu().numpy(), o.vertex_idx.cpu().numpy(),
                     o.material_idx.cpu().numpy(), obs_valid(problem).cpu().numpy(), K, J, M,
                     keys)
-    return {k: torch.as_tensor(gather_table(i, n, None if widths is None else widths[k]))
-            .to(o.uvd.device) for k, (i, n) in ids.items()}
+    return {k: telemetry.to_device(gather_table(i, n, None if widths is None else widths[k]),
+                                   o.uvd.device) for k, (i, n) in ids.items()}
 
 
 def _accumulate(H, g, r, blocks, valid, tables: dict):
@@ -303,12 +304,13 @@ def solve_tables(problem: PhongBAProblem, state: PhongState, linear_solver: str,
     """What a solve's body sums through, built on the host before its loop:
     the vertex-Schur layout (``phong_schur.build_phong_layout``) or the
     dense path's tables (``build_tables``), ``widths`` wide where given."""
-    if linear_solver == "schur":
-        from ceres_slam_tpu_torch.solver import phong_schur
+    with telemetry.span("phong.tables"):
+        if linear_solver == "schur":
+            from ceres_slam_tpu_torch.solver import phong_schur
 
-        return phong_schur.build_phong_layout(problem, widths)
-    if linear_solver == "dense":
-        return build_tables(problem, state.phong.shape[0], widths=widths)
+            return phong_schur.build_phong_layout(problem, widths)
+        if linear_solver == "dense":
+            return build_tables(problem, state.phong.shape[0], widths=widths)
     raise ValueError(f"unknown linear solver: {linear_solver!r}")
 
 
@@ -412,27 +414,28 @@ def solve_phong_staged(problem: PhongBAProblem, state: PhongState,
     (a pass's ``table_widths``). ``lm_loop``: ``solve_phong_ba``'s; with
     the device loop every stage is one WHILE node, kept in ``graph`` (one
     capture per stage, at most three; a graph of this call's own when none
-    is given, closed at its end). Returns ``(state, [SolveSummary per
+    is given, closed at its end). Each stage is a span ``phong.stage``, the
+    first holding the tables' build. Returns ``(state, [SolveSummary per
     stage])``."""
     if linear_solver == "auto":
         linear_solver = auto_linear_solver(state)
     lm_loop = resolve_lm_loop(state.poses.device, lm_loop)
-    tables = solve_tables(problem, state, linear_solver, widths)
+    # (use_light, freeze_geometry) of each stage
+    stages = ([(False, False)] + ([(True, True)] if use_light else [])) if multistage else []
+    stages.append((use_light, False))
     own = lm_loop == "device" and graph is None
     graph = lm.LMGraph() if own else graph
-    kw = dict(directional=directional, linear_solver=linear_solver, lm_loop=lm_loop, graph=graph,
-              **{"layout" if linear_solver == "schur" else "tables": tables})
+    kw = dict(directional=directional, linear_solver=linear_solver, lm_loop=lm_loop, graph=graph)
     summaries = []
     try:
-        if multistage:
-            state, s1 = solve_phong_ba(problem, state, config, use_light=False, **kw)
-            summaries.append(s1)
-            if use_light:
-                state, s2 = solve_phong_ba(problem, state, config, use_light=True,
-                                           freeze_geometry=True, **kw)
-                summaries.append(s2)
-        state, s3 = solve_phong_ba(problem, state, config, use_light=use_light, **kw)
-        summaries.append(s3)
+        for i, (light, frozen) in enumerate(stages):
+            with telemetry.span("phong.stage", stage=i, use_light=light, freeze_geometry=frozen):
+                if i == 0:
+                    tables = solve_tables(problem, state, linear_solver, widths)
+                    kw["layout" if linear_solver == "schur" else "tables"] = tables
+                state, s = solve_phong_ba(problem, state, config, use_light=light,
+                                          freeze_geometry=frozen, **kw)
+            summaries.append(s)
     finally:
         if own:
             graph.close()

@@ -57,6 +57,7 @@ import torch
 from ceres_slam_tpu_torch.ops import graph_loop, lie, subspace_kernel, window_kernel
 from ceres_slam_tpu_torch.solver import dense, lm
 from ceres_slam_tpu_torch.utils import device as device_mod
+from ceres_slam_tpu_torch.utils import telemetry
 
 
 class WindowLayout(NamedTuple):
@@ -828,7 +829,10 @@ def device_loop(layout: BatchLayout, state0: dense.BAState, config: lm.SolveConf
             _copy_inputs(entry[0], inputs)
             entry[3].replay()
             _count(restarts=1, restart_s=time.perf_counter() - t0)
-        entry[2].run()
+        node = entry[2]
+        with telemetry.span("window.node") as run:
+            node.run()
+            run.set(iterations=node.iterations, device_ns=node.device_ns)
         state, stats, blocks = finish(entry[1].carry, config)
         return _map(torch.clone, state), stats, _map(torch.clone, blocks)
     finally:

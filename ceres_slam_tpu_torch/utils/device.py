@@ -5,6 +5,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ceres_slam_tpu_torch.utils import telemetry
+
 _ALIGN = 16  # bytes: the kernels read their records with 16-byte loads
 
 
@@ -33,7 +35,7 @@ def upload(arrays: dict, device) -> dict:
     buf = host.numpy()
     for k, a in arrays.items():
         buf[offsets[k]:offsets[k] + a.nbytes] = a.reshape(-1).view(np.uint8)
-    dev = host.to(device, non_blocking=True) if device.type == "cuda" else host
+    dev = telemetry.to_device(host, device, non_blocking=True) if device.type == "cuda" else host
     out = {}
     for k, a in arrays.items():
         dt = torch.bool if a.dtype == np.bool_ else getattr(torch, a.dtype.name)

@@ -1488,6 +1488,60 @@ def test_nested_device_while_counts():
 
 
 @pytest.mark.cuda
+def test_device_timers_split_a_nested_loop():
+    """The loops' condition kernels stamp the global timer: a run leaves the
+    node's device nanoseconds and its inner loop's, summed over the run,
+    beside the counts and read with them. Sleeping bodies (4 outer
+    iterations of 1 ms, each around 3 inner ones of 0.5 ms): the inner
+    loop's time is within the node's (6 of its 10 ms), and the node's within
+    5% of CUDA events around its launch. A loop that runs zero times reads
+    zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    i, j = (torch.zeros(1, dtype=torch.int32, device="cuda") for _ in range(2))
+    pred, pred_in = (torch.ones(1, dtype=torch.int32, device="cuda") for _ in range(2))
+    torch.cuda._sleep(1 << 10)
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(1 << 20)
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    end.synchronize()
+    cycles_per_ms = (1 << 20) / start.elapsed_time(end)
+
+    def inner():
+        torch.cuda._sleep(int(0.5 * cycles_per_ms))
+        j.add_(1)
+        pred_in.copy_(j < 3)
+
+    def outer():
+        torch.cuda._sleep(int(cycles_per_ms))
+        i.add_(1)
+        j.zero_()
+        pred_in.fill_(1)
+        graph_loop.while_loop(inner, pred_in)
+        pred.copy_(i < 4)
+
+    loop = graph_loop.DeviceWhile(outer, pred)
+    for _ in range(2):
+        i.zero_(), pred.fill_(1)
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        loop.launch()
+        e.record()
+        loop.add_counts(torch.cat(loop.readings()).tolist())
+        events_ns = 1e6 * s.elapsed_time(e)
+        node_ns, inner_ns = loop.device_ns
+        assert (loop.iterations, loop.inner_iterations) == (4, [12])
+        assert 0 < inner_ns <= node_ns
+        assert abs(node_ns - events_ns) <= 0.05 * events_ns, (node_ns, events_ns)
+        assert 0.5 < inner_ns / node_ns < 0.7, (inner_ns, node_ns)
+    pred.fill_(0)
+    assert loop.run() == 0 and loop.inner_iterations == [0] and loop.device_ns == [0, 0]
+    loop.close()
+
+
+@pytest.mark.cuda
 def test_nested_while_needs_cuda_12_4(monkeypatch):
     """Where the toolkit, the driver or PyTorch's runtime is older than
     CUDA 12.4, a loop nested in a device loop is refused with the reason
