@@ -55,8 +55,13 @@
 //   barrier. A programmatic dependent launch of phase 2 (staging its rows
 //   while phase 1 drains) measured no faster than two plain launches on the
 //   H100 (PERF.md), and is not used.
+// - schur_sp: the same two phases as the matvec of a CG iteration
+//   (solver/pcg.py), phase 2 also forming Sp = Hpp p - Uy and each pose's
+//   share of p . Sp (uy_pose_cg_kernel); csrc/cg_step.cu runs the rest of
+//   the iteration.
 // No atomics: the result is identical run to run. No tensor cores, no TF32.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "full_batch_plan.h"
@@ -196,14 +201,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         C0 * utv[3 * l] + C1 * utv[3 * l + 1] + C2 * utv[3 * l + 2];
 }
 
+// Pose k's Uy_k = sum_{n in obs(k)} U_n y[point(n)]: returns component tid
+// to threads tid < 6 (the block's threads all call it).
 template <typename T>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-    uy_pose_kernel(const Plan g, const T* __restrict__ U18, T* __restrict__ out) {
+__device__ __forceinline__ T pose_uy(const Plan& g, const T* __restrict__ U18, int k, T* stage,
+                                     int* rows, T (*part)[6]) {
   using P = typename Pair<T>::type;
-  __shared__ __align__(16) T stage[kThreads * 18];
-  __shared__ int rows[kThreads];
-  __shared__ T part[kThreads / 32][6];
-  const int k = blockIdx.x, tid = threadIdx.x;
+  const int tid = threadIdx.x;
   const int s0 = g.ps_start[k], s1 = g.ps_start[k + 1];
   const P* y = static_cast<const P*>(g.y);  // [J, 4]: two pairs a landmark
   T acc[6];
@@ -243,16 +247,67 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     for (int a = 0; a < 6; ++a) part[tid >> 5][a] = acc[a];
   }
   __syncthreads();
+  T x = T(0);
   if (tid < 6) {
-    T x = part[0][tid];
+    x = part[0][tid];
 #pragma unroll
     for (int w = 1; w < kThreads / 32; ++w) x += part[w][tid];
-    out[6 * static_cast<size_t>(k) + tid] = x;
   }
+  return x;
 }
 
 template <typename T>
-int launch(const UyArgs* a, const T* v, T* out, void* stream) {
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    uy_pose_kernel(const Plan g, const T* __restrict__ U18, T* __restrict__ out) {
+  __shared__ __align__(16) T stage[kThreads * 18];
+  __shared__ int rows[kThreads];
+  __shared__ T part[kThreads / 32][6];
+  const int k = blockIdx.x, tid = threadIdx.x;
+  const T x = pose_uy(g, U18, k, stage, rows, part);
+  if (tid < 6) out[6 * static_cast<size_t>(k) + tid] = x;
+}
+
+// The pose phase of a CG iteration (cg_step.cu runs the rest): beside Uy_k,
+// block k forms Sp_k = Hpp_k p_k - Uy_k of the damped pose block and its
+// share p_k . Sp_k of the iteration's first dot (the six products summed
+// in order), so the CG iteration needs no separate Hpp p product, difference
+// or dot. Hpp_k and p_k reach shared memory by asynchronous copies issued
+// before the slot loop, so their latency hides behind it.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    uy_pose_cg_kernel(const Plan g, const T* __restrict__ U18, const T* __restrict__ hpp,
+                      const T* __restrict__ p, T* __restrict__ sp, T* __restrict__ dots) {
+  __shared__ __align__(16) T stage[kThreads * 18];
+  __shared__ int rows[kThreads];
+  __shared__ T part[kThreads / 32][6];
+  __shared__ T hs[36 + 6];  // Hpp_k row by row, then p_k
+  __shared__ T prod[6];
+  const int k = blockIdx.x, tid = threadIdx.x;
+  if (tid < 36)
+    __pipeline_memcpy_async(hs + tid, hpp + 36 * static_cast<size_t>(k) + tid, sizeof(T));
+  else if (tid < 42)
+    __pipeline_memcpy_async(hs + tid, p + 6 * static_cast<size_t>(k) + tid - 36, sizeof(T));
+  __pipeline_commit();
+  const T x = pose_uy(g, U18, k, stage, rows, part);
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  if (tid < 6) {
+    const T* pk = hs + 36;
+    T hp = T(0);
+#pragma unroll
+    for (int b = 0; b < 6; ++b) hp += hs[6 * tid + b] * pk[b];
+    const T s = hp - x;
+    sp[6 * static_cast<size_t>(k) + tid] = s;
+    prod[tid] = pk[tid] * s;  // rounded alone, as PyTorch's product
+    __syncwarp(0x3fu);
+    if (tid == 0) dots[k] = prod[0] + prod[1] + prod[2] + prod[3] + prod[4] + prod[5];
+  }
+}
+
+// Phase 1, then phase 2: K3's (out = Uy) or, with hpp, the CG iteration's
+// (sp = Hpp p - Uy and the dot shares, v being p).
+template <typename T>
+int launch(const UyArgs* a, const T* v, T* out, const T* hpp, T* dots, void* stream) {
   const Plan& g = a->plan;
   // a group of more landmarks would overrun phase 1's shared arrays
   if (g.J < 1 || g.K < 1 || g.N < 1 || g.G < 1 || g.max_group < 1 || g.max_group > kLmPerBlock)
@@ -265,7 +320,10 @@ int launch(const UyArgs* a, const T* v, T* out, void* stream) {
   uy_point_kernel<T><<<g.G, kThreads, 0, s>>>(g, U18, static_cast<const T*>(a->cinv), v);
   cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) {
-    uy_pose_kernel<T><<<g.K, kThreads, 0, s>>>(g, U18, out);
+    if (hpp == nullptr)
+      uy_pose_kernel<T><<<g.K, kThreads, 0, s>>>(g, U18, out);
+    else
+      uy_pose_cg_kernel<T><<<g.K, kThreads, 0, s>>>(g, U18, hpp, v, out, dots);
     err = cudaGetLastError();
   }
   if (current != g.device) cudaSetDevice(current);
@@ -277,11 +335,21 @@ int launch(const UyArgs* a, const T* v, T* out, void* stream) {
 extern "C" {
 
 int schur_uy_f32(const UyArgs* a, const float* v, float* out, void* stream) {
-  return launch<float>(a, v, out, stream);
+  return launch<float>(a, v, out, nullptr, nullptr, stream);
 }
 
 int schur_uy_f64(const UyArgs* a, const double* v, double* out, void* stream) {
-  return launch<double>(a, v, out, stream);
+  return launch<double>(a, v, out, nullptr, nullptr, stream);
+}
+
+int schur_sp_f32(const UyArgs* a, const float* p, const float* hpp, float* sp, float* dots,
+                 void* stream) {
+  return launch<float>(a, p, sp, hpp, dots, stream);
+}
+
+int schur_sp_f64(const UyArgs* a, const double* p, const double* hpp, double* sp, double* dots,
+                 void* stream) {
+  return launch<double>(a, p, sp, hpp, dots, stream);
 }
 
 }  // extern "C"

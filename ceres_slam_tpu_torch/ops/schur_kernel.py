@@ -79,7 +79,9 @@ def schur_uy_plain(bound: UyBinding, v: torch.Tensor) -> torch.Tensor:
 def _library() -> ctypes.CDLL:
     p = ctypes.c_void_p
     sig = [ctypes.POINTER(_UyArgs), p, p, p]  # binding, v, out, stream
-    return cuda_build.load("schur_uy", _SOURCES, {"schur_uy_f32": sig, "schur_uy_f64": sig})
+    sp = [ctypes.POINTER(_UyArgs), p, p, p, p, p]  # binding, p, Hpp, Sp, dots, stream
+    return cuda_build.load("schur_uy", _SOURCES, {"schur_uy_f32": sig, "schur_uy_f64": sig,
+                                                  "schur_sp_f32": sp, "schur_sp_f64": sp})
 
 
 _fns: dict = {}
@@ -88,7 +90,8 @@ _fns: dict = {}
 def build() -> str:
     """Compile (at first use) and load the kernel; returns the library path."""
     lib = _library()
-    _fns.update({torch.float32: lib.schur_uy_f32, torch.float64: lib.schur_uy_f64})
+    _fns.update({torch.float32: lib.schur_uy_f32, torch.float64: lib.schur_uy_f64,
+                 ("sp", torch.float32): lib.schur_sp_f32, ("sp", torch.float64): lib.schur_sp_f64})
     return str(cuda_build.library_path("schur_uy", _SOURCES))
 
 
@@ -131,6 +134,40 @@ def schur_uy(bound: UyBinding, v: torch.Tensor) -> torch.Tensor:
 
 
 schur_uy.launches = 0
+
+
+def schur_sp(bound: UyBinding, p: torch.Tensor, Hpp: torch.Tensor):
+    """The matvec of a fused CG iteration (``solver/pcg.py``) on the card:
+    ``(Sp, dots)``, ``Sp [K, 6] = Hpp p - Uy`` (``Hpp [K, 6, 6]``, the
+    damped pose blocks) and ``dots [K]``, each pose's share ``p_k . Sp_k``
+    of the iteration's first dot. K3's two phases, the pose phase extended,
+    so it counts as a K3 launch (``schur_uy.launches``, K3 in either form)
+    and in its own ``.launches`` (the fused form alone). Checks ``p`` as
+    ``schur_uy`` checks ``v``, and ``Hpp``; raises off the card."""
+    U18, args = bound.U18, bound.args
+    K = bound.plan.K
+    if args is None:
+        raise ValueError("schur_sp runs on the card: the plan is on the CPU")
+    if (p.shape != (K, 6) or p.dtype is not U18.dtype or p.get_device() != args.plan.device
+            or not p.is_contiguous() or p.data_ptr() % 16):
+        _bad_v(p, K, U18)
+    if (Hpp.shape != (K, 6, 6) or Hpp.dtype is not U18.dtype or Hpp.device != p.device
+            or not Hpp.is_contiguous()):
+        raise ValueError(f"Hpp: {Hpp.dtype} {tuple(Hpp.shape)} on {Hpp.device}, expected a "
+                         f"contiguous {U18.dtype} {(K, 6, 6)} on {p.device}")
+    if not _fns:
+        build()
+    Sp, dots = U18.new_empty((K, 6)), U18.new_empty((K,))
+    err = _fns[("sp", U18.dtype)](args, p.data_ptr(), Hpp.data_ptr(), Sp.data_ptr(),
+                                  dots.data_ptr(), cuda_build.current_stream(args.plan.device))
+    if err:
+        raise cuda_build.launch_error(err, "schur_sp")
+    schur_uy.launches += 1
+    schur_sp.launches += 1
+    return Sp, dots
+
+
+schur_sp.launches = 0
 
 
 def random_inputs(N: int, J: int, K: int, dtype=torch.float64, device="cpu", seed: int = 0):

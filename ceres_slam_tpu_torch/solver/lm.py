@@ -343,7 +343,7 @@ def _copy_inputs(dst: tuple, src: tuple) -> None:
 
 def device_loop(state0, config: SolveConfig, cost_fn: Callable, step_fn: Callable,
                 retract_fn: Callable, counted=(), graph: LMGraph | None = None,
-                inputs: tuple = (), key=None):
+                inputs: tuple = (), key=None, tallies: dict | None = None):
     """``host_loop`` on the card: ``lm_loop``'s body captured and run in a
     conditional WHILE node, one graph launch for the solve and one read of
     its summary. ``counted``: the kernel wrappers the body launches outside
@@ -354,20 +354,23 @@ def device_loop(state0, config: SolveConfig, cost_fn: Callable, step_fn: Callabl
     ``graph``, the capture is kept there under ``key`` (the solve's shape
     and every setting the body holds as a Python value) for the next solve,
     which copies its ``inputs`` into this one's; without one it is this
-    solve's alone. Returns ``finish``'s ``(state, SolveSummary)`` (new
-    tensors). Raises on the CPU, and if the capture fails."""
+    solve's alone. ``tallies`` maps attribute names of the ``lm.node`` span
+    to counted wrappers: the span records each one's launches in the run.
+    Returns ``finish``'s ``(state, SolveSummary)`` (new tensors). Raises on
+    the CPU, and if the capture fails."""
     return _node_solve(state0, config, lambda: lm_loop(state0, config, cost_fn, step_fn,
                                                        retract_fn),
                        lambda c: (c.best_state if config.nonmonotonic else c.state,
                                   _stats(c, config)),
-                       config, counted, graph, inputs, key)
+                       config, counted, graph, inputs, key, tallies)
 
 
 def _node_solve(state0, config: SolveConfig, make_loop: Callable, readout: Callable,
-                report: SolveConfig, counted, graph, inputs, key):
+                report: SolveConfig, counted, graph, inputs, key, tallies=None):
     """``device_loop`` for the loop ``make_loop()`` builds: ``readout(carry)``
     gives the solution and the stats row that ``summary`` reads under
     ``report``."""
+    tallies = tallies or {}
     if leaves(state0)[0].device.type != "cuda":
         raise ValueError("the device LM loop runs on the card: use loop='host'")
     own = graph is None
@@ -402,9 +405,11 @@ def _node_solve(state0, config: SolveConfig, make_loop: Callable, readout: Calla
             state, stats = readout(lp.carry)
             readings = node.readings()
             host = torch.cat([x.to(torch.float64) for x in (stats, *readings)]).cpu()
+            before = {name: w.launches for name, w in tallies.items()}
             node.add_counts(host[-sum(r.numel() for r in readings):].tolist())
             run.set(iterations=node.iterations, inner_iterations=node.inner_iterations,
-                    device_ns=node.device_ns)
+                    device_ns=node.device_ns,
+                    **{name: w.launches - before[name] for name, w in tallies.items()})
         with telemetry.span("lm.readout"):
             return tree_map(torch.clone, state), summary(host, report)
     finally:

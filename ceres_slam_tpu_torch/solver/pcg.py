@@ -52,6 +52,14 @@ matvec all-reduces between iterations; on NCCL ranks it runs
 ``inner_cg`` in its LM node) and, on the card, ``loop="host"``. Every
 form runs the same kernels in the same order, so they give the same bits
 and iteration counts.
+
+On the card ``pcg_solve``'s CG iteration with the plan's matvec and the
+block-Jacobi preconditioner runs fused in every form (``fused_inputs``): K3
+with ``Hpp p -`` and the first dot folded into its pose phase
+(``schur_kernel.schur_sp``), then one update of two kernels for the rest of
+the iteration (``cg_kernel.cg_update``) in place of ~35 PyTorch kernels.
+``cg_body`` stays the plain version, which the CPU, the banded
+preconditioner and the sharded matvec run.
 """
 
 from __future__ import annotations
@@ -61,8 +69,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ceres_slam_tpu_torch.ops import (full_batch_plan, graph_loop, lie, schur_kernel,
-                                      stereo_factor_kernel)
+from ceres_slam_tpu_torch.ops import (cg_kernel, full_batch_plan, graph_loop, lie,
+                                      schur_kernel, stereo_factor_kernel)
 from ceres_slam_tpu_torch.solver import dense, lm
 from ceres_slam_tpu_torch.solver.window import _damp, _inv3x3, _pin
 from ceres_slam_tpu_torch.utils import telemetry
@@ -314,14 +322,56 @@ def schur_diag_blocks(b: ObsBlocks, tables: ObsTables | None = None) -> torch.Te
 
 def _block_precond(S_diag: torch.Tensor):
     """Cholesky-based inverse application of the ``[K, 6, 6]`` diagonal
-    blocks: two triangular solves (``lm.cholesky_apply``), no host sync."""
+    blocks: two triangular solves (``lm.cholesky_apply``), no host sync.
+    ``.chol`` marks it and holds the factors (the fused CG iteration
+    applies them itself)."""
     chol = lm._cholesky_or_nan(S_diag)
 
     def apply(r: torch.Tensor) -> torch.Tensor:  # [K, 6]
         return lm.cholesky_apply(chol, r)
 
     apply.tensors = (chol,)  # what it reads (a captured CG loop copies new factors in)
+    apply.chol = chol
     return apply
+
+
+def fused_inputs(b: ObsBlocks, precond):
+    """``(b, chol)`` where ``pcg_solve``'s CG iteration on blocks ``b`` with
+    ``precond`` runs fused, else None (``cg_body``). Fused:
+    ``schur_kernel.schur_sp`` (K3 with ``Hpp p -`` and the first dot in its
+    pose phase), then ``cg_kernel.cg_update`` (everything after the
+    matvec, two kernels). It runs where it can be observed to apply: ``b``
+    is bound to K3 on the card (so the matvec is the plan's) and the
+    preconditioner is ``_block_precond``'s. The banded preconditioner, the
+    gather and segment matvecs and the CPU take ``cg_body``, as does every
+    caller of the CG loops that passes no ``fused`` (the sharded matvec,
+    which all-reduces)."""
+    chol = getattr(precond, "chol", None)
+    if chol is None or b.uy is None or b.uy.args is None:
+        return None
+    return b, chol
+
+
+def random_system(N: int, J: int, K: int, dtype=torch.float64, device="cpu", seed: int = 0):
+    """Seeded CG inputs ``(b, tables, rhs)`` at a full-batch shape: K3's
+    ``random_inputs`` (its plan, couplings and ``Cinv``; ``rhs`` its ``v``)
+    with pose blocks 1.5 times the largest eigenvalue of ``U C U^T`` (power
+    iteration) plus a random SPD part, so S is SPD; ``b`` bound to K3,
+    ``tables`` the plan's gather tables."""
+    bound, rhs = schur_kernel.random_inputs(N, J, K, dtype, device, seed=seed)
+    plan = bound.plan
+    v, top = torch.ones_like(rhs), 0.0
+    for _ in range(30):
+        w = schur_kernel.schur_uy(bound, v)
+        top = (w.norm() / v.norm()).item()
+        v = w / w.norm()
+    A = torch.as_tensor(np.random.default_rng(seed + 1).normal(0, 0.1, (K, 6, 6)), dtype=dtype,
+                        device=device)
+    Hpp = (1.5 * top * torch.eye(6, dtype=dtype, device=device) + A @ A.mT).contiguous()
+    b = ObsBlocks(U18=bound.U18, Hpp=Hpp, Cinv=bound.Cinv, gp=None, gl=None, Hll=None,
+                  Hpp_undamped=None, pose_idx=plan.pose_idx, point_idx=plan.point_idx, uy=bound)
+    tables = build_obs_tables(plan.pose_idx.cpu(), plan.point_idx.cpu(), K, J, device=device)
+    return b, tables, rhs.contiguous()
 
 
 def pcg_solve(b: ObsBlocks, rhs: torch.Tensor, max_iters: int, tol: float,
@@ -362,12 +412,18 @@ def pcg_solve(b: ObsBlocks, rhs: torch.Tensor, max_iters: int, tol: float,
             return schur_matvec_gather(b, tables, v)
         return schur_matvec(b, v)
 
+    fused = fused_inputs(b, precond)
     if buffers is not None:
-        return inner_cg(matvec, precond, rhs, max_iters, tol, buffers)
+        return inner_cg(matvec, precond, rhs, max_iters, tol, buffers, fused=fused)
     if loop == "device":
-        return device_cg(matvec, precond, rhs, max_iters, tol, counted=(schur_kernel.schur_uy,),
-                         graph=graph, inputs=None if graph is None else loop_inputs(b, precond))
-    return cg(matvec, precond, rhs, max_iters, tol)
+        return device_cg(matvec, precond, rhs, max_iters, tol, counted=COUNTED, graph=graph,
+                         inputs=None if graph is None else loop_inputs(b, precond), fused=fused)
+    return cg(matvec, precond, rhs, max_iters, tol, fused)
+
+
+# the kernel wrappers a CG iteration of pcg_solve launches: K3, plain or fused
+# (schur_sp counts as a K3 launch too), and, fused, cg_update
+COUNTED = (schur_kernel.schur_uy, schur_kernel.schur_sp, cg_kernel.cg_update)
 
 
 def loop_inputs(b: ObsBlocks, precond) -> tuple:
@@ -415,17 +471,18 @@ def cg_continue(s: CGState, bound: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(s.r * s.r)) > bound
 
 
-def cg(matvec, precond, rhs: torch.Tensor, max_iters: int, tol: float):
+def cg(matvec, precond, rhs: torch.Tensor, max_iters: int, tol: float, fused=None):
     """Preconditioned conjugate gradients for ``matvec(x) = rhs`` from x = 0,
     ``precond(r) -> M^{-1} r``; stops after ``max_iters`` iterations or when
     ``|r| <= tol |rhs|`` (read on the host every iteration). Returns ``(x,
-    iterations)``. The plain version of ``device_cg``."""
-    s, bound = cg_start(precond, rhs, tol)
+    iterations)``. The plain version of ``device_cg``: ``cg_loop``'s body
+    iterated on the host (fused with ``fused``, as in the device forms)."""
+    lp = cg_loop(matvec, precond, rhs, max_iters, tol, fused)
     it = 0
-    while it < max_iters and bool(cg_continue(s, bound)):
-        s = cg_body(matvec, precond, s)
+    while int(lp.pred):
+        lp.body()
         it += 1
-    return s.x, it
+    return lp.s.x, it
 
 
 class CGBuffers(NamedTuple):
@@ -447,12 +504,14 @@ def cg_buffers(like: torch.Tensor) -> CGBuffers:
     return CGBuffers(s, z.new_zeros(()), i, i.clone())
 
 
-def _cg_in_place(matvec, precond, bufs: CGBuffers, max_iters: int, tol: float):
+def _cg_in_place(matvec, precond, bufs: CGBuffers, max_iters: int, tol: float, fused=None):
     """``(restart(rhs), body())`` of a CG loop on ``bufs``: ``restart``
     puts the buffers at the start for ``rhs`` (``cg_start``), ``body``
-    runs one iteration in place (``cg_body``), counts it in ``i`` and
-    writes the stop test ``(i < max_iters) & (|r| > tol |rhs|)`` to
-    ``pred``."""
+    runs one iteration in place, counts it in ``i`` and writes the stop
+    test ``(i < max_iters) & (|r| > tol |rhs|)`` to ``pred``: ``cg_body``,
+    or with ``fused`` (``fused_inputs``' ``(b, chol)``, whose matvec and
+    factors are ``matvec``'s and ``precond``'s) ``schur_sp`` and
+    ``cg_update``."""
     s, i, pred = bufs.s, bufs.i, bufs.pred
 
     def test():
@@ -464,6 +523,11 @@ def _cg_in_place(matvec, precond, bufs: CGBuffers, max_iters: int, tol: float):
         i.add_(1)
         pred.copy_(test())
 
+    def fused_body():
+        b, chol = fused
+        Sp, dots = schur_kernel.schur_sp(b.uy, s.p, b.Hpp)
+        cg_kernel.cg_update(s, Sp, dots, chol, bufs.bound, i, pred, max_iters)
+
     def restart(rhs):
         start, bound = cg_start(precond, rhs, tol)
         for buf, t in zip((*s, bufs.bound), (*start, bound)):
@@ -471,18 +535,19 @@ def _cg_in_place(matvec, precond, bufs: CGBuffers, max_iters: int, tol: float):
         i.zero_()
         pred.copy_(test())
 
-    return restart, body
+    return restart, body if fused is None else fused_body
 
 
 def inner_cg(matvec, precond, rhs: torch.Tensor, max_iters: int, tol: float, bufs: CGBuffers,
-             counted=(schur_kernel.schur_uy,)):
+             counted=COUNTED, fused=None):
     """``cg`` on the fixed buffers ``bufs`` through ``graph_loop.while_loop``:
     inside the capture of a ``DeviceWhile`` (the LM loop's node) a WHILE
-    node nested in its body, the wrappers in ``counted`` (K3 by default;
-    the sharded matvec's ``psum``) counted per CG iteration the card runs;
-    elsewhere the loop on the host. Returns ``(x, iterations)``: the
-    buffer ``x`` (the next call overwrites it) and an int32 0-d tensor."""
-    restart, body = _cg_in_place(matvec, precond, bufs, max_iters, tol)
+    node nested in its body, the wrappers in ``counted`` (``COUNTED`` by
+    default; the sharded matvec's ``psum``) counted per CG iteration the
+    card runs; elsewhere the loop on the host. Returns ``(x, iterations)``:
+    the buffer ``x`` (the next call overwrites it) and an int32 0-d
+    tensor."""
+    restart, body = _cg_in_place(matvec, precond, bufs, max_iters, tol, fused)
     restart(rhs)
     graph_loop.while_loop(body, bufs.pred, counted=counted)
     return bufs.s.x, bufs.i[0]
@@ -503,11 +568,13 @@ class CGLoop(NamedTuple):
     restart: object
 
 
-def cg_loop(matvec, precond, rhs: torch.Tensor, max_iters: int, tol: float) -> CGLoop:
-    """The state buffers and the body of the CG loop, on any device (on the
-    CPU the tests iterate ``body`` while ``pred``, as the WHILE node does)."""
+def cg_loop(matvec, precond, rhs: torch.Tensor, max_iters: int, tol: float,
+            fused=None) -> CGLoop:
+    """The state buffers and the body of the CG loop (fused with ``fused``),
+    on any device (on the CPU the tests iterate ``body`` while ``pred``, as
+    the WHILE node does)."""
     bufs = cg_buffers(rhs)
-    restart, body = _cg_in_place(matvec, precond, bufs, max_iters, tol)
+    restart, body = _cg_in_place(matvec, precond, bufs, max_iters, tol, fused)
     restart(rhs)
     return CGLoop(bufs.s, bufs.i, bufs.pred, body, restart)
 
@@ -530,7 +597,7 @@ class CGGraph:
 
 
 def device_cg(matvec, precond, rhs: torch.Tensor, max_iters: int, tol: float, counted=(),
-              graph: CGGraph | None = None, inputs=None):
+              graph: CGGraph | None = None, inputs=None, fused=None):
     """``cg`` with its loop on the card: ``cg_loop``'s body captured and run
     in a conditional WHILE node (``graph_loop.DeviceWhile``), one graph
     launch for all the iterations; the host reads the iteration count once,
@@ -539,12 +606,13 @@ def device_cg(matvec, precond, rhs: torch.Tensor, max_iters: int, tol: float, co
     ``graph``, ``inputs`` lists every tensor the matvec and the
     preconditioner read that changes from call to call; the loop is kept
     there and reused while their shapes stay (without one, the capture is
-    this call's alone). Raises on the CPU, and if the capture fails."""
+    this call's alone). ``fused``: as ``cg``'s. Raises on the CPU, and if
+    the capture fails."""
     if rhs.device.type != "cuda":
         raise ValueError(f"device_cg runs on the card, not {rhs.device}: use cg")
     own = graph is None
     graph = CGGraph() if own else graph
-    key = (max_iters, tol, rhs.shape, rhs.dtype,
+    key = (max_iters, tol, rhs.shape, rhs.dtype, fused is None,
            None if inputs is None else tuple((t.shape, t.dtype) for t in inputs))
     if graph.key == key and inputs is not None:
         for dst, src in zip(graph.inputs, inputs):
@@ -552,7 +620,7 @@ def device_cg(matvec, precond, rhs: torch.Tensor, max_iters: int, tol: float, co
         graph.lp.restart(rhs)
     else:
         graph.close()
-        graph.lp = cg_loop(matvec, precond, rhs, max_iters, tol)
+        graph.lp = cg_loop(matvec, precond, rhs, max_iters, tol, fused)
         graph.loop = graph_loop.DeviceWhile(graph.lp.body, graph.lp.pred, counted=counted)
         graph.key, graph.inputs = key, inputs
     try:
@@ -761,6 +829,7 @@ def solve_ba_pcg(problem: dense.StereoBAProblem, state0: dense.BAState,
                                buffers=buffers)
             return lm.lm_solve(state0, config, *fns, loop="device",
                                counted=(stereo_factor_kernel.stereo_factor_sums,), graph=graph,
+                               tallies={"fused_cg_iterations": cg_kernel.cg_update},
                                inputs=lm_loop_inputs(problem, state0, terms, tables, plan, tracks),
                                key=_lm_key(problem, max_cg_iters, cg_tol, plan, tracks))
         if graph is not None:

@@ -11,8 +11,9 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            (csrc/bilinear_sample_imgs.cu), P (csrc/double_kernel.cu), S
            (csrc/subspace_step.cu, the dogleg's 2x2 subproblem, a kernel of
            the port), AR (csrc/peer_allreduce.cu, the sharded solves'
-           all-reduce on the ranks of one host, a kernel of the port) and
-           the device WHILE loop (csrc/graph_while.cu) with nvcc, one
+           all-reduce on the ranks of one host, a kernel of the port), CG
+           (csrc/cg_step.cu, the fused CG iteration's update, a kernel of
+           the port) and the device WHILE loop (csrc/graph_while.cu) with nvcc, one
            process each, all started together; the loop's build checks that
            the toolkit, the driver and PyTorch's runtime are CUDA 12.3 or
            newer (conditional graph nodes; 12.4 for a node nested in
@@ -50,7 +51,14 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            finite), float64 and float32, bit-equal to its plain version,
            with its latency bound (a window's chain counted from the
            source at the latencies apps/probe_op_latency measures on the
-           card) and, in the profile phase, each case's device time alone; and
+           card) and, in the profile phase, each case's device time alone;
+           the fused CG iteration at kitti1100's shape (pcg.random_system),
+           float64 and float32: schur_sp (K3 with Hpp p - and the first dot
+           in its pose phase) against the plan's matvec, cg_update against
+           cg_body's in-place iteration given the same S p, and 30 fused
+           iterations against cg_body with schur_matvec_plan and the
+           block-Jacobi preconditioner, each from the plain iterate, two
+           calls bit-equal, with their bounds; and
            the host cost of the two ways to read PyTorch's current stream
   slice    generates triangle200 and kitti1100 with the port's make_sim and
            runs both CLIs on CUDA: the flagship sliding window (dataset_vo_sun,
@@ -66,15 +74,17 @@ Phases (``--phases`` selects a subset, for bring-up; the default runs all):
            (dataset_vo --window 0, the same three runs, with its defaults on
            the card: the LM loop in a WHILE node, the CG loop's WHILE node
            nested in it; K2 once per LM iteration and K3 once per CG
-           iteration, one capture, final cost and ATE against the JAX
+           iteration, in either form, and cg_update once per schur_sp,
+           one capture, final cost and ATE against the JAX
            figures), then solve_ba_pcg on the same problems with its loops
            in turns (CG / LM: host / host, device / host, device / device
            twice, the second a restart of the first's capture, device /
            host, host / host) at triangle200 float64 and float32,
            triangle200 float64 with the banded preconditioner forced and
            kitti1100 float64: the same LM and CG iterations and the same
-           bits in all six, K2 once per LM iteration and K3 once per CG
-           iteration, and the CLI's final cost; and a checkpoint resume:
+           bits in all six, K2 once per LM iteration, K3 once per CG
+           iteration and, with block-Jacobi, the fused schur_sp and
+           cg_update too (none banded), and the CLI's final cost; and a checkpoint resume:
            the triangle200 float64 sun pass
            (--sun-only --checkpoint PATH --checkpoint-every 25) killed in a
            child process once its checkpoint holds window 100 or later,
@@ -499,17 +509,20 @@ def phase_build(kernels):
                 log(f"[build]   {ln.strip()}")
 
 
-def _medians_ms(torch, fns, reps=50):
+def _medians_ms(torch, fns, reps=50, before=None):
     """Median time per call of each function, CUDA events around the call
     (host included), the functions taken in turns so that they share the
     host's and the card's state (pair only calls of like cost: a heavy one
-    leaves the host's caches cold for the next)."""
+    leaves the host's caches cold for the next). ``before(i)``, where
+    given, runs ahead of the events of each call of function ``i``."""
     for fn in fns:
         fn()
     torch.cuda.synchronize()
     times = [[] for _ in fns]
     for _ in range(reps):
-        for fn, t in zip(fns, times):
+        for i, (fn, t) in enumerate(zip(fns, times)):
+            if before is not None:
+                before(i)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -654,7 +667,8 @@ def _profile_full_batch(torch, data):
     for _ in range(5):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lp = pcg.cg_loop(lambda v: pcg.schur_matvec_plan(b, v), precond, rhs, 100, 1e-6)
+        lp = pcg.cg_loop(lambda v: pcg.schur_matvec_plan(b, v), precond, rhs, 100, 1e-6,
+                         pcg.fused_inputs(b, precond))
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         loop = graph_loop.DeviceWhile(lp.body, lp.pred)
@@ -769,7 +783,8 @@ def _profile_lm_node(torch, problem, state, tables, plan, cg_us):
 
 
 def _node_us_per_iteration(torch, b, precond, rhs):
-    """Device us per CG iteration inside the WHILE node: CUDA events around
+    """Device us per CG iteration inside the WHILE node, the iteration
+    ``pcg_solve`` runs (fused with block-Jacobi): CUDA events around
     the loop's launch (its state reset before each), for 21 and 1
     iterations (tol 0), the difference over 20; median of 10 each."""
     from ceres_slam_tpu_torch.ops import graph_loop
@@ -778,7 +793,8 @@ def _node_us_per_iteration(torch, b, precond, rhs):
     s0, _ = pcg.cg_start(precond, rhs, 0.0)
     ms = {}
     for n in (1, 21):
-        lp = pcg.cg_loop(lambda v: pcg.schur_matvec_plan(b, v), precond, rhs, n, 0.0)
+        lp = pcg.cg_loop(lambda v: pcg.schur_matvec_plan(b, v), precond, rhs, n, 0.0,
+                         pcg.fused_inputs(b, precond))
         loop = graph_loop.DeviceWhile(lp.body, lp.pred)
         times = []
         for _ in range(11):
@@ -1176,6 +1192,156 @@ def _kernel_subspace(torch, sk, results, jobs):
                 "float64 and float32")
 
 
+# the fused CG iteration's checks: iterations against cg_body; the update's
+# bytes a pose (x, r, p, Sp, the factors' lower triangle and the dot share
+# read; x, r, z written; z and p read and p written) and operations a pose
+# (the step, two triangular solves, two dots, the direction)
+CG_ITERATIONS = 30
+CG_BYTES_PER_POSE = 82
+CG_OPS_PER_POSE = 132
+
+
+def _fb_counters(kernels) -> dict:
+    """The launch counters of the full-batch path's kernels: K2, K3 in
+    either form (``schur_sp`` counts as a K3 launch too), and the fused CG
+    iteration's ``schur_sp`` (SP) and ``cg_update`` (CG)."""
+    return {"K2": kernels["K2"].stereo_factor_sums, "K3": kernels["K3"].schur_uy,
+            "SP": kernels["K3"].schur_sp, "CG": kernels["CG"].cg_update}
+
+
+def _fb_zero(kernels) -> None:
+    for w in _fb_counters(kernels).values():
+        w.launches = 0
+
+
+def _fb_launches(kernels) -> dict:
+    """The full-batch kernels' launches since ``_fb_zero``."""
+    return {name: w.launches for name, w in _fb_counters(kernels).items()}
+
+
+def _kernel_cg(torch, kernels, results, jobs):
+    """The fused CG iteration at kitti1100's shape (``pcg.random_system``,
+    S SPD), float64 and float32: ``schur_sp`` against the plan's matvec
+    and its dot shares, ``cg_update`` against ``cg_body``'s in-place
+    iteration given the same ``Sp``, and 30 fused iterations against 30 of
+    ``cg_body`` with ``schur_matvec_plan`` and ``_block_precond``, each
+    from the plain iterate: within 1e-12 (float64) or 1e-5 (float32) of
+    each vector's largest entry, two calls bit-equal. Wrapper and plain
+    times (``cg_update``'s from the same iterate every call, reset outside
+    the events) and the bounds of the kernels' own bytes; host us of a
+    fused iteration back to back."""
+    from ceres_slam_tpu_torch.solver import pcg
+
+    sp, update = kernels["K3"].schur_sp, kernels["CG"].cg_update
+    N, J, K = FULL_SHAPES["kitti1100"]
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        e, tol = (8, TOL64) if dtype == torch.float64 else (4, 1e-5)
+        b, tables, rhs = pcg.random_system(N, J, K, dtype, "cuda", seed=7)
+        precond = pcg._block_precond(pcg.schur_diag_blocks(b, tables))
+        fused = pcg.fused_inputs(b, precond)
+        if fused is None:
+            fail(f"CG kitti1100 {tag}: blocks bound to K3 with block-Jacobi do not run fused")
+
+        def matvec(v):
+            return pcg.schur_matvec_plan(b, v)
+
+        s0 = pcg.cg_start(precond, rhs, 0.0)[0]
+        errs = {}
+
+        def close(what, got, ref):
+            got, ref = got.double(), ref.double()
+            err = (got - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            errs[what] = max(errs.get(what, 0.0), err)
+            if not (got.isfinite().all() and err <= tol * scale):
+                fail(f"CG kitti1100 {tag}: {what} max|err| {err:.3e} vs max|ref| {scale:.3e}")
+
+        p = s0.p
+        Sp, dots = sp(b.uy, p, b.Hpp)
+        again = sp(b.uy, p, b.Hpp)
+        ref = matvec(p)
+        torch.cuda.synchronize()
+        if not (torch.equal(Sp, again[0]) and torch.equal(dots, again[1])):
+            fail(f"schur_sp kitti1100 {tag}: two calls on the same inputs differ")
+        close("Sp", Sp, ref)
+        close("dots", dots, (p * ref).sum(1))
+
+        def loop(step):
+            """``(bufs, put(s), body)``: a CG loop's buffers, a reset of them
+            to the iterate ``s``, and one iteration in place: fused where
+            ``step`` is None, else ``cg_body`` with the matvec ``step``."""
+            bufs = pcg.cg_buffers(rhs)
+            restart, body = pcg._cg_in_place(step, precond, bufs, 10 ** 6, 0.0,
+                                             fused if step is None else None)
+            restart(rhs)
+
+            def put(s):
+                for buf, t in zip(bufs.s, s):
+                    buf.copy_(t)
+                bufs.i.zero_()
+
+            return bufs, put, body
+
+        fb, fput, fbody = loop(None)
+        pb, pput, pbody = loop(lambda v: Sp)
+
+        def update_call():
+            update(fb.s, Sp, dots, precond.chol, fb.bound, fb.i, fb.pred, 10 ** 6)
+
+        outs = []
+        for _ in range(2):
+            fput(s0)
+            update_call()
+            outs.append([t.clone() for t in (*fb.s, fb.i, fb.pred)])
+        pput(s0)
+        pbody()
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(*outs)):
+            fail(f"cg_update kitti1100 {tag}: two calls on the same inputs differ")
+        for name, got, want in zip((*pcg.CGState._fields, "i", "pred"), outs[0],
+                                   (*pb.s, pb.i, pb.pred)):
+            close(f"update {name}", got, want)
+        s = s0
+        for _ in range(CG_ITERATIONS):
+            fput(s)
+            fbody()
+            s = pcg.cg_body(matvec, precond, s)
+            for name, got, want in zip(pcg.CGState._fields, fb.s, s):
+                close(f"iteration {name}", got, want)
+        sp_ms, sp_plain_ms = _medians_ms(torch, [
+            lambda: sp(b.uy, p, b.Hpp), lambda: (lambda y: (y, (p * y).sum(1)))(matvec(p))])
+        cg_ms, cg_plain_ms = _medians_ms(torch, [update_call, pbody],
+                                         before=lambda i: (fput, pput)[i](s0))
+        fput(s0)
+        iter_ms = _median_ms(torch, fbody)
+        fput(s0)  # 100 more iterations: CG's residual stays far from underflow
+        host_us = _host_us(torch, fbody, n=100)
+        sp_row = results[("SP", "kitti1100", tag)] = {
+            "max_abs_err": max(errs["Sp"], errs["dots"]), "ms": sp_ms, "plain_ms": sp_plain_ms,
+            **_bound_of((18 * N + 9 * J + 49 * K) * e + 8 * N,
+                        OPS_PER_ROW["K3"] * N + 84 * K, tag), "library_ms": None}
+        cg_row = results[("CG", "kitti1100", tag)] = {
+            "max_abs_err": max(v for k, v in errs.items() if k.startswith("update")),
+            "ms": cg_ms, "plain_ms": cg_plain_ms,
+            **_bound_of(CG_BYTES_PER_POSE * K * e, CG_OPS_PER_POSE * K, tag),
+            "library_ms": None}
+        both = {"bound_ms": sp_row["bound_ms"] + cg_row["bound_ms"], "bound_by": "bytes"}
+        jobs.append((f"SP schur_sp kitti1100 {tag}", lambda a=(b.uy, p, b.Hpp): sp(*a), sp_row))
+        jobs.append((f"CG kitti1100 {tag}, a fused iteration (schur_sp, cg_update)", fbody, both))
+        worst = max(v for k, v in errs.items() if k.startswith("iteration"))
+        log(f"[kernels] schur_sp kitti1100 N={N} J={J} K={K} {tag}: kernel {sp_ms * 1e3:.1f} us, "
+            f"plain (schur_matvec_plan and the dot shares) {sp_plain_ms * 1e3:.1f} us, "
+            f"{_bound_str(sp_row)}, two calls bit-equal, max|err| Sp {errs['Sp']:.3e}, dots "
+            f"{errs['dots']:.3e}")
+        log(f"[kernels] cg_update kitti1100 K={K} {tag}: kernel {cg_ms * 1e3:.1f} us, plain "
+            f"(cg_body in place given Sp) {cg_plain_ms * 1e3:.1f} us, {_bound_str(cg_row)}, two "
+            f"calls bit-equal, max|err| {cg_row['max_abs_err']:.3e}; a fused iteration "
+            f"{iter_ms * 1e3:.1f} us (host {host_us:.1f} us back to back); "
+            f"{CG_ITERATIONS} iterations against cg_body with schur_matvec_plan, each from the "
+            f"plain iterate, within {tol:g} of each vector's largest entry: max|err| {worst:.3e}")
+
+
 def _p_while_times(torch, x):
     """P's while form (a DeviceWhile: P's in-place 4-block launch, a
     counter and the condition in the body): host us per launch of the
@@ -1252,6 +1418,7 @@ def phase_kernels(torch, kernels):
     _kernel_k4(torch, kernels["K4"], results, jobs)
     _kernel_p(torch, kernels["P"], results, jobs)
     _kernel_subspace(torch, kernels["S"], results, jobs)
+    _kernel_cg(torch, kernels, results, jobs)
     return results, jobs, _p_path(torch, kernels["P"])
 
 
@@ -1259,7 +1426,8 @@ def phase_profile(torch, jobs, dense: bool, phong: bool, data, smi, blowup: bool
                   grid: bool = False, flagship: bool = False):
     """torch.profiler measurements, run last so that no profiler session
     precedes the timed main-path runs: each kernel call's device time and
-    kernels per call (K1 must run one, K2 and K3 two), K4 on the path's own
+    kernels per call (K1 must run one, K2, K3 and schur_sp two, a fused
+    CG iteration four), K4 on the path's own
     coordinates, kitti1100's build_obs_blocks and CG iteration, and a trace
     of one photometric solve."""
     from ceres_slam_tpu_torch.ops.full_batch_trace import device_span_ms
@@ -1268,13 +1436,14 @@ def phase_profile(torch, jobs, dense: bool, phong: bool, data, smi, blowup: bool
         ms, kernels, by_name = _device_ms(fn)
         share = f", {100 * row['bound_ms'] / ms:.1f}% of its bound" if row else ""
         more = ""
-        if label.split()[0] in ("K2", "K3"):
+        if label.split()[0] in ("K2", "K3", "SP", "CG"):
             span = device_span_ms(fn)
             more = (" (" + ", ".join(f"{n} {t * 1e3:.2f} us" for n, t in by_name.items())
                     + f"); {span * 1e3:.2f} us per call back to back, gaps included")
         log(f"[profile] {label}: {ms * 1e3:.2f} us of device time per call, {kernels:g} device "
             f"kernels per call{more}{share}")
-        want = {"K1": 1, "K2": 2, "K3": 2, "P": 1, "S": 1}.get(label.split()[0])
+        want = {"K1": 1, "K2": 2, "K3": 2, "P": 1, "S": 1, "SP": 2, "CG": 4}.get(
+            label.split()[0])
         if want and round(kernels) != want:
             fail(f"{label}: {kernels:g} device kernels per call, not {want}")
     from ceres_slam_tpu_torch.apps import dense_stereo
@@ -1530,11 +1699,10 @@ def _run_full(data, seq, dtype, device, kernels):
     from ceres_slam_tpu_torch.utils import csvio, metrics
 
     base = os.path.join(data, seq)
-    k2, k3 = kernels["K2"].stereo_factor_sums, kernels["K3"].schur_uy
-    k2.launches = k3.launches = 0
+    _fb_zero(kernels)
     stats = dataset_vo.main([base + "_vo.csv", "--window", "0", "--dtype", dtype,
                              "--device", device])  # on the card: both loops there, nested
-    launches = {"K2": k2.launches, "K3": k3.launches}
+    launches = _fb_launches(kernels)
     gt = csvio.read_poses_csv(base + "_gt_poses.csv")
     for out in (stats["poses"], stats["map"]):
         if not os.path.exists(out):
@@ -1615,16 +1783,18 @@ def _slice_window(data, kernels, smi):
 def _slice_full(data, kernels):
     """Full-batch BA through dataset_vo (its defaults on the card: the LM
     loop in a WHILE node with the CG loop's nested in it); K2 must launch
-    once per LM iteration and K3 once per CG iteration. Returns K2's and
-    K3's launches, the triangle200 float64 poses and that run's final
-    cost, and each run's final cost."""
-    total = {"K2": 0, "K3": 0}
+    once per LM iteration, K3 (either form) once per CG iteration and
+    cg_update once per schur_sp. Returns the full-batch kernels' launches
+    (``_fb_launches``), the triangle200 float64 poses and that run's
+    final cost, and each run's final cost."""
+    total = dict.fromkeys(("K2", "K3", "SP", "CG"), 0)
     keep, costs = None, {}
     for seq, dtype in (("triangle200", "float64"), ("triangle200", "float32"),
                        ("kitti1100", "float64")):
         stats, launches, poses, ate = _run_full(data, seq, dtype, "cuda", kernels)
         lm_it, cg_it = stats["lm_iterations"], stats["cg_iterations"]
-        if launches["K2"] != lm_it or launches["K3"] != cg_it or not cg_it:
+        if (launches["K2"] != lm_it or launches["K3"] != cg_it or not cg_it
+                or launches["CG"] != launches["SP"]):
             fail(f"{seq} full batch {dtype}: {launches} launches for {lm_it} LM and {cg_it} "
                  "CG iterations")
         if stats["lm_graph_captures"] != 1:
@@ -1643,7 +1813,8 @@ def _slice_full(data, kernels):
             f"{stats['ransac_s']:.2f} s, solve {stats['solve_s']:.2f} s, total "
             f"{stats['total_s']:.2f} s; {lm_it} LM iterations, {cg_it} CG iterations "
             f"({cg_it / max(lm_it, 1):.1f} per LM iteration); launches K2 {launches['K2']}, "
-            f"K3 {launches['K3']}; LM loop in the WHILE node, captured "
+            f"K3 {launches['K3']} (of which fused, schur_sp {launches['SP']}), cg_update "
+            f"{launches['CG']}; LM loop in the WHILE node, captured "
             f"{stats['lm_graph_captures']} time(s)")
         if not (cost_dev <= rtol and abs(ate - ate_ref) <= ate_atol):
             fail(f"{seq} full batch {dtype}: cost {stats['final_cost']:.6e} / ATE {ate:.6f} "
@@ -1671,9 +1842,10 @@ def _loop_turns(data, kernels, seq, dtype, precond, cli_cost):
     the second device run restarts the first's capture). Every run must
     give the same LM and CG iterations and the same bits (poses, points,
     final cost); K2 must launch once per LM iteration and K3 once per CG
-    iteration. The block-Jacobi float64 runs must give the CLI's final
+    iteration, and with block-Jacobi schur_sp and cg_update too (banded:
+    neither). The block-Jacobi float64 runs must give the CLI's final
     cost (its solve ran the device loops) and the banded one the same
-    minimum (rtol 1e-6). Returns K2's and K3's launches."""
+    minimum (rtol 1e-6). Returns the full-batch kernels' launches."""
     import torch
 
     from ceres_slam_tpu_torch.apps import common
@@ -1689,23 +1861,24 @@ def _loop_turns(data, kernels, seq, dtype, precond, cli_cost):
     problem = dense.to_device(problem, "cuda")
     tol = common.solver_tolerance(dtype, 1)
     config = SolveConfig(max_iters=1000, nonmonotonic=True, ftol=tol, xtol=tol)
-    k2, k3 = kernels["K2"].stereo_factor_sums, kernels["K3"].schur_uy
-    total, runs, graph = {"K2": 0, "K3": 0}, [], lm.LMGraph()
+    total, runs, graph = dict.fromkeys(("K2", "K3", "SP", "CG"), 0), [], lm.LMGraph()
     g0 = dict(lm.GRAPH_STATS)
     for cg_loop, lm_loop in LOOP_FORMS:
-        k2.launches = k3.launches = 0
+        _fb_zero(kernels)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         sol, summ = pcg.solve_ba_pcg(problem, state, config, precond=precond, loop=cg_loop,
                                      lm_loop=lm_loop, graph=graph if lm_loop == "device" else None)
         torch.cuda.synchronize()
         runs.append(((cg_loop, lm_loop), sol, summ, time.perf_counter() - t0))
-        total["K2"] += k2.launches
-        total["K3"] += k3.launches
-        if k3.launches != summ.linear_iterations or k2.launches != summ.iterations:
-            fail(f"{seq} {dtype} {precond} CG loop {cg_loop}, LM loop {lm_loop}: K2 "
-                 f"{k2.launches}, K3 {k3.launches} launches for {summ.iterations} LM and "
-                 f"{summ.linear_iterations} CG iterations")
+        n = _fb_launches(kernels)
+        for name in total:
+            total[name] += n[name]
+        fused = summ.linear_iterations if precond == "jacobi" else 0
+        if (n["K3"] != summ.linear_iterations or n["K2"] != summ.iterations
+                or n["SP"] != fused or n["CG"] != fused):
+            fail(f"{seq} {dtype} {precond} CG loop {cg_loop}, LM loop {lm_loop}: launches "
+                 f"{n} for {summ.iterations} LM and {summ.linear_iterations} CG iterations")
     graph.close()
     captures = lm.GRAPH_STATS["captures"] - g0["captures"]
     restarts = lm.GRAPH_STATS["restarts"] - g0["restarts"]
@@ -2008,21 +2181,20 @@ def _graph_dataset(data, seq, device):
 
 
 def _graph_solve(ds, linear_solver, strategy, device, kernels, lm_loop=None):
-    """One FactorGraph solve with K2's and K3's launches counted from 0 (and
-    the LM loop captures it made)."""
+    """One FactorGraph solve with the full-batch kernels' launches counted
+    from 0 (and the LM loop captures it made)."""
     import torch
 
     from ceres_slam_tpu_torch.solver import lm
 
-    k2, k3 = kernels["K2"].stereo_factor_sums, kernels["K3"].schur_uy
     g = ds.factor_graph(device)
-    k2.launches = k3.launches = 0
+    _fb_zero(kernels)
     captures = lm.GRAPH_STATS["captures"]
     t0 = time.perf_counter()
     _, summ = g.solve(linear_solver=linear_solver, strategy=strategy, lm_loop=lm_loop)
     if device == "cuda":
         torch.cuda.synchronize()
-    return g, summ, time.perf_counter() - t0, {"K2": k2.launches, "K3": k3.launches,
+    return g, summ, time.perf_counter() - t0, {**_fb_launches(kernels),
                                                "captures": lm.GRAPH_STATS["captures"] - captures}
 
 
@@ -2091,12 +2263,12 @@ def _dense_window_pass(data, smi):
 def phase_graph(kernels, data, smi):
     """FactorGraph on the card (dense and schur with the LM loop in its node
     and on the host in turns), then the dense LM loop of dataset_vo's
-    window pass in both forms; returns K2's and K3's launches, and the
-    triangle200 pcg solve's poses."""
+    window pass in both forms; returns the full-batch kernels' launches,
+    and the triangle200 pcg solve's poses."""
     import numpy as np
 
     _make_sims(data)
-    total, keep = {"K2": 0, "K3": 0}, None
+    total, keep = dict.fromkeys(("K2", "K3", "SP", "CG"), 0), None
     for seq in JAX_GRAPH:
         t0 = time.perf_counter()
         ds = _graph_dataset(data, seq, "cuda")
@@ -3272,11 +3444,11 @@ def phase_dist(kernels, data, smi, results):
     from ceres_slam_tpu_torch.utils import csvio
 
     k2, k3 = kernels["K2"].stereo_factor_sums, kernels["K3"].schur_uy
-    for name in ("K2", "K3", "AR"):
+    for name in ("K2", "K3", "AR", "CG"):
         kernels[name].build()
     _make_sims(data)
     config = lm.SolveConfig(**DIST_CONFIG)
-    total = {"K2": 0, "K3": 0, "AR": 0}
+    total = dict.fromkeys(("K2", "K3", "SP", "CG", "AR"), 0)
 
     # (a) kitti1100 full batch, one NCCL rank, block-Jacobi, the node and
     # host forms in turns
@@ -3290,13 +3462,13 @@ def phase_dist(kernels, data, smi, results):
     launches = _gate_kitti1100(fig, arr, gt, kitti_state, smi)
     for name in ("K2", "AR"):
         total[name] += launches[name]
-    k2.launches = k3.launches = 0
+    _fb_zero(kernels)
     t0 = time.perf_counter()
     ref, rsumm = pcg.solve_ba_pcg(problem, state, config, precond="jacobi")
     torch.cuda.synchronize()
     ref_wall = time.perf_counter() - t0
-    total["K2"] += k2.launches
-    total["K3"] += k3.launches
+    for name, n in _fb_launches(kernels).items():
+        total[name] += n
     d = float(np.abs(arr["jacobi"] - ref.poses.cpu().numpy()).max())
     log(f"[dist] kitti1100 solve_ba_pcg single card, jacobi (K2 + K3): cost "
         f"{rsumm.final_cost:.6e}, {rsumm.iterations} LM and {rsumm.linear_iterations} CG "
@@ -3315,14 +3487,15 @@ def phase_dist(kernels, data, smi, results):
     _log_peer("two processes sharing the card (a gloo group)", fig, results)
     H, g = dense.ba_normal_equations(problem, state)
     _normal_eq_gate("triangle200, 2 ranks", arr["H"], arr["g"], H, g)
-    k2.launches = k3.launches = 0
+    _fb_zero(kernels)
     singles = {"gn_step": sharded_ba.gn_step(problem, state, H, g),
                "solve_ba": dense.solve_ba(problem, state, config)[0],
                "jacobi": pcg.solve_ba_pcg(problem, state, config, precond="jacobi")[0],
                "banded": pcg.solve_ba_pcg(problem, state, config, precond="banded")[0]}
     total["K2"] += k2.launches + len(figures) * (fig["runs"]["jacobi"]["k2"]
                                                  + fig["runs"]["banded"]["k2"])
-    total["K3"] += k3.launches
+    for name in ("K3", "SP", "CG"):
+        total[name] += _fb_launches(kernels)[name]
     for name, ref_cost in JAX_DIST.items():
         r = fig["runs"][name]
         dev = abs(r["cost"] - ref_cost) / ref_cost
@@ -3510,6 +3683,20 @@ KERNELS = (
      "every operation rounded as the plain version's (bit-equal); runs inside the window "
      "loop's WHILE node; latency-bound (latency_bound_ms: a window's chain at the measured "
      "latencies)"),
+    ("SP", "schur_sp", "schur_uy.cu",
+     "none: a kernel of the port (the JAX package runs a CG iteration's matvec and dot as jnp "
+     "operations, ceres_slam_tpu/solver/pcg.py:499)", "kitti1100", "f64",
+     "the fused CG iteration's matvec: K3's landmark phase, then a pose phase that also forms "
+     "Sp = Hpp p - Uy and each pose's share p_k . Sp_k of the first dot (Hpp_k and p_k copied "
+     "to shared memory asynchronously); runs inside the CG loop's WHILE node with block-Jacobi"),
+    ("CG", "cg_update", "cg_step.cu",
+     "none: a kernel of the port (the JAX package runs a CG iteration's update as jnp "
+     "operations in its lax.while_loop, ceres_slam_tpu/solver/pcg.py:499, :512)", "kitti1100",
+     "f64",
+     "the rest of a CG iteration after schur_sp in two launches of 64-thread blocks, a thread a "
+     "pose: every block sums the global dots in one fixed tree (no atomics, the same bits run to "
+     "run); alpha, x, r, the block-Jacobi factors' two triangular solves in registers, r.z, r.r; "
+     "then beta, p, the count and the stop test; latency-bound"),
 )
 
 
@@ -3537,19 +3724,20 @@ def main():
     sys.path.insert(0, ROOT)
     try:
         from ceres_slam_tpu_torch.apps import probe_op_latency
-        from ceres_slam_tpu_torch.ops import (allreduce_kernel, bilinear_kernel, double_kernel,
-                                              graph_loop, schur_kernel, stereo_factor_kernel,
-                                              subspace_kernel, window_kernel)
+        from ceres_slam_tpu_torch.ops import (allreduce_kernel, bilinear_kernel, cg_kernel,
+                                              double_kernel, graph_loop, schur_kernel,
+                                              stereo_factor_kernel, subspace_kernel,
+                                              window_kernel)
     except ImportError as e:
         fail(f"cannot import the port: {e}")
     kernels = {"K1": window_kernel, "K2": stereo_factor_kernel, "K3": schur_kernel,
                "K4": bilinear_kernel, "P": double_kernel, "S": subspace_kernel,
-               "AR": allreduce_kernel}
+               "AR": allreduce_kernel, "CG": cg_kernel}
 
     smi = phase_device(torch)
     if "build" in phases or "kernels" in phases:
         phase_build({**kernels, "loop": graph_loop, "probe": probe_op_latency})
-    launches = {name: 0 for name in kernels}
+    launches = {row[0]: 0 for row in KERNELS}
     k, jobs = {}, []
     if "kernels" in phases:
         k, jobs, launches["P"] = phase_kernels(torch, kernels)
@@ -3586,6 +3774,7 @@ def main():
                       smi, "blowup" in phases, "batch" in phases, "slice" in phases)
     nan = {"max_abs_err": math.nan, "ms": math.nan, "plain_ms": math.nan, "bound_ms": math.nan,
            "bound_by": None, "library_ms": None}
+    launches["K3"] -= launches["SP"]  # K3's row: schur_uy's own (schur_sp counts as K3 too)
     batched = {f"{shape} {tag}": k[("K1 batch", shape, tag)] for shape in K1_BATCH_SHAPES
                for tag in ("f64", "f32") if ("K1 batch", shape, tag) in k}
     log(json.dumps({"kernels": [{

@@ -944,6 +944,204 @@ def test_solve_with_reused_loop_equals_host_loop(precond):
     assert torch.equal(a.poses, b.poses) and torch.equal(a.points, b.points)
 
 
+# The fused CG iteration (K3 with ``Hpp p -`` and the first dot in its pose
+# phase, ``schur_kernel.schur_sp``, then ``cg_kernel.cg_update``) against
+# ``cg_body`` with the same matvec and factors: each of 30 iterations from
+# the plain iterate, float64 within 1e-12 and float32 within 1e-5 of each
+# vector's largest entry (the dots sum in another order, the triangular
+# solves run in registers, not cuBLAS); whole loops take the same
+# iterations.
+
+def _fused_case(case, dtype):
+    """``(b, tables, precond, rhs)`` on the card: a triangle200-shaped
+    problem's blocks and right-hand side at lam 1e-2, or
+    ``pcg.random_system`` at kitti1100's shape (S SPD)."""
+    if case == "triangle200":
+        problem, state = _lm_problem(dtype)
+        st = problem.stereo
+        tables = pcg.build_obs_tables(st.pose_idx.cpu(), st.point_idx.cpu(), 200, 448,
+                                      device="cuda")
+        plan = full_batch_plan.plan_for_problem(problem)
+        b = pcg.build_obs_blocks(problem, state, 1e-2, tables=tables, plan=plan)
+        y = lie._mv(b.Cinv, b.gl)
+        rhs = -(b.gp - pcg._sum_by_pose(b, tables, pcg.u18_vec(b.U18, y[b.point_idx])))
+    else:
+        b, tables, rhs = pcg.random_system(*FULL_BATCH["kitti1100"], dtype, "cuda", seed=21)
+    return b, tables, pcg._block_precond(pcg.schur_diag_blocks(b, tables)), rhs.contiguous()
+
+
+def _rel(got, ref) -> float:
+    return ((got.double() - ref.double()).abs().max() / ref.double().abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("case", ["random", "triangle200"])
+def test_fused_cg_iteration_matches_cg_body(case, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    b, _, precond, rhs = _fused_case(case, dtype)
+    fused = pcg.fused_inputs(b, precond)
+
+    def plain(v):
+        return pcg.schur_matvec_plan(b, v)
+
+    assert fused == (b, precond.chol)
+    bufs = pcg.cg_buffers(rhs)
+    restart, body = pcg._cg_in_place(plain, precond, bufs, 30, 0.0, fused)
+    restart(rhs)
+    s = pcg.cg_start(precond, rhs, 0.0)[0]
+    for it in range(30):
+        for buf, t in zip(bufs.s, s):
+            buf.copy_(t)
+        before = pcg.cg_kernel.cg_update.launches
+        body()
+        assert pcg.cg_kernel.cg_update.launches == before + 1
+        s = pcg.cg_body(plain, precond, s)
+        for name, got, ref in zip(pcg.CGState._fields, bufs.s, s):
+            assert torch.isfinite(got).all(), (it, name)
+            assert _rel(got, ref) <= tol, (it, name, _rel(got, ref))
+    for max_iters, cg_tol in ((30, 0.0), (200, 1e-10 if dtype == torch.float64 else 1e-5)):
+        (x, n), (xp, n_plain) = (pcg.cg(plain, precond, rhs, max_iters, cg_tol, f)
+                                 for f in (fused, None))
+        assert n == n_plain > 3, (n, n_plain)
+        assert _rel(x, xp) <= tol, _rel(x, xp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_fused_cg_matvec_matches_plain(dtype):
+    """``schur_sp``'s ``Sp = Hpp p - Uy`` against ``Hpp p - schur_uy`` and its
+    dot shares against ``(p * Sp).sum(1)``, at kitti1100's shape; its ``Uy``
+    is K3's to the bit (``Hpp = 0``). Each wrapper runs two kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    b, _, precond, p = _fused_case("random", dtype)
+    before = (schur_kernel.schur_uy.launches, schur_kernel.schur_sp.launches)
+    Sp, dots = schur_kernel.schur_sp(b.uy, p, b.Hpp)
+    again = schur_kernel.schur_sp(b.uy, p, b.Hpp)
+    torch.cuda.synchronize()
+    assert (schur_kernel.schur_uy.launches, schur_kernel.schur_sp.launches) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(Sp, again[0]) and torch.equal(dots, again[1])
+    ref = lie._mv(b.Hpp, p) - schur_kernel.schur_uy(b.uy, p)
+    assert _rel(Sp, ref) <= tol and _rel(dots, (p * ref).sum(1)) <= tol
+    minus_uy, _ = schur_kernel.schur_sp(b.uy, p, torch.zeros_like(b.Hpp))
+    assert torch.equal(minus_uy, -schur_kernel.schur_uy(b.uy, p))
+    assert _device_kernels(lambda: schur_kernel.schur_sp(b.uy, p, b.Hpp)) == 2
+    bufs = pcg.cg_buffers(p)
+    assert _device_kernels(lambda: pcg.cg_kernel.cg_update(
+        bufs.s, Sp, dots, precond.chol, bufs.bound, bufs.i, bufs.pred, 5)) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["zero_rhs", "nan_factor", "max_iters"])
+def test_fused_cg_edge_cases(case):
+    """A zero right-hand side (``rz = 0``: no iteration; one forced
+    iteration leaves zeros, no NaN, and stops), a NaN factor (the loop
+    stops after one iteration with a non-finite step, as the plain body
+    does) and ``max_iters`` reached: the fused loop as ``cg_body``'s."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    b, tables, precond, rhs = _fused_case("triangle200", torch.float64)
+    if case == "zero_rhs":
+        rhs = torch.zeros_like(rhs)
+    if case == "nan_factor":
+        S_diag = pcg.schur_diag_blocks(b, tables).clone()
+        S_diag[3] = -torch.eye(6, dtype=S_diag.dtype, device="cuda")
+        precond = pcg._block_precond(S_diag)
+        assert torch.isnan(precond.chol[3]).all() and torch.isfinite(precond.chol[4]).all()
+    fused = pcg.fused_inputs(b, precond)
+
+    def plain(v):
+        return pcg.schur_matvec_plan(b, v)
+
+    max_iters, tol = (5, 0.0) if case == "max_iters" else (200, 1e-10)
+    x, n = pcg.cg(plain, precond, rhs, max_iters, tol, fused)
+    xp, n_plain = pcg.cg(plain, precond, rhs, max_iters, tol)
+    assert n == n_plain == {"zero_rhs": 0, "nan_factor": 1, "max_iters": 5}[case]
+    if case == "nan_factor":
+        assert not torch.isfinite(x).any() and not torch.isfinite(xp).any()
+    else:
+        assert _rel(x, xp) <= 1e-12 if case == "max_iters" else torch.equal(x, xp)
+    if case == "zero_rhs":
+        bufs = pcg.cg_buffers(rhs)
+        restart, body = pcg._cg_in_place(plain, precond, bufs, 10, 1e-10, fused)
+        restart(rhs)
+        assert int(bufs.pred) == 0
+        body()
+        assert all(torch.equal(t, torch.zeros_like(t)) for t in bufs.s)
+        assert (int(bufs.i), int(bufs.pred)) == (1, 0)
+
+
+@pytest.mark.cuda
+def test_fused_cg_rejects_a_step_with_a_nan_factor(monkeypatch):
+    """Every LM iteration's block-Jacobi factors with a NaN block: the CG
+    loop's step is non-finite and the LM loop rejects it, so the solve
+    returns its start, in the LM node and on the host alike."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    problem, state = _lm_problem(torch.float64)
+    block_precond = pcg._block_precond
+
+    def broken(S_diag):
+        return block_precond(torch.cat([-S_diag[:1], S_diag[1:]]))
+
+    monkeypatch.setattr(pcg, "_block_precond", broken)
+    cfg = lm.SolveConfig(max_iters=3)
+    for lm_loop in ("device", "host"):
+        before = pcg.cg_kernel.cg_update.launches
+        sol, summ = pcg.solve_ba_pcg(problem, state, cfg, precond="jacobi", lm_loop=lm_loop)
+        torch.cuda.synchronize()
+        assert pcg.cg_kernel.cg_update.launches - before == summ.linear_iterations >= 1
+        assert summ.final_cost == summ.initial_cost
+        assert torch.equal(sol.poses, state.poses) and torch.equal(sol.points, state.points)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precond", ["jacobi", "banded"])
+def test_fused_cg_iterations_on_the_node_span(precond):
+    """The ``lm.node`` span's ``fused_cg_iterations`` equals its CG
+    iterations (``inner_iterations``) under block-Jacobi and is 0 under the
+    banded preconditioner; two solves through one ``LMGraph`` give the
+    same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ceres_slam_tpu_torch.utils import telemetry
+
+    problem, state = _lm_problem(torch.float64)
+    cfg = lm.SolveConfig(max_iters=8, nonmonotonic=True, ftol=1e-9, xtol=1e-12)
+    graph = lm.LMGraph()
+    telemetry.reset()
+    with telemetry.record():
+        runs = [pcg.solve_ba_pcg(problem, state, cfg, precond=precond, graph=graph)
+                for _ in range(2)]
+    nodes = [r["attrs"] for r in telemetry.spans() if r["name"] == "lm.node"]
+    graph.close()
+    assert len(nodes) == 2
+    for attrs, (_, summ) in zip(nodes, runs):
+        inner = sum(attrs["inner_iterations"])
+        assert inner > 0
+        assert attrs["fused_cg_iterations"] == (inner if precond == "jacobi" else 0)
+    (a, sa), (b, sb) = runs
+    assert (sa.iterations, sa.linear_iterations, sa.final_cost) == (
+        sb.iterations, sb.linear_iterations, sb.final_cost)
+    assert torch.equal(a.poses, b.poses) and torch.equal(a.points, b.points)
+
+
+@pytest.mark.cuda
+def test_sharded_solve_keeps_the_plain_cg_body(tmp_path):
+    """The sharded PCG on one NCCL rank (its matvec all-reduces) launches no
+    fused update."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    before = pcg.cg_kernel.cg_update.launches
+    _, summ, _ = _sharded_pcg_one_rank(tmp_path / "rdv", *_sharded_case())
+    assert summ.linear_iterations > 0 and pcg.cg_kernel.cg_update.launches == before
+
+
 @pytest.mark.cuda
 def test_device_while_capture_failure_raises():
     """A body that synchronizes with the host cannot be captured: the

@@ -515,3 +515,87 @@ def test_fixed_pose_with_non_finite_aux_stays_finite(path):
         _close(g, r.numpy(), 1e-12)
     dx, gn, pred, _ = pcg.pcg_step(bad, s, LAM, 100, 1e-10, tables=tt, plan=plan)
     assert torch.isfinite(dx).all() and torch.isfinite(pred)
+
+
+# -- the fused CG iteration: its dispatch (its kernels run on the card only) ---
+
+
+def _plan_blocks(case):
+    """The plan path's blocks on the CPU, their tables and block-Jacobi
+    preconditioner, and the banded one."""
+    problem, state, tables = case
+    p, s, tt = _ported(problem, state, tables)
+    b = pcg.build_obs_blocks(p, s, LAM, tables=tt, plan=full_batch_plan.plan_for_problem(p))
+    tracks = convert.track_info_from_numpy(_np(_tracks(problem)))
+    return p, s, tt, b, pcg._block_precond(pcg.schur_diag_blocks(b, tt)), \
+        banded.make_banded_precond(b, tracks, K)
+
+
+def test_fused_cg_dispatch_rule(case, monkeypatch):
+    """``pcg_solve`` runs a CG iteration fused only on blocks bound to K3 on
+    the card (here a binding given a C side, as ``bind`` gives one on CUDA)
+    with the block-Jacobi preconditioner; the banded preconditioner, the
+    gather matvec and the CPU's binding take ``cg_body``, as does a CG loop
+    given no ``fused`` (the sharded solve's, whose matvec all-reduces)."""
+    _, _, tt, b, jacobi, band = _plan_blocks(case)
+    card = b._replace(uy=b.uy._replace(args=object()))
+    passed = []
+    monkeypatch.setattr(pcg, "cg", lambda *args: passed.append(args[5]) or (None, 0))
+    cases = {"card": (card, None, jacobi, True), "cpu": (b, None, jacobi, False),
+             "banded": (card, None, band, False),
+             "gather": (card._replace(uy=None), tt, jacobi, False)}
+    for name, (blocks, tables, precond, fused) in cases.items():
+        want = (blocks, jacobi.chol) if fused else None
+        assert pcg.fused_inputs(blocks, precond) == want, name
+        pcg.pcg_solve(blocks, -b.gp, 10, 1e-6, tables=tables, precond=precond, loop="host")
+        assert passed.pop() == want, name
+        _, body = pcg._cg_in_place(None, precond, pcg.cg_buffers(b.gp), 10, 1e-6, want)
+        assert body.__name__ == ("fused_body" if fused else "body"), name
+    _, body = pcg._cg_in_place(None, jacobi, pcg.cg_buffers(b.gp), 10, 1e-6)
+    assert body.__name__ == "body"
+
+
+@pytest.mark.parametrize("precond", ["jacobi", "banded"])
+def test_cg_on_the_cpu_is_the_plain_loop(case, precond):
+    """``cg`` iterates ``cg_loop``'s in-place body on the host: on the CPU
+    the same bits and iterations as the loop of ``cg_start`` and
+    ``cg_body`` it replaced, to convergence and to ``max_iters``."""
+    _, _, _, b, jacobi, band = _plan_blocks(case)
+    pre, rhs = (jacobi if precond == "jacobi" else band), -b.gp
+
+    def matvec(v):
+        return pcg.schur_matvec_plan(b, v)
+
+    for max_iters, tol in ((200, 1e-10), (7, 0.0)):
+        x, n = pcg.cg(matvec, pre, rhs, max_iters, tol)
+        s, bound = pcg.cg_start(pre, rhs, tol)
+        it = 0
+        while it < max_iters and bool(pcg.cg_continue(s, bound)):
+            s = pcg.cg_body(matvec, pre, s)
+            it += 1
+        assert n == it > 2 and torch.equal(x, s.x)
+
+
+def test_no_fused_cg_off_the_card(case):
+    """On the CPU a solve launches no fused update and opens no ``lm.node``
+    span (its LM loop runs on the host), so nothing reports a fused CG
+    iteration; the fused wrappers refuse tensors off the card."""
+    from ceres_slam_tpu_torch.ops import cg_kernel
+    from ceres_slam_tpu_torch.utils import telemetry
+
+    p, s, tt, b, jacobi, _ = _plan_blocks(case)
+    before = cg_kernel.cg_update.launches
+    telemetry.reset()
+    with telemetry.record():
+        _, summ = pcg.solve_ba_pcg(p, s, lm.SolveConfig(max_iters=3), tables=tt, precond="jacobi")
+    spans = telemetry.spans()
+    assert summ.linear_iterations > 0 and cg_kernel.cg_update.launches == before
+    assert "pcg.solve" in {r["name"] for r in spans}
+    assert not [r for r in spans if r["name"] == "lm.node"
+                or r["attrs"].get("fused_cg_iterations", 0)]
+    bufs = pcg.cg_buffers(b.gp)
+    with pytest.raises(ValueError, match="card"):
+        cg_kernel.cg_update(bufs.s, b.gp, b.gp[:, 0], jacobi.chol, bufs.bound, bufs.i,
+                            bufs.pred, 10)
+    with pytest.raises(ValueError, match="card"):
+        schur_kernel.schur_sp(b.uy, b.gp, b.Hpp)
